@@ -1,0 +1,18 @@
+"""Mistral-Large 123B: dense decoder, GQA kv=8.
+
+Assigned config: [hf:mistralai/Mistral-Large-Instruct-2407; unverified]
+"""
+
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+name="mistral-large-123b",
+family="dense",
+n_layers=88,
+d_model=12288,
+n_heads=96,
+n_kv_heads=8,
+d_ff=28672,
+vocab=32768,
+head_dim=128,
+)

@@ -1,0 +1,32 @@
+"""Public wrappers for the hand kernels: dispatch by the tensors' device.
+
+Port of ``repro/kernels/ops.py``, whose ``on_tpu()`` / ``_interp()`` chose
+between the compiled Pallas kernel and interpret mode.  Here:
+
+* every input on the CPU -> the plain PyTorch version in ``ref.py``;
+* every input on CUDA    -> the hand kernel, which counts the launch;
+* anything else (mixed devices, or a dtype, shape or layout the kernel
+  does not take) raises.  Nothing falls back.
+"""
+
+from __future__ import annotations
+
+from repro_torch.kernels import decode_attn as _da
+from repro_torch.kernels import ref
+
+
+def _all_on_cpu(*tensors) -> bool:
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"}:
+        return True
+    if kinds == {"cuda"}:
+        return False
+    raise ValueError(f"inputs on mixed or unsupported devices: "
+                     f"{[str(t.device) for t in tensors]}")
+
+
+def decode_attn(q, k, v, length: int):
+    """q: (B, Hq, D); k/v: (B, S, Hk, D); length: int -> (B, Hq, D)."""
+    if _all_on_cpu(q, k, v):
+        return ref.decode_attn_ref(q, k, v, length)
+    return _da.decode_attn(q, k, v, length)

@@ -1,0 +1,31 @@
+"""Plain PyTorch versions of the hand kernels (the correctness ground truth).
+
+Each ``*_ref`` mirrors the semantics of ``repro/kernels/ref.py`` exactly.
+On CPU tensors the dispatch in ``ops.py`` runs these; on the card,
+``chip_smoke.py`` and the CUDA tests hold each kernel against them.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+# --- GQA flash-decode attention --------------------------------------------
+
+def decode_attn_ref(q, k, v, length):
+    """q: (B, Hq, D); k/v: (B, S, Hk, D); length: valid prefix length.
+
+    Returns (B, Hq, D): softmax(q k^T / sqrt(D)) v over the valid prefix,
+    with GQA head grouping (Hq = G * Hk), in fp32, cast back to q.dtype.
+    """
+    b, hq, d = q.shape
+    s, hk = k.shape[1], k.shape[2]
+    g = hq // hk
+    qg = q.reshape(b, hk, g, d)
+    logits = torch.einsum("bhgd,bshd->bhgs", qg.float(),
+                          k.float()) * (d ** -0.5)
+    mask = torch.arange(s, device=q.device)[None, None, None, :] < length
+    logits = torch.where(mask, logits, -1e30)
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgs,bshd->bhgd", p, v.float())
+    return out.reshape(b, hq, d).to(q.dtype)

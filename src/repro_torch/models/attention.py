@@ -1,0 +1,102 @@
+"""Attention: GQA projections, the O(S^2) oracle and cache attention.
+
+Port of ``repro/models/attention.py``.  Tensors keep the reference's
+``(B, S, H, D)`` layout.  The reference's sharding hooks
+(``context.use_params`` / ``flag`` / ``constrain``) are no-ops without an
+active rule set and are dropped here.
+
+``decode_attention`` is the plain einsum form.  It serves prefill (a block
+of new tokens with ``q_start``) and is the plain version of the one-token
+decode step, whose hot path is the hand kernel behind
+``repro_torch.kernels.ops.decode_attn``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import Spec, apply_rope
+
+NEG_INF = -1e30
+
+
+def attn_specs(cfg: ModelConfig, layered: bool = True,
+               n_layers: Optional[int] = None) -> dict:
+    d = cfg.d_model
+    hd = cfg.resolved_head_dim
+    nq, nkv = cfg.n_heads, cfg.n_kv_heads
+    nl = cfg.n_layers if n_layers is None else n_layers
+    ls, la = ((nl,), ("layers",)) if layered else ((), ())
+    return {
+        "wq": Spec(ls + (d, nq * hd), la + ("embed", "heads")),
+        "wk": Spec(ls + (d, nkv * hd), la + ("embed", "kv_heads")),
+        "wv": Spec(ls + (d, nkv * hd), la + ("embed", "kv_heads")),
+        "wo": Spec(ls + (nq * hd, d), la + ("heads", "embed")),
+    }
+
+
+def qkv_project(cfg: ModelConfig, p: dict, x, positions):
+    """x: (B, S, D) -> q (B, S, Hq, hd), k/v (B, S, Hk, hd), roped."""
+    b, s, _ = x.shape
+    hd = cfg.resolved_head_dim
+    q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, hd)
+    k = (x @ p["wk"]).reshape(b, s, cfg.n_kv_heads, hd)
+    v = (x @ p["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
+    q, k = apply_rope(q, k, positions, hd, cfg.rope_theta,
+                      cfg.mrope_sections)
+    return q, k, v
+
+
+def _expand_kv(k, groups: int):
+    """(B, S, Hk, D) -> (B, S, Hk*groups, D) by repeating each KV head."""
+    return torch.repeat_interleave(k, groups, dim=2)
+
+
+def reference_attention(q, k, v, causal: bool = True):
+    """O(S^2) oracle used by tests and tiny models.  (B,S,H,D) layout."""
+    groups = q.shape[2] // k.shape[2]
+    k, v = _expand_kv(k, groups), _expand_kv(v, groups)
+    scale = q.shape[-1] ** -0.5
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
+    if causal:
+        sq, sk = logits.shape[-2], logits.shape[-1]
+        mask = torch.ones((sq, sk), dtype=torch.bool,
+                          device=q.device).tril(diagonal=sk - sq)
+        logits = torch.where(mask, logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def decode_attention(q, k_cache, v_cache, cache_len, q_start=None):
+    """Attention of new tokens against a KV cache (decode or prefill).
+
+    q: (B, Sq, Hq, D); k/v_cache: (B, S_max, Hk, D); cache_len: (B,) valid
+    lengths AFTER the new tokens were written (entries at key positions
+    >= cache_len are masked out).  ``q_start`` (int) is the absolute
+    position of q's first token; when given, causality *within* the new
+    block is enforced: query i attends keys at positions <= q_start + i.
+    """
+    b, sq, hq, d = q.shape
+    hk = k_cache.shape[2]
+    groups = hq // hk
+    scale = d ** -0.5
+    # GQA-native grouped einsum: each KV head against its G query heads,
+    # no repeated copy of the cache.  Like the reference, q * scale is
+    # rounded to q.dtype before the product.
+    qg = (q * scale).reshape(b, sq, hk, groups, d)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k_cache).float()
+    k_pos = torch.arange(k_cache.shape[1], device=q.device)
+    mask = k_pos[None, :] < cache_len[:, None]              # (B, Sk)
+    mask = mask[:, None, None, None, :]                     # (B,1,1,1,Sk)
+    if q_start is not None:
+        q_pos = q_start + torch.arange(sq, device=q.device)  # (Sq,)
+        causal = k_pos[None, :] <= q_pos[:, None]           # (Sq, Sk)
+        mask = mask & causal[None, None, None, :, :]
+    logits = torch.where(mask, logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    del logits
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v_cache)
+    return out.reshape(b, sq, hq, d)                         # (B,Sq,Hq,D)

@@ -1,0 +1,37 @@
+"""Carry the reference's parameters into the port.
+
+``params_from_jax`` takes the parameter pytree of ``repro``'s
+``Model.init`` as numpy arrays (nested dicts, stacked ``layers/*`` leaves
+included) and returns the port's parameter tree: the same keys, shapes and
+``(d_in, d_out)`` layouts, as tensors on ``device``.  Tests use it to run
+both packages on identical weights.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.models import layers, transformer
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.model import DTYPES, resolve_device
+
+
+def params_from_jax(cfg: ModelConfig, tree: dict, device="cuda") -> dict:
+    device = resolve_device(device)
+    specs = dict(layers.flatten_tree(transformer.model_specs(cfg)))
+    leaves = dict(layers.flatten_tree(
+        tree, is_leaf=lambda x: not isinstance(x, dict)))
+    if leaves.keys() != specs.keys():
+        raise ValueError(f"parameter tree does not match {cfg.name}: "
+                         f"missing {sorted(specs.keys() - leaves.keys())}, "
+                         f"unexpected {sorted(leaves.keys() - specs.keys())}")
+    out = []
+    for path, arr in leaves.items():
+        arr = np.array(arr, dtype=np.float32)
+        if arr.shape != specs[path].shape:
+            raise ValueError(f"{path}: shape {arr.shape}, want "
+                             f"{specs[path].shape}")
+        out.append((path, torch.from_numpy(arr).to(
+            device=device, dtype=DTYPES[cfg.dtype])))
+    return layers.unflatten_tree(out)

@@ -1,0 +1,197 @@
+"""Shared building blocks: param specs, norms, positions, MLPs, embeddings.
+
+Port of ``repro/models/layers.py``.  Parameters are declared as
+:class:`Spec` trees (shape + logical axes + init law); ``init_params``
+materializes them deterministically on an explicit device: each leaf draws
+from its own ``torch.Generator``, seeded from the crc32 of the run's seed
+and the leaf's tree path, so adding a module never reshuffles another
+module's init.  The draws differ from the reference's threefry streams;
+tests carry the reference's parameters across with ``convert.params_from_jax``.
+
+Matrices keep the reference's ``(d_in, d_out)`` layout, applied as ``x @ W``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import zlib
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.config import ModelConfig
+
+
+# ---------------------------------------------------------------------------
+# Param specs.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Spec:
+    shape: tuple
+    axes: tuple                  # logical axis names, len == len(shape)
+    init: str = "normal"         # normal | zeros | ones
+    scale: float = 1.0           # stddev multiplier on top of fan-in scaling
+
+    def __post_init__(self):
+        assert len(self.shape) == len(self.axes), (self.shape, self.axes)
+
+
+def is_spec(x) -> bool:
+    return isinstance(x, Spec)
+
+
+def flatten_tree(tree: dict, is_leaf=is_spec, prefix: str = ""):
+    """Yield (path, leaf) of a nested dict in key order; paths join keys
+    by '/'."""
+    for name, sub in tree.items():
+        path = f"{prefix}/{name}" if prefix else name
+        if is_leaf(sub):
+            yield path, sub
+        else:
+            yield from flatten_tree(sub, is_leaf, path)
+
+
+def unflatten_tree(items) -> dict:
+    """Inverse of ``flatten_tree``: (path, leaf) pairs -> nested dict."""
+    out: dict = {}
+    for path, leaf in items:
+        *parents, name = path.split("/")
+        node = out
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[name] = leaf
+    return out
+
+
+def _leaf_generator(seed: int, path: str, device) -> torch.Generator:
+    gen = torch.Generator(device=device)
+    # The CPU generator keeps only 32 bits of its seed: fold both in there.
+    gen.manual_seed(zlib.crc32(f"{seed}/{path}".encode()))
+    return gen
+
+
+def _materialize(spec: Spec, seed: int, path: str, dtype, device):
+    if spec.init == "zeros":
+        return torch.zeros(spec.shape, dtype=dtype, device=device)
+    if spec.init == "ones":
+        return torch.ones(spec.shape, dtype=dtype, device=device)
+    fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
+    std = spec.scale / max(fan_in, 1) ** 0.5
+    x = torch.randn(spec.shape, dtype=torch.float32, device=device,
+                    generator=_leaf_generator(seed, path, device))
+    return (x * std).to(dtype)
+
+
+def init_params(spec_tree, seed: int, dtype, device):
+    """Materialize a Spec tree into tensors on ``device`` (path-seeded)."""
+    return unflatten_tree(
+        (path, _materialize(spec, seed, path, dtype, device))
+        for path, spec in flatten_tree(spec_tree))
+
+
+def param_count(spec_tree) -> int:
+    total = 0
+    for _, s in flatten_tree(spec_tree):
+        n = 1
+        for d in s.shape:
+            n *= d
+        total += n
+    return total
+
+
+# ---------------------------------------------------------------------------
+# Norms.
+# ---------------------------------------------------------------------------
+
+def rms_norm(x, w, eps: float):
+    """RMSNorm in fp32, scaled by ``1 + w`` (zero-initialized weights)."""
+    dtype = x.dtype
+    x = x.float()
+    var = x.square().mean(dim=-1, keepdim=True)
+    out = x * torch.rsqrt(var + eps)
+    return (out * (1.0 + w.float())).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Rotary positions.
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device=None):
+    half = head_dim // 2
+    exps = torch.arange(0, half, dtype=torch.float32, device=device) / half
+    return 1.0 / theta ** exps
+
+
+def _rotate(x, cos, sin):
+    """Rotate the two halves of the last axis (not interleaved pairs)."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+def apply_rope(q, k, positions, head_dim: int, theta: float,
+               mrope_sections: Optional[tuple] = None):
+    """Rotary embedding.  q: (B, S, Hq, D), k: (B, S, Hk, D);
+    positions: (B, S) integer."""
+    if mrope_sections is not None:
+        raise NotImplementedError("M-RoPE (vlm family) is not ported yet")
+    inv = rope_freqs(head_dim, theta, device=q.device)      # (half,)
+    angles = positions.float()[..., None] * inv             # (B, S, half)
+    cos = torch.cos(angles)[:, :, None, :].to(q.dtype)
+    sin = torch.sin(angles)[:, :, None, :].to(q.dtype)
+    return _rotate(q, cos, sin), _rotate(k, cos, sin)
+
+
+# ---------------------------------------------------------------------------
+# MLP.
+# ---------------------------------------------------------------------------
+
+def mlp_specs(cfg: ModelConfig, layered: bool = True) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    ls, la = ((cfg.n_layers,), ("layers",)) if layered else ((), ())
+    if cfg.activation == "swiglu":
+        return {
+            "wi": Spec(ls + (d, f), la + ("embed", "mlp")),
+            "wg": Spec(ls + (d, f), la + ("embed", "mlp")),
+            "wo": Spec(ls + (f, d), la + ("mlp", "embed")),
+        }
+    return {
+        "wi": Spec(ls + (d, f), la + ("embed", "mlp")),
+        "wo": Spec(ls + (f, d), la + ("mlp", "embed")),
+    }
+
+
+def mlp_apply(cfg: ModelConfig, p: dict, x):
+    if cfg.activation == "swiglu":
+        h = F.silu(x @ p["wg"]) * (x @ p["wi"])
+    elif cfg.activation == "gelu":
+        # jax.nn.gelu defaults to the tanh approximation.
+        h = F.gelu(x @ p["wi"], approximate="tanh")
+    elif cfg.activation == "relu2":
+        h = F.relu(x @ p["wi"]).square()
+    else:
+        raise ValueError(cfg.activation)
+    return h @ p["wo"]
+
+
+# ---------------------------------------------------------------------------
+# Embedding / unembedding.
+# ---------------------------------------------------------------------------
+
+def embed_specs(cfg: ModelConfig) -> dict:
+    out = {"tokens": Spec((cfg.vocab, cfg.d_model), ("vocab", "embed"))}
+    if not cfg.tie_embeddings:
+        out["head"] = Spec((cfg.d_model, cfg.vocab), ("embed", "vocab"))
+    return out
+
+
+def embed_apply(cfg: ModelConfig, p: dict, token_ids):
+    return F.embedding(token_ids, p["tokens"])
+
+
+def unembed_matrix(cfg: ModelConfig, p: dict):
+    if cfg.tie_embeddings:
+        return p["tokens"].T
+    return p["head"]

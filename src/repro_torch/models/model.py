@@ -1,0 +1,105 @@
+"""Public model API: init / prefill / decode_step / greedy_generate.
+
+Port of ``repro/models/model.py`` for the serving path of the dense family.
+Every entry point runs on an explicit device: ``cuda`` unless the caller
+asks for ``cpu``.  Asking for ``cuda`` where there is no card raises; the
+model never carries on on the CPU.  Training (``loss``) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.models import layers, transformer
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.transformer import forward, init_cache
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def resolve_device(device) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' requested but torch sees no CUDA "
+                           "card; pass device='cpu' to run on the CPU")
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device}")
+    return device
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    cfg: ModelConfig
+    device: str | torch.device = "cuda"
+
+    def __post_init__(self):
+        transformer.check_ported(self.cfg)
+        object.__setattr__(self, "device", resolve_device(self.device))
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return DTYPES[self.cfg.dtype]
+
+    # -- parameters ---------------------------------------------------------
+    def specs(self):
+        return transformer.model_specs(self.cfg)
+
+    def init(self, seed: int):
+        return layers.init_params(self.specs(), seed, self.dtype,
+                                  self.device)
+
+    def param_count(self) -> int:
+        return layers.param_count(self.specs())
+
+    # -- serving ------------------------------------------------------------
+    def _to_batch(self, batch: dict) -> dict:
+        """Move a batch of numpy arrays or tensors to this model's device."""
+        return {k: torch.as_tensor(v, device=self.device)
+                for k, v in batch.items()}
+
+    def make_cache(self, batch_size: int, max_len: int):
+        return init_cache(self.cfg, batch_size, max_len, self.dtype,
+                          self.device)
+
+    def _logits(self, params, h):
+        w_head = layers.unembed_matrix(self.cfg, params["embed"])
+        return (h[:, -1, :] @ w_head).float()
+
+    def prefill(self, params, batch, cache):
+        """Run a prompt through the model, filling ``cache`` in place.
+
+        Returns (last-position logits (B, V), cache)."""
+        h, cache = forward(self.cfg, params, self._to_batch(batch),
+                           cache=cache)
+        return self._logits(params, h), cache
+
+    def decode_step(self, params, step_batch, cache,
+                    plain_decode: bool = False):
+        """One-token decode: step_batch holds (B, 1) tokens + positions.
+
+        Returns (logits (B, V), new cache).  ``plain_decode`` swaps the
+        attention kernel for its plain version (path comparison only)."""
+        h, cache = forward(self.cfg, params, self._to_batch(step_batch),
+                           cache=cache, plain_decode=plain_decode)
+        return self._logits(params, h), cache
+
+    def greedy_generate(self, params, batch, cache, steps: int):
+        """Greedy decoding: prefill, then ``steps`` one-token decode steps.
+
+        Returns (tokens (B, steps) int32 on the device, cache)."""
+        logits, cache = self.prefill(params, batch, cache)
+        tok = logits.argmax(dim=-1).to(torch.int32)
+        toks = []
+        for _ in range(steps):
+            pos = torch.full((tok.shape[0], 1), cache["len"],
+                             dtype=torch.int32, device=self.device)
+            sb = dict(tokens=tok[:, None], positions=pos)
+            logits, cache = self.decode_step(params, sb, cache)
+            tok = logits.argmax(dim=-1).to(torch.int32)
+            toks.append(tok)
+        if not toks:
+            return torch.empty((tok.shape[0], 0), dtype=torch.int32,
+                               device=self.device), cache
+        return torch.stack(toks, dim=1), cache
