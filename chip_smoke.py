@@ -5,25 +5,34 @@
 
 Phases; any failure exits non-zero and no phase swallows one:
   1. print the card (nvidia-smi name, power limit) and build every kernel
-     of the serving path from ``src/repro_torch/kernels/csrc``;
+     of the serving paths from ``src/repro_torch/kernels/csrc`` (one nvcc
+     per source, all started together);
   2. hold each kernel against its plain PyTorch version on the card, at the
-     shapes the path gives it and at a GQA shape, in bf16 and f32, with
-     lengths that are not tile multiples, and with poisoned cache tails;
-  3. drive the serving path once through ``repro_torch.launch.serve.main``:
-     stablelm-1.6b at full width, bf16, batch 8, prompt 1024, 32 new
-     tokens, random weights from a seed; every kernel's launch count must
-     be exactly what the path implies (decode_attn: gen x n_layers);
-  4. path check: the first decode step's logits through the kernel and
-     through the plain ``decode_attention`` must agree; time decode steps
-     on both paths and profile the device's busy share;
-  5. time each kernel at the path's shape beside its bound, its plain
-     version and the PyTorch library call that computes the same function.
+     shapes the paths give it and beyond, in bf16 and f32: decode_attn at
+     lengths that are not tile multiples and with poisoned cache tails;
+     wkv at ragged lengths, both decay ranges, and chained bit-exactly;
+  3. drive each serving path once through ``repro_torch.launch.serve.main``
+     at full width, bf16, batch 8, prompt 1024, 32 new tokens, random
+     weights from a seed, with every kernel's launch count set to 0 just
+     before and read just after; each count must be exactly what the path
+     implies:
+       stablelm-1.6b: decode_attn gen x n_layers, wkv 0;
+       rwkv6-1.6b:    wkv (gen + 2) x n_layers (serve's timed prefill,
+                      greedy_generate's prefill and gen steps), decode_attn 0;
+  4. per path: prefill and first-decode-step logits through the kernels
+     and through their plain versions must agree (stablelm in bf16,
+     rwkv6 in float32); time decode steps on both paths in bf16 and
+     profile the device's busy share and the kernel's time a launch;
+  5. time each kernel at the paths' shapes beside its bound, its plain
+     version and the PyTorch library call that computes the same function
+     (none for wkv).
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``.  Needs one CUDA card, nvcc, and
 nothing of JAX.
 """
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -36,25 +45,42 @@ import torch.nn.functional as F
 HERE = Path(__file__).resolve().parent
 sys.path.insert(0, str(HERE / "src"))
 
-ARCH = "stablelm-1.6b"
+DENSE_ARCH, SSM_ARCH = "stablelm-1.6b", "rwkv6-1.6b"
 BATCH, PROMPT, GEN, SEED = 8, 1024, 32, 0
 # float32: the reference's own kernel-test tolerance.  bfloat16: kernel and
 # plain version both compute in fp32 and round once to bf16, so they may
 # sit one bf16 rounding step apart (spacing <= 2**-6 for |x| < 4).
 KERNEL_TOL = {torch.float32: dict(atol=2e-5, rtol=2e-3),
               torch.bfloat16: dict(atol=1e-2, rtol=1e-2)}
-# Logits of the first decode step, kernel path against plain path, in
-# bf16.  The paths differ only in the decode attention of one token: the
-# plain one rounds q*scale and the probabilities to bf16 (as the reference
-# does), the kernel keeps fp32.  Per layer that moves the attention output
-# by about one bf16 step (2**-8 relative); through 24 layers and the head
-# the logits (|logit| ~ 1..5) may move by a few bf16 steps at most.
-LOGIT_TOL = 0.125
+# wkv: the reference's own kernel-test tolerance (tests/test_kernels.py).
+# It holds for bf16 r/k/v too: kernel and plain version read the same bf16
+# values and compute in fp32; only the order of the fp32 sums differs.
+WKV_TOL = dict(atol=1e-4, rtol=1e-4)
+# Logits, kernel path against plain path (phase 4), by path: the dtype the
+# check runs in and the largest max|dlogit| it allows.
+#  * stablelm-1.6b, bf16 (the served dtype): the paths differ only in the
+#    decode attention of one token: the plain one rounds q*scale and the
+#    probabilities to bf16 (as the reference does), the kernel keeps fp32.
+#    Per layer that moves the attention output by about one bf16 step
+#    (2**-8 relative); through 24 layers and the head the logits
+#    (|logit| ~ 1..5) may move by a few bf16 steps at most.
+#  * rwkv6-1.6b, float32: in bf16 a change in the order of wkv's fp32 sums
+#    flips bf16 roundings of y that every later step of a 1024-token
+#    prefill and every later layer carry, and moves the logits by as much
+#    as a faulty kernel would.  In float32 the paths differ only in that
+#    order (~1e-6 relative on y and the state); amplified even a hundred
+#    times through 24 layers, logits of |logit| <= 5 move by ~5e-4.  A
+#    kernel that kept its state in bf16 (2**-9 relative a step, carried
+#    over the ~20-step memory of the model's decay) would move them by
+#    ~1e-1.  The gate sits between the two.
+PATH_CHECK = {DENSE_ARCH: (torch.bfloat16, 0.125),
+              SSM_ARCH: (torch.float32, 1e-2)}
 # Published peaks of the H100 parts (NVIDIA data sheets, dense): HBM
-# bytes/s and bf16 tensor-core FLOP/s, picked by the card's name.
-PEAKS = {"PCIe": (2.0e12, 756e12),
-         "NVL": (3.9e12, 835e12),
-         "SXM": (3.35e12, 989e12)}
+# bytes/s, bf16 tensor-core FLOP/s and fp32 CUDA-core FLOP/s, picked by
+# the card's name.
+PEAKS = {"PCIe": (2.0e12, 756e12, 51e12),
+         "NVL": (3.9e12, 835e12, 60e12),
+         "SXM": (3.35e12, 989e12, 67e12)}
 
 
 def fail(msg: str):
@@ -95,7 +121,7 @@ def rand_qkv(b, hq, hk, d, s, dtype, seed):
     return mk(b, hq, d), mk(b, s, hk, d), mk(b, s, hk, d)
 
 
-def check_kernel(da, ref, shape, dtype, lengths, seed):
+def check_decode_attn(da, ref, shape, dtype, lengths, seed):
     """Kernel against plain on the card; returns the max |error|."""
     b, hq, hk, d, s = shape
     q, k, v = rand_qkv(b, hq, hk, d, s, dtype, seed)
@@ -125,9 +151,63 @@ def check_kernel(da, ref, shape, dtype, lengths, seed):
     return worst
 
 
+def rand_wkv(b, t, h, d, dtype, decay, seed):
+    """r, k, v in ``dtype``; w, u, s0 in fp32.  ``decay`` "model" is
+    time_mix's exp(-exp(N(0,1) - 3)); "sigmoid" is the reference test's
+    sigmoid(N(0,1)) * 0.5 + 0.5."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    mk = lambda *shape: torch.randn(*shape, device="cuda", generator=gen)
+    r, k, v = (mk(b, t, h, d).to(dtype) for _ in range(3))
+    z = mk(b, t, h, d)
+    w = torch.exp(-torch.exp(z - 3.0)) if decay == "model" else \
+        torch.sigmoid(z) * 0.5 + 0.5
+    return r, k, v, w, mk(h, d), mk(b, h, d, d)
+
+
+def check_wkv(kw, ref, shape, dtype, decay, seed):
+    """wkv against wkv_ref on the card, then wkv over T against two
+    chained pieces (bit-exact); returns the max |error| against plain."""
+    b, t, h, d = shape
+    r, k, v, w, u, s0 = rand_wkv(b, t, h, d, dtype, decay, seed)
+    y, s = kw.wkv(r, k, v, w, u, s0)
+    y_ref, s_ref = ref.wkv_ref(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    err = max((y - y_ref).abs().max().item(), (s - s_ref).abs().max().item())
+    ok = torch.allclose(y, y_ref, **WKV_TOL) and \
+        torch.allclose(s, s_ref, **WKV_TOL)
+    log(f"  wkv {dtype} w~{decay} B{b} T{t} H{h} D{d}: max|err| {err:.3e} "
+        f"(|y| <= {y_ref.abs().max().item():.1f}, atol {WKV_TOL['atol']}, "
+        f"rtol {WKV_TOL['rtol']}) {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        fail(f"wkv disagrees with wkv_ref at {shape}, {dtype}, w~{decay}")
+    if t > 1:
+        cut = t // 3 + 1
+        piece = lambda x, sl: x[:, sl].contiguous()
+        y1, s1 = kw.wkv(*(piece(x, slice(0, cut)) for x in (r, k, v, w)),
+                        u, s0)
+        y2, s2 = kw.wkv(*(piece(x, slice(cut, None)) for x in (r, k, v, w)),
+                        u, s1)
+        if not (torch.equal(torch.cat([y1, y2], dim=1), y) and
+                torch.equal(s2, s)):
+            fail(f"wkv over T != two chained pieces (cut {cut}) at {shape}, "
+                 f"{dtype}")
+        log(f"    chained at {cut}: bit-exact")
+    return err
+
+
+def wkv_cost(b, t, h, d, itemsize):
+    """(bytes, FLOP) the function needs: each input read once, y and the
+    state written once; per step and head, r . S (an FMA per state
+    element) and S * w + k v (a multiply and an FMA), plus O(D) for the
+    bonus term, which factors out: sum_i r_i u_i k_i v_j = v_j c."""
+    nbytes = b * t * h * d * (3 * itemsize + 4 + 4) + 2 * b * h * d * d * 4
+    return nbytes, 5 * b * t * h * d * d + 5 * b * t * h * d
+
+
 def profile(fn):
     """Device time of the kernels one call of ``fn`` ran (ms, or None if
-    the profiler saw none) and the eight largest kernels by time."""
+    the profiler saw none) and the kernels as (ms, name, count), largest
+    first."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -141,7 +221,147 @@ def profile(fn):
     if not rows:
         return None, []
     rows.sort(reverse=True)
-    return sum(r[0] for r in rows), rows[:8]
+    return sum(r[0] for r in rows), rows
+
+
+def serve_path(serve, kernels, arch, expected):
+    """Phase 3 for one path: counts to 0, serve once, read the counts."""
+    for kern in kernels.values():
+        kern.launches = 0
+    toks = serve.main(["--arch", arch, "--batch", str(BATCH),
+                       "--prompt-len", str(PROMPT), "--gen", str(GEN),
+                       "--seed", str(SEED)])
+    launches = {name: kern.launches for name, kern in kernels.items()}
+    log(f"{arch}: kernel launches on the serving path: {launches} "
+        f"(expected {expected})")
+    if launches != expected:
+        fail(f"{arch}: launch counts {launches} != {expected}")
+    return toks, launches
+
+
+def clone_cache(cache):
+    """A copy of a decode cache: a pass writes its cache in place."""
+    return {k: (v.clone() if torch.is_tensor(v) else v)
+            for k, v in cache.items()}
+
+
+def prompt_of(SyntheticDataset, cfg):
+    return {k: v for k, v in SyntheticDataset(
+        cfg, BATCH, PROMPT, seed=SEED + 1).batch_at(0).items()
+        if k in ("tokens", "positions")}
+
+
+def step_of(tok, cache):
+    return dict(tokens=tok[:, None], positions=torch.full(
+        (BATCH, 1), cache["len"], dtype=torch.int32, device="cuda"))
+
+
+def path_check(Model, SyntheticDataset, cfg, s_max, tol):
+    """Phase 4's check for one path, at ``cfg``'s dtype: prefill and
+    first-step logits, kernels against their plain versions."""
+    arch = cfg.name
+    with torch.inference_mode():
+        model = Model(cfg)
+        params = model.init(SEED)
+        prompt = prompt_of(SyntheticDataset, cfg)
+        prefill, caches = {}, {}
+        for path in ("kernel", "plain"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prefill[path], caches[path] = model.prefill(
+                params, prompt, model.make_cache(BATCH, s_max),
+                plain_kernels=path != "kernel")
+            torch.cuda.synchronize()
+            log(f"{arch} {cfg.dtype}: prefill {BATCH}x{PROMPT} tokens "
+                f"({path} path, warm): "
+                f"{(time.perf_counter() - t0) * 1e3:.3f} ms")
+        # Both steps from the kernel path's prefill; each from its copy.
+        cache = caches.pop("kernel")
+        tok = prefill["kernel"].argmax(-1).to(torch.int32)
+        step = {path: model.decode_step(
+            params, step_of(tok, cache), clone_cache(cache),
+            plain_kernels=path != "kernel")[0] for path in ("kernel", "plain")}
+        torch.cuda.synchronize()
+        worst = 0.0
+        for what, lg in (("prefill", prefill), ("first decode step", step)):
+            for path, x in lg.items():
+                if not torch.isfinite(x).all():
+                    fail(f"{arch}: non-finite logits on the {what} ({path})")
+                if x.shape != (BATCH, cfg.vocab):
+                    fail(f"{arch}: logits shape {tuple(x.shape)}")
+            dlogit = (lg["kernel"] - lg["plain"]).abs().max().item()
+            agree = (lg["kernel"].argmax(-1) == lg["plain"].argmax(-1)
+                     ).float().mean().item()
+            log(f"{arch} {cfg.dtype}: path check, {what}: max|logit| "
+                f"{lg['kernel'].abs().max().item():.3f}, max|dlogit| kernel "
+                f"vs plain {dlogit:.4e} (tol {tol:.4e}); greedy-token "
+                f"agreement {agree * 100:.1f}% of {BATCH}")
+            if dlogit > tol:
+                fail(f"{arch}: kernel path logits differ from plain path by "
+                     f"{dlogit} on the {what} (tol {tol})")
+            worst = max(worst, dlogit)
+        del params, model, caches, cache
+    torch.cuda.empty_cache()
+    return worst
+
+
+def decode_timing(Model, SyntheticDataset, cfg, s_max, symbol):
+    """Phase 4's timing for one path: decode steps on both paths, the
+    device's busy share, and the device time a launch of the path's kernel
+    (``symbol``) over those steps, in ms (None if the profiler saw none)."""
+    arch = cfg.name
+    with torch.inference_mode():
+        model = Model(cfg)
+        params = model.init(SEED)
+        logits, cache = model.prefill(params, prompt_of(SyntheticDataset, cfg),
+                                      model.make_cache(BATCH, s_max))
+        tok = logits.argmax(-1).to(torch.int32)
+        n_steps = 8
+
+        def decode_run(plain: bool, c):
+            t = tok
+            for _ in range(n_steps):
+                lg, c = model.decode_step(params, step_of(t, c), c,
+                                          plain_kernels=plain)
+                t = lg.argmax(-1).to(torch.int32)
+            torch.cuda.synchronize()
+
+        step_ms = {}
+        for plain in (True, False, False, True):
+            decode_run(plain, clone_cache(cache))              # warm
+            c = clone_cache(cache)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            decode_run(plain, c)
+            ms = (time.perf_counter() - t0) * 1e3 / n_steps
+            step_ms.setdefault("plain" if plain else "kernel", []).append(ms)
+        for key, vals in step_ms.items():
+            log(f"{arch}: decode step ({key} path), batch {BATCH}, "
+                f"context {PROMPT}..{PROMPT + n_steps}: "
+                f"{', '.join(f'{v:.3f}' for v in vals)} ms/step -> "
+                f"{BATCH * 1e3 / min(vals):.1f} tok/s")
+        c = clone_cache(cache)
+        torch.cuda.synchronize()
+        dev_ms, top = profile(lambda: decode_run(False, c))
+        per_launch = None
+        if dev_ms is None:
+            log(f"{arch}: device busy share: not measured (profiler gave no "
+                f"device time)")
+        else:
+            wall = min(step_ms["kernel"]) * n_steps
+            log(f"{arch}: device kernel time over {n_steps} kernel-path "
+                f"decode steps: {dev_ms:.3f} ms of {wall:.3f} ms unprofiled "
+                f"wall -> busy share {dev_ms / wall:.3f}")
+            for ms, key, count in top[:8]:
+                log(f"  {ms:9.3f} ms  x{count:<5d} {key[:90]}")
+            mine = [(ms, n) for ms, key, n in top if symbol in key]
+            if mine:
+                per_launch = mine[0][0] / mine[0][1]
+                log(f"{arch}: {symbol} on the decode steps: "
+                    f"{per_launch:.5f} ms a launch (x{mine[0][1]})")
+        del params, cache, model
+    torch.cuda.empty_cache()
+    return per_launch
 
 
 def main():
@@ -152,6 +372,7 @@ def main():
     from repro_torch.data.pipeline import SyntheticDataset
     from repro_torch.kernels import build, ref
     from repro_torch.kernels import decode_attn as da
+    from repro_torch.kernels import rwkv_wkv as kw
     from repro_torch.launch import serve
     from repro_torch.models.model import Model
 
@@ -162,15 +383,16 @@ def main():
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     name = torch.cuda.get_device_name(0)
-    part, (peak_bw, peak_bf16) = peaks(name)
+    part, (peak_bw, peak_bf16, peak_f32) = peaks(name)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} card {name} "
         f"({part} peaks: {peak_bw / 1e12} TB/s, {peak_bf16 / 1e12} TFLOP/s "
-        f"bf16)")
+        f"bf16 tensor cores, {peak_f32 / 1e12} TFLOP/s fp32)")
+    kernels = {kname: kern for family in serve.PATH_KERNELS.values()
+               for kname, kern in family.items()}
     t0 = time.time()
-    kernels = [da.KERNEL]
-    build.load_all([kern.library for kern in kernels])
-    log(f"built the kernels in {time.time() - t0:.1f} s")
-    for kern in kernels:
+    build.load_all([kern.library for kern in kernels.values()])
+    log(f"built the kernels {sorted(kernels)} in {time.time() - t0:.1f} s")
+    for kern in kernels.values():
         for line in kern.library.ptxas_log.splitlines():
             if any(w in line for w in ("entry function", "registers",
                                        "spill")):
@@ -178,104 +400,58 @@ def main():
         kern.fn()
 
     # -- phase 2: each kernel against its plain version -------------------
-    cfg = get_config(ARCH)
-    d = cfg.resolved_head_dim
+    dense = get_config(DENSE_ARCH)
+    ssm = get_config(SSM_ARCH)
+    d = dense.resolved_head_dim
     s_max = PROMPT + GEN
-    slice_shape = (BATCH, cfg.n_heads, cfg.n_kv_heads, d, s_max)
+    slice_shape = (BATCH, dense.n_heads, dense.n_kv_heads, d, s_max)
     gqa_shape = (8, 24, 2, 128, 4096)       # starcoder2-3b's attention
-    path_err = 0.0
+    path_err = {}
     for dtype in (torch.bfloat16, torch.float32):
-        err = check_kernel(da, ref, slice_shape, dtype,
-                           [1, 333, PROMPT + 1, PROMPT + 17, s_max], seed=1)
+        err = check_decode_attn(da, ref, slice_shape, dtype,
+                                [1, 333, PROMPT + 1, PROMPT + 17, s_max],
+                                seed=1)
         if dtype == torch.bfloat16:
-            path_err = err
-        check_kernel(da, ref, gqa_shape, dtype, [1, 1000, 4095, 4096],
-                     seed=2)
+            path_err["decode_attn"] = err
+        check_decode_attn(da, ref, gqa_shape, dtype, [1, 1000, 4095, 4096],
+                          seed=2)
+    h, hd = ssm.rwkv_heads, ssm.rwkv_head_dim
+    path_err["wkv"] = 0.0
+    seed = 10
+    for dtype in (torch.bfloat16, torch.float32):
+        for decay in ("model", "sigmoid"):
+            for t in (1, 7, 128, 1000, PROMPT):
+                seed += 1
+                err = check_wkv(kw, ref, (BATCH, t, h, hd), dtype, decay,
+                                seed)
+                if dtype == torch.bfloat16 and decay == "model":
+                    path_err["wkv"] = max(path_err["wkv"], err)
+            seed += 1
+            check_wkv(kw, ref, (2, 40, 4, 16), dtype, decay, seed)  # smoke
 
-    # -- phase 3: the serving path at full width --------------------------
-    for kern in kernels:
-        kern.launches = 0
-    toks = serve.main(["--arch", ARCH, "--batch", str(BATCH),
-                       "--prompt-len", str(PROMPT), "--gen", str(GEN),
-                       "--seed", str(SEED)])
-    launches = {"decode_attn": da.KERNEL.launches}
-    expected = {"decode_attn": GEN * cfg.n_layers}
-    log(f"kernel launches on the serving path: {launches} "
-        f"(expected {expected})")
-    if launches != expected:
-        fail(f"launch counts {launches} != {expected}")
-    if toks.shape != (BATCH, GEN) or toks.min() < 0 or toks.max() >= cfg.vocab:
-        fail(f"bad generated tokens: shape {toks.shape}, range "
-             f"[{toks.min()}, {toks.max()}]")
+    # -- phase 3: the serving paths at full width --------------------------
+    launches = {}
+    for arch, cfg, kname, expected in (
+            (DENSE_ARCH, dense, "decode_attn",
+             {"decode_attn": GEN * dense.n_layers, "wkv": 0}),
+            (SSM_ARCH, ssm, "wkv",
+             {"decode_attn": 0, "wkv": (GEN + 2) * ssm.n_layers})):
+        toks, counts = serve_path(serve, kernels, arch, expected)
+        launches[kname] = counts[kname]
+        if toks.shape != (BATCH, GEN) or toks.min() < 0 or \
+                toks.max() >= cfg.vocab:
+            fail(f"{arch}: bad generated tokens: shape {toks.shape}, "
+                 f"range [{toks.min()}, {toks.max()}]")
 
-    # -- phase 4: path check and decode-step timing -----------------------
-    with torch.inference_mode():
-        model = Model(cfg)
-        params = model.init(SEED)
-        prompt = {k: v for k, v in SyntheticDataset(
-            cfg, BATCH, PROMPT, seed=SEED + 1).batch_at(0).items()
-            if k in ("tokens", "positions")}
-        cache = model.make_cache(BATCH, s_max)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        logits0, cache = model.prefill(params, prompt, cache)
-        torch.cuda.synchronize()
-        log(f"prefill {BATCH}x{PROMPT} tokens (warm): "
-            f"{(time.perf_counter() - t0) * 1e3:.3f} ms")
-        tok = logits0.argmax(-1).to(torch.int32)
-        step_batch = dict(tokens=tok[:, None], positions=torch.full(
-            (BATCH, 1), cache["len"], dtype=torch.int32, device="cuda"))
-        lk, _ = model.decode_step(params, step_batch, cache)
-        lp, _ = model.decode_step(params, step_batch, cache,
-                                  plain_decode=True)
-        torch.cuda.synchronize()
-        if not (torch.isfinite(lk).all() and torch.isfinite(lp).all()):
-            fail("non-finite logits on the decode step")
-        if lk.shape != (BATCH, cfg.vocab):
-            fail(f"logits shape {tuple(lk.shape)}")
-        dlogit = (lk - lp).abs().max().item()
-        agree = (lk.argmax(-1) == lp.argmax(-1)).float().mean().item()
-        log(f"path check: max|logit| {lk.abs().max().item():.3f}, "
-            f"max|dlogit| kernel vs plain {dlogit:.4e} (tol {LOGIT_TOL}); "
-            f"greedy-token agreement {agree * 100:.1f}% of {BATCH}")
-        if dlogit > LOGIT_TOL:
-            fail(f"kernel path logits differ from plain path by {dlogit}")
-
-        n_steps = 8
-
-        def decode_run(plain: bool):
-            c, t = cache, tok
-            for _ in range(n_steps):
-                sb = dict(tokens=t[:, None], positions=torch.full(
-                    (BATCH, 1), c["len"], dtype=torch.int32, device="cuda"))
-                lg, c = model.decode_step(params, sb, c, plain_decode=plain)
-                t = lg.argmax(-1).to(torch.int32)
-            torch.cuda.synchronize()
-
-        step_ms = {}
-        for plain in (True, False, False, True):
-            decode_run(plain)                      # warm
-            t0 = time.perf_counter()
-            decode_run(plain)
-            ms = (time.perf_counter() - t0) * 1e3 / n_steps
-            step_ms.setdefault("plain" if plain else "kernel", []).append(ms)
-        for key, vals in step_ms.items():
-            log(f"decode step ({key} attention), batch {BATCH}, context "
-                f"{PROMPT}..{PROMPT + n_steps}: "
-                f"{', '.join(f'{v:.3f}' for v in vals)} ms/step -> "
-                f"{BATCH * 1e3 / min(vals):.1f} tok/s")
-        dev_ms, top = profile(lambda: decode_run(False))
-        if dev_ms is None:
-            log("device busy share: not measured (profiler gave no device "
-                "time)")
-        else:
-            wall = min(step_ms["kernel"]) * n_steps
-            log(f"device kernel time over {n_steps} kernel-path decode "
-                f"steps: {dev_ms:.3f} ms of {wall:.3f} ms unprofiled wall "
-                f"-> busy share {dev_ms / wall:.3f}")
-            for ms, key, count in top:
-                log(f"  {ms:9.3f} ms  x{count:<5d} {key[:90]}")
-        del params, cache, model
+    # -- phase 4: path checks and decode-step timing ------------------------
+    step_launch_ms = {}
+    for cfg, kname, symbol in ((dense, "decode_attn", "decode_attn_kernel"),
+                               (ssm, "wkv", "wkv_kernel")):
+        dtype, tol = PATH_CHECK[cfg.name]
+        path_check(Model, SyntheticDataset, dataclasses.replace(
+            cfg, dtype=str(dtype).removeprefix("torch.")), s_max, tol)
+        step_launch_ms[kname] = decode_timing(Model, SyntheticDataset, cfg,
+                                              s_max, symbol)
 
     # -- phase 5: kernel time, bound, plain and library ----------------------
     b, hq, hk, d, s = slice_shape
@@ -310,6 +486,10 @@ def main():
         f"bound {bound_ms:.5f} ms by {bound_by} ({io_bytes} B, {flops} "
         f"FLOP) -> {bound_ms / ms:.3f} of roofline, "
         f"{io_bytes / ms / 1e6:.1f} GB/s")
+    dev = step_launch_ms["decode_attn"]
+    log(f"decode_attn on the decode steps of phase 4 (context "
+        f"{PROMPT + 1}..{PROMPT + 8}): "
+        f"{'not measured' if dev is None else f'{dev:.5f} ms a launch'}")
     gb, ghq, ghk, gd, gs = gqa_shape
     gq, gk, gv = rand_qkv(gb, ghq, ghk, gd, gs, torch.bfloat16, seed=4)
     g_ms = time_ms(lambda: da.decode_attn(gq, gk, gv, gs))
@@ -317,15 +497,80 @@ def main():
     log(f"decode_attn bf16 B{gb} Hq{ghq} Hk{ghk} D{gd} length {gs}: kernel "
         f"{g_ms:.5f} ms, bound {g_bytes / peak_bw * 1e3:.5f} ms by bytes "
         f"({gb * ghk} blocks on {torch.cuda.get_device_properties(0).multi_processor_count} SMs)")
-
-    print(json.dumps({"kernels": [{
+    entries = [{
         "name": "decode_attn", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/decode_attn.cu",
         "replaces": "src/repro/kernels/decode_attn.py:34",
-        "launches": launches["decode_attn"], "max_abs_err": path_err,
+        "launches": launches["decode_attn"],
+        "max_abs_err": path_err["decode_attn"],
         "ms": ms, "plain_ms": min(times["plain"]), "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": min(times["library"])}]}),
-        flush=True)
+        "bound_by": bound_by, "library_ms": min(times["library"])}]
+
+    # wkv at the prefill shape (the JSON line's numbers) and at a decode
+    # step.  The plain version at T = PROMPT is a Python loop over time:
+    # fewer iterations.  No single PyTorch call computes the recurrence.
+    # Events time back-to-back calls, so a launch shorter than the
+    # wrapper's host time reads as the host time; the profiler's kernel
+    # time is the device's own.
+    def wkv_line(t, w_ms, dev_ms, plain_ms, note):
+        nbytes, wflops = wkv_cost(BATCH, t, h, hd, 2)
+        t_bytes, t_ops = nbytes / peak_bw, wflops / peak_f32
+        w_bound = max(t_bytes, t_ops) * 1e3
+        w_by = "bytes" if t_bytes >= t_ops else "operations"
+        dev_txt = "not measured" if dev_ms is None else (
+            f"{dev_ms:.5f} ms a launch, {w_bound / dev_ms:.3f} of roofline")
+        log(f"wkv bf16 B{BATCH} T{t} H{h} D{hd}{note}: kernel {w_ms} ms by "
+            f"events (profiler: {dev_txt}), plain {plain_ms} ms; bound "
+            f"{w_bound:.5f} ms by {w_by} ({nbytes} B, {wflops} FLOP at "
+            f"{peak_f32 / 1e12} TFLOP/s fp32) -> {w_bound / min(w_ms):.3f} "
+            f"of roofline by events ({BATCH * h} blocks of {hd} threads)")
+        return w_bound, w_by
+
+    def wkv_dev_ms(fn, n):
+        _, rows = profile(fn)
+        dev = [(ms, c) for ms, key, c in rows if "wkv_kernel" in key]
+        if not dev:
+            return None
+        if dev[0][1] != n:
+            log(f"  the profiler saw {dev[0][1]} wkv launches of {n}")
+        return dev[0][0] / dev[0][1]
+
+    args = rand_wkv(BATCH, PROMPT, h, hd, torch.bfloat16, "model", seed=5)
+    wt = {}
+    for key, fn, it in (("plain", lambda: ref.wkv_ref(*args), 3),
+                        ("kernel", lambda: kw.wkv(*args), 50),
+                        ("kernel", lambda: kw.wkv(*args), 50),
+                        ("plain", lambda: ref.wkv_ref(*args), 3)):
+        wt.setdefault(key, []).append(time_ms(fn, iters=it, warmup=min(it, 3)))
+    w_bound, w_by = wkv_line(
+        PROMPT, wt["kernel"],
+        wkv_dev_ms(lambda: [kw.wkv(*args) for _ in range(5)], 5),
+        wt["plain"], "")
+    wkv_row = {"ms": min(wt["kernel"]), "plain_ms": min(wt["plain"]),
+               "bound_ms": w_bound, "bound_by": w_by}
+    del args
+    # T = 1: one state per layer, updated in place, as a decode step has
+    # them (24 x 4.2 MB, more than L2 holds).
+    layer_args = [rand_wkv(BATCH, 1, h, hd, torch.bfloat16, "model",
+                           seed=100 + i) for i in range(ssm.n_layers)]
+    one_pass = lambda: [kw.wkv(*a, state_out=a[5]) for a in layer_args]
+    pass_ms = [time_ms(one_pass, iters=10, warmup=2) / ssm.n_layers
+               for _ in range(2)]
+    plain_ms = [time_ms(lambda: ref.wkv_ref(*layer_args[0]))]
+    wkv_line(1, pass_ms, wkv_dev_ms(one_pass, ssm.n_layers), plain_ms,
+             f", {ssm.n_layers} distinct states in place")
+    dev = step_launch_ms["wkv"]
+    log(f"wkv at T1 on the decode steps of phase 4: "
+        f"{'not measured' if dev is None else f'{dev:.5f} ms a launch'}")
+    del layer_args
+    entries.append({
+        "name": "wkv", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rwkv_wkv.cu",
+        "replaces": "src/repro/kernels/rwkv_wkv.py:31",
+        "launches": launches["wkv"], "max_abs_err": path_err["wkv"],
+        **wkv_row, "library_ms": None})
+
+    print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -77,6 +77,49 @@ class CudaLibrary:
         return self._lib
 
 
+class Kernel:
+    """The launcher of one built library and a count of the launches made
+    through it.
+
+    ``csrc/<name>.cu`` exports ``int <name>_launch(...)``, which returns a
+    cudaError_t (0 on success) or -1 for a configuration the source does
+    not instantiate, and ``const char* <name>_error_string(int)``.
+    """
+
+    def __init__(self, name: str, argtypes):
+        self.library = CudaLibrary(name)
+        self.argtypes = list(argtypes)
+        self.launches = 0
+        self._fn = None
+        self._error_string = None
+
+    def fn(self):
+        """The launcher, building and loading the library at first use."""
+        if self._fn is None:
+            lib = self.library.load()
+            fn = getattr(lib, f"{self.library.name}_launch")
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            err = getattr(lib, f"{self.library.name}_error_string")
+            err.argtypes = [ctypes.c_int]
+            err.restype = ctypes.c_char_p
+            self._fn, self._error_string = fn, err
+        return self._fn
+
+    def launch(self, *args, config: str) -> None:
+        """Launch once; raises if the launch was refused, else counts it.
+        ``config`` names the instantiation asked for, for the error."""
+        err = self.fn()(*args)
+        name = self.library.name
+        if err == -1:
+            raise ValueError(f"{name}: no kernel built for {config} "
+                             f"(see csrc/{name}.cu)")
+        if err:
+            raise RuntimeError(f"{name} launch failed: "
+                               f"{self._error_string(err).decode()}")
+        self.launches += 1
+
+
 def load_all(libraries) -> None:
     """Build every library at once (one nvcc each, all started together),
     then load them."""

@@ -17,38 +17,16 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.build import CudaLibrary
+from repro_torch.kernels.build import Kernel
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-class Kernel:
-    """The built library and a count of the launches made through it."""
-
-    def __init__(self):
-        self.library = CudaLibrary("decode_attn")
-        self.launches = 0
-        self._fn = None
-
-    def fn(self):
-        if self._fn is None:
-            lib = self.library.load()
-            fn = lib.decode_attn_launch
-            fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                           ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            lib.decode_attn_error_string.argtypes = [ctypes.c_int]
-            lib.decode_attn_error_string.restype = ctypes.c_char_p
-            self._fn = fn
-        return self._fn
-
-    def error_string(self, err: int) -> str:
-        return self.library.load().decode_attn_error_string(err).decode()
-
-
-KERNEL = Kernel()
+KERNEL = Kernel("decode_attn", [
+    ctypes.c_int, ctypes.c_int, ctypes.c_int,             # is_bf16, D, G
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,    # q, k, v
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_int,          # out, B, S
+    ctypes.c_int, ctypes.c_int, ctypes.c_void_p])         # Hk, length, stream
 
 
 def _check(q, k, v, length):
@@ -85,16 +63,9 @@ def decode_attn(q, k, v, length: int):
     b, hq, d = q.shape
     _, s, hk, _ = k.shape
     out = torch.empty_like(q)
-    fn = KERNEL.fn()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        err = fn(DTYPES[q.dtype], d, hq // hk, q.data_ptr(), k.data_ptr(),
-                 v.data_ptr(), out.data_ptr(), b, s, hk, length, stream)
-    if err == -1:
-        raise ValueError(f"decode_attn: no kernel built for head dim {d}, "
-                         f"group {hq // hk} (see csrc/decode_attn.cu)")
-    if err:
-        raise RuntimeError(f"decode_attn launch failed: "
-                           f"{KERNEL.error_string(err)}")
-    KERNEL.launches += 1
+        KERNEL.launch(DTYPES[q.dtype], d, hq // hk, q.data_ptr(),
+                      k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, hk,
+                      length, stream, config=f"head dim {d}, group {hq // hk}")
     return out

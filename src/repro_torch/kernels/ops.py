@@ -13,6 +13,7 @@ from __future__ import annotations
 
 from repro_torch.kernels import decode_attn as _da
 from repro_torch.kernels import ref
+from repro_torch.kernels import rwkv_wkv as _wkv
 
 
 def _all_on_cpu(*tensors) -> bool:
@@ -30,3 +31,14 @@ def decode_attn(q, k, v, length: int):
     if _all_on_cpu(q, k, v):
         return ref.decode_attn_ref(q, k, v, length)
     return _da.decode_attn(q, k, v, length)
+
+
+def wkv(r, k, v, w, u, state, state_out=None):
+    """r/k/v/w: (B, T, H, D); u: (H, D); state: (B, H, D, D) fp32.
+
+    Returns (y (B, T, H, D) fp32, final state (B, H, D, D) fp32); the
+    final state goes into ``state_out`` when given (it may be ``state``)."""
+    extra = () if state_out is None else (state_out,)
+    if _all_on_cpu(r, k, v, w, u, state, *extra):
+        return ref.wkv_ref(r, k, v, w, u, state, state_out)
+    return _wkv.wkv(r, k, v, w, u, state, state_out)

@@ -29,3 +29,26 @@ def decode_attn_ref(q, k, v, length):
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgs,bshd->bhgd", p, v.float())
     return out.reshape(b, hq, d).to(q.dtype)
+
+
+# --- RWKV6 WKV recurrence ---------------------------------------------------
+
+def wkv_ref(r, k, v, w, u, state, state_out=None):
+    """r/k/v/w: (B, T, H, D); u: (H, D); state: (B, H, D, D) fp32.
+
+    y_t = r_t . (S_{t-1} + u * k_t^T v_t);  S_t = diag(w_t) S_{t-1} + k_t^T v_t
+    Returns (y (B, T, H, D) fp32, final state (B, H, D, D) fp32).  The
+    final state is copied into ``state_out`` when given (which may be
+    ``state`` itself), as the kernel writes it.
+    """
+    r, k, v, w = (t.float() for t in (r, k, v, w))
+    uu = u.float()[None, :, :, None]
+    s = state.float()
+    ys = []
+    for t in range(r.shape[1]):
+        a = k[:, t, :, :, None] * v[:, t, :, None, :]       # (B,H,D,D) outer
+        ys.append(torch.einsum("bhk,bhkv->bhv", r[:, t], s + uu * a))
+        s = s * w[:, t, :, :, None] + a
+    if state_out is not None:
+        s = state_out.copy_(s)
+    return torch.stack(ys, dim=1), s

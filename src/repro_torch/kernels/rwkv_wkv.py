@@ -1,0 +1,98 @@
+"""RWKV6 WKV recurrence: wrapper of the hand kernel for Hopper.
+
+The kernel (``csrc/rwkv_wkv.cu``) replaces the Pallas TPU kernel
+``repro/kernels/rwkv_wkv.py::_wkv_kernel``:
+
+    y_t = r_t (S + u * k_t^T v_t);   S <- diag(w_t) S + k_t^T v_t
+
+sequential in t, one (D, D) fp32 state per (batch, head).  At a prefill
+shape it is bounded by its 5 * B*T*H*D^2 fp32 operations (the bonus term
+u factors out of the sum), at a decode step by the state's bytes; the
+source note says what its design does.
+
+``wkv`` here launches the kernel on CUDA tensors only and raises on
+anything it does not take.  Its plain version is ``ref.wkv_ref``;
+``ops.wkv`` picks between the two by the tensors' device.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels.build import Kernel
+
+#: r/k/v types the kernel takes (w, u, the state and y are fp32).
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+KERNEL = Kernel("rwkv_wkv", [
+    ctypes.c_int, ctypes.c_int,                           # is_bf16, D
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,    # r, k, v
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,    # w, u, s0
+    ctypes.c_void_p, ctypes.c_void_p,                     # y, state_out
+    ctypes.c_int, ctypes.c_int, ctypes.c_int,             # B, T, H
+    ctypes.c_void_p])                                     # stream
+
+
+def _overlap(a, b) -> bool:
+    lo_a, lo_b = a.data_ptr(), b.data_ptr()
+    return (lo_a < lo_b + b.numel() * b.element_size() and
+            lo_b < lo_a + a.numel() * a.element_size())
+
+
+def _check(r, k, v, w, u, state, state_out):
+    if r.dim() != 4 or any(t.shape != r.shape for t in (k, v, w)):
+        raise ValueError(f"wkv: want r, k, v, w all (B,T,H,D); got "
+                         f"{[tuple(t.shape) for t in (r, k, v, w)]}")
+    b, t, h, d = r.shape
+    if u.shape != (h, d) or state.shape != (b, h, d, d):
+        raise ValueError(f"wkv: want u (H,D) = {(h, d)} and state "
+                         f"(B,H,D,D) = {(b, h, d, d)}; got "
+                         f"{tuple(u.shape)}, {tuple(state.shape)}")
+    if t < 1:
+        raise ValueError("wkv: the kernel needs T >= 1")
+    if state_out.shape != state.shape:
+        raise ValueError(f"wkv: want state_out {tuple(state.shape)}; got "
+                         f"{tuple(state_out.shape)}")
+    # state_out may be state itself (in place), never a part of it.
+    if state_out.data_ptr() != state.data_ptr() and \
+            _overlap(state_out, state):
+        raise ValueError("wkv: state_out overlaps state without being it")
+    named = (("r", r), ("k", k), ("v", v), ("w", w), ("u", u),
+             ("state", state), ("state_out", state_out))
+    for name, x in named:
+        if x.device.type != "cuda" or x.device != r.device:
+            raise ValueError(f"wkv: {name} is on {x.device}; the kernel "
+                             f"needs every input on one CUDA device")
+        if not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError(f"wkv: {name} must be contiguous and 16-byte "
+                             f"aligned")
+    for name, x in named[:3]:
+        if x.dtype not in DTYPES or x.dtype != r.dtype:
+            raise TypeError(f"wkv: {name} is {x.dtype}; r, k, v must be "
+                            f"float32 or bfloat16, one type for all three")
+    for name, x in named[3:]:
+        if x.dtype != torch.float32:
+            raise TypeError(f"wkv: {name} is {x.dtype}; the kernel takes "
+                            f"it in float32")
+
+
+def wkv(r, k, v, w, u, state, state_out=None):
+    """r/k/v: (B, T, H, D) fp32 or bf16; w: (B, T, H, D) fp32; u: (H, D)
+    fp32; state: (B, H, D, D) fp32.  Returns (y (B, T, H, D) fp32, final
+    state (B, H, D, D) fp32).  The final state is written into
+    ``state_out`` when given, which may be ``state`` itself (in place),
+    else into a new tensor.  Launches the CUDA kernel.
+    """
+    s_out = torch.empty_like(state) if state_out is None else state_out
+    _check(r, k, v, w, u, state, s_out)
+    b, t, h, d = r.shape
+    y = torch.empty(r.shape, dtype=torch.float32, device=r.device)
+    stream = torch.cuda.current_stream(r.device).cuda_stream
+    with torch.cuda.device(r.device):
+        KERNEL.launch(DTYPES[r.dtype], d, r.data_ptr(), k.data_ptr(),
+                      v.data_ptr(), w.data_ptr(), u.data_ptr(),
+                      state.data_ptr(), y.data_ptr(), s_out.data_ptr(), b, t,
+                      h, stream, config=f"head dim {d}")
+    return y, s_out

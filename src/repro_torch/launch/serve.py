@@ -1,12 +1,16 @@
-"""Serving launcher: batched prefill + greedy decode with a KV cache.
+"""Serving launcher: batched prefill + greedy decode with a decode cache.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b \
         --batch 8 --prompt-len 1024 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \
+        --batch 8 --prompt-len 1024 --gen 32
 
 Port of ``repro/launch/serve.py``: cache construction, batched prefill and
-the decode hot loop, whose attention is the hand ``decode_attn`` kernel.
-Weights are random, made from ``--seed``.  Runs on the card unless
-``--device cpu`` is given; with no card, ``--device cuda`` raises.
+the decode hot loop.  The hand kernels on the path depend on the family
+(``PATH_KERNELS``): a dense model's decode attention is ``decode_attn``;
+an ssm (rwkv6) model's WKV recurrence is ``wkv``, on prefill and on every
+decode step.  Weights are random, made from ``--seed``.  Runs on the card
+unless ``--device cpu`` is given; with no card, ``--device cuda`` raises.
 """
 
 import argparse
@@ -16,9 +20,13 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.data.pipeline import SyntheticDataset
-from repro_torch.kernels import decode_attn
+from repro_torch.kernels import build, decode_attn, rwkv_wkv
 from repro_torch.models.config import smoke_variant
 from repro_torch.models.model import Model
+
+#: The hand kernels each ported family's serving path launches.
+PATH_KERNELS = {"dense": {"decode_attn": decode_attn.KERNEL},
+                "ssm": {"wkv": rwkv_wkv.KERNEL}}
 
 
 def _sync(device: torch.device) -> None:
@@ -48,11 +56,14 @@ def main(argv=None):
     print(f"[serve] arch={cfg.name} params={model.param_count():,} "
           f"device={dev} dtype={cfg.dtype}")
     if dev.type == "cuda":
-        # Build (or load) the kernel before any clock starts.
+        # Build (or load) the path's kernels before any clock starts.
+        kernels = PATH_KERNELS[cfg.family]
         t0 = time.time()
-        decode_attn.KERNEL.fn()
-        print(f"[serve] decode_attn kernel ready in "
-              f"{(time.time() - t0) * 1e3:.1f} ms")
+        build.load_all([kern.library for kern in kernels.values()])
+        for name, kern in kernels.items():
+            kern.fn()
+            print(f"[serve] {name} kernel ready in "
+                  f"{(time.time() - t0) * 1e3:.1f} ms")
 
     ds = SyntheticDataset(cfg, args.batch, args.prompt_len,
                           seed=args.seed + 1)

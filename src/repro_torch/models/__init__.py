@@ -1,4 +1,4 @@
-"""Model zoo port: config, layers, attention, stacks (dense family)."""
+"""Model zoo port: config, layers, attention, stacks (dense, ssm)."""
 
 from repro_torch.models.config import ModelConfig, smoke_variant  # noqa: F401
 from repro_torch.models.model import Model  # noqa: F401

@@ -1,6 +1,7 @@
 """Public model API: init / prefill / decode_step / greedy_generate.
 
-Port of ``repro/models/model.py`` for the serving path of the dense family.
+Port of ``repro/models/model.py`` for the serving path of the ported
+families (``transformer.PORTED_FAMILIES``: dense and ssm).
 Every entry point runs on an explicit device: ``cuda`` unless the caller
 asks for ``cpu``.  Asking for ``cuda`` where there is no card raises; the
 model never carries on on the CPU.  Training (``loss``) is not ported yet.
@@ -67,22 +68,25 @@ class Model:
         w_head = layers.unembed_matrix(self.cfg, params["embed"])
         return (h[:, -1, :] @ w_head).float()
 
-    def prefill(self, params, batch, cache):
-        """Run a prompt through the model, filling ``cache`` in place.
+    def prefill(self, params, batch, cache, plain_kernels: bool = False):
+        """Run a prompt through the model from ``cache``, which is written
+        in place (``transformer``'s module note says how).
 
-        Returns (last-position logits (B, V), cache)."""
+        Returns (last-position logits (B, V), cache).  ``plain_kernels``
+        swaps every hand kernel of the pass for its plain version (path
+        comparison only)."""
         h, cache = forward(self.cfg, params, self._to_batch(batch),
-                           cache=cache)
+                           cache=cache, plain_kernels=plain_kernels)
         return self._logits(params, h), cache
 
     def decode_step(self, params, step_batch, cache,
-                    plain_decode: bool = False):
+                    plain_kernels: bool = False):
         """One-token decode: step_batch holds (B, 1) tokens + positions.
 
-        Returns (logits (B, V), new cache).  ``plain_decode`` swaps the
-        attention kernel for its plain version (path comparison only)."""
+        Returns (logits (B, V), new cache).  ``plain_kernels`` as in
+        ``prefill``."""
         h, cache = forward(self.cfg, params, self._to_batch(step_batch),
-                           cache=cache, plain_decode=plain_decode)
+                           cache=cache, plain_kernels=plain_kernels)
         return self._logits(params, h), cache
 
     def greedy_generate(self, params, batch, cache, steps: int):

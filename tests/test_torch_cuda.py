@@ -15,6 +15,7 @@ from repro_torch.configs import get_config
 from repro_torch.data.pipeline import SyntheticDataset
 from repro_torch.kernels import decode_attn as da
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import rwkv_wkv as kw
 from repro_torch.launch import serve
 from repro_torch.models import Model, smoke_variant
 
@@ -95,7 +96,7 @@ def test_decode_step_kernel_path_matches_plain_path(arch):
     step = {k: batch[k][:, 16:17] for k in ("tokens", "positions")}
     _, cache = m.prefill(params, prompt, m.make_cache(2, 20))
     a, _ = m.decode_step(params, step, cache)
-    b, _ = m.decode_step(params, step, cache, plain_decode=True)
+    b, _ = m.decode_step(params, step, cache, plain_kernels=True)
     torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
 
 
@@ -107,3 +108,126 @@ def test_serve_smoke_launches_the_kernel_every_layer_and_step():
     assert toks.shape == (2, 4)
     assert da.KERNEL.launches - before == 4 * smoke_variant(
         get_config("stablelm-1.6b")).n_layers
+
+
+# ---------------------------------------------------------------------------
+# wkv (K3)
+# ---------------------------------------------------------------------------
+
+# The reference's own wkv kernel-test tolerance.  It holds for bf16 r/k/v
+# too: kernel and plain version read the same bf16 values and compute in
+# fp32.
+WKV_TOL = dict(atol=1e-4, rtol=1e-4)
+
+
+def _wkv_inputs(b, t, h, d, dtype, seed=0):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    mk = lambda *shape: torch.randn(*shape, device="cuda", generator=gen)
+    r, k, v = (mk(b, t, h, d).to(dtype) for _ in range(3))
+    w = torch.exp(-torch.exp(mk(b, t, h, d) - 3.0))   # time_mix's range
+    return r, k, v, w, mk(h, d), mk(b, h, d, d)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,h,d", [
+    (8, 1, 32, 64),         # rwkv6-1.6b decode step
+    (2, 300, 32, 64),       # rwkv6-1.6b prefill, ragged length
+    (2, 77, 4, 32),         # the reference tests' head dims
+    (3, 40, 4, 16),         # smoke variant (head dim 16)
+])
+def test_wkv_kernel_matches_plain(dtype, b, t, h, d):
+    _need_card()
+    args = _wkv_inputs(b, t, h, d, dtype)
+    y, s = kw.wkv(*args)
+    y_ref, s_ref = ref.wkv_ref(*args)
+    assert y.dtype == s.dtype == torch.float32
+    torch.testing.assert_close(y, y_ref, **WKV_TOL)
+    torch.testing.assert_close(s, s_ref, **WKV_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv_kernel_chains_bit_exactly(dtype):
+    """wkv over T equals two chained halves, bit for bit."""
+    _need_card()
+    r, k, v, w, u, s0 = _wkv_inputs(2, 130, 8, 64, dtype, seed=1)
+    y, s = kw.wkv(r, k, v, w, u, s0)
+    half = lambda x, sl: x[:, sl].contiguous()
+    y1, s1 = kw.wkv(*(half(x, slice(0, 53)) for x in (r, k, v, w)), u, s0)
+    y2, s2 = kw.wkv(*(half(x, slice(53, None)) for x in (r, k, v, w)), u, s1)
+    assert torch.equal(torch.cat([y1, y2], dim=1), y) and torch.equal(s2, s)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv_kernel_in_place_state_matches_out_of_place(dtype):
+    """state_out = state (the decode cache's update) gives the same y and
+    final state, bit for bit, as a new output state."""
+    _need_card()
+    for t in (1, 37):
+        r, k, v, w, u, s0 = _wkv_inputs(4, t, 32, 64, dtype, seed=t)
+        y, s = kw.wkv(r, k, v, w, u, s0)
+        state = s0.clone()
+        y2, s2 = kw.wkv(r, k, v, w, u, state, state_out=state)
+        assert s2 is state
+        assert torch.equal(y2, y) and torch.equal(state, s)
+
+
+def test_wkv_dispatch_launches_on_cuda_and_raises_on_bad_input():
+    _need_card()
+    r, k, v, w, u, s0 = _wkv_inputs(1, 5, 2, 32, torch.float32)
+    before = kw.KERNEL.launches
+    ops.wkv(r, k, v, w, u, s0)
+    assert kw.KERNEL.launches == before + 1
+    with pytest.raises(TypeError):                 # fp16 r/k/v
+        ops.wkv(r.half(), k.half(), v.half(), w, u, s0)
+    with pytest.raises(TypeError):                 # bf16 decay
+        ops.wkv(r, k, v, w.bfloat16(), u, s0)
+    with pytest.raises(TypeError):                 # mixed r/k/v types
+        ops.wkv(r, k.bfloat16(), v, w, u, s0)
+    strided = torch.zeros(1, 5, 2, 64, device="cuda")[..., :32]
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.wkv(strided, k, v, w, u, s0)
+    with pytest.raises(ValueError, match="shape|want"):
+        ops.wkv(r, k, v, w, u, s0[:, :1])
+    with pytest.raises(ValueError, match="mixed"):
+        ops.wkv(r.cpu(), k, v, w, u, s0)
+    buf = torch.zeros(2 * s0.numel(), device="cuda")
+    with pytest.raises(ValueError, match="overlaps"):
+        ops.wkv(r, k, v, w, u, buf[:s0.numel()].view(s0.shape),
+                state_out=buf[4:4 + s0.numel()].view(s0.shape))
+    with pytest.raises(ValueError, match="no kernel built"):
+        ops.wkv(*_wkv_inputs(1, 5, 2, 128, torch.float32))
+    assert kw.KERNEL.launches == before + 1
+
+
+def test_rwkv_prefill_and_decode_kernel_path_match_plain_path():
+    """float32 smoke rwkv6: prefill and a decode step through the kernel
+    and through wkv_ref give the same logits and states."""
+    _need_card()
+    cfg = smoke_variant(get_config("rwkv6-1.6b"))
+    m = Model(cfg)
+    params = m.init(0)
+    batch = SyntheticDataset(cfg, 2, 17, seed=3).batch_at(0)
+    prompt = {k: batch[k][:, :16] for k in ("tokens", "positions")}
+    step = {k: batch[k][:, 16:17] for k in ("tokens", "positions")}
+    a, ca = m.prefill(params, prompt, m.make_cache(2, 17))
+    b, cb = m.prefill(params, prompt, m.make_cache(2, 17),
+                      plain_kernels=True)
+    torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(ca["wkv"], cb["wkv"], **WKV_TOL)
+    # Each decode step writes its cache in place: one from each prefill.
+    a, _ = m.decode_step(params, step, ca)
+    b, _ = m.decode_step(params, step, cb, plain_kernels=True)
+    torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+def test_serve_smoke_launches_wkv_every_layer_and_pass():
+    """rwkv6 serve: one wkv launch per layer for serve's prefill, for
+    greedy_generate's prefill and for each decode step; no decode_attn."""
+    _need_card()
+    before = kw.KERNEL.launches, da.KERNEL.launches
+    toks = serve.main(["--arch", "rwkv6-1.6b", "--smoke", "--batch", "2",
+                       "--prompt-len", "10", "--gen", "4"])
+    assert toks.shape == (2, 4)
+    n_layers = smoke_variant(get_config("rwkv6-1.6b")).n_layers
+    assert (kw.KERNEL.launches - before[0],
+            da.KERNEL.launches - before[1]) == ((4 + 2) * n_layers, 0)

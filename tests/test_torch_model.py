@@ -1,10 +1,11 @@
 """The serving slice as a whole: the port against the reference model.
 
-On ``smoke_variant`` configs of stablelm-1.6b (MHA, SwiGLU) and
-starcoder2-3b (GQA G = 2, GELU) in float32, the reference's ``Model.init``
-parameters are carried into the port with ``params_from_jax``; then
-prefill logits, eight teacher-forced ``decode_step`` logits, the cache
-contents and ``greedy_generate``'s tokens must agree.
+On ``smoke_variant`` configs of stablelm-1.6b (MHA, SwiGLU),
+starcoder2-3b (GQA G = 2, GELU) and rwkv6-1.6b (ssm: RWKV6 time-mix and
+channel-mix) in float32, the reference's ``Model.init`` parameters are
+carried into the port with ``params_from_jax``; then prefill logits, eight
+teacher-forced ``decode_step`` logits, the cache contents (over the
+family's own keys) and ``greedy_generate``'s tokens must agree.
 """
 
 import jax
@@ -21,11 +22,13 @@ from repro_torch.configs import ARCHS, get_config
 from repro_torch.data.pipeline import SyntheticDataset
 from repro_torch.models import Model, smoke_variant
 from repro_torch.models.convert import params_from_jax
-from repro_torch.models.transformer import forward
+from repro_torch.models.transformer import PORTED_FAMILIES, forward
 
 jax.config.update("jax_platform_name", "cpu")
 
-ARCHS_UNDER_TEST = ["stablelm-1.6b", "starcoder2-3b"]
+ARCHS_UNDER_TEST = ["stablelm-1.6b", "starcoder2-3b", "rwkv6-1.6b"]
+#: The decode cache's tensors, by family.
+CACHE_KEYS = {"dense": ("k", "v"), "ssm": ("tm_shift", "wkv", "cm_shift")}
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-5)
 B, PROMPT, STEPS = 2, 12, 8
 
@@ -64,7 +67,7 @@ def test_prefill_and_teacher_forced_decode(pair):
         np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits),
                                    **LOGIT_TOL, err_msg=f"step {t}")
     assert cache["len"] == int(jcache["len"]) == PROMPT + STEPS
-    for name in ("k", "v"):
+    for name in CACHE_KEYS[m.cfg.family]:
         np.testing.assert_allclose(cache[name].numpy(),
                                    np.asarray(jcache[name]), **LOGIT_TOL)
 
@@ -79,13 +82,14 @@ def test_greedy_generate_tokens_and_cache(pair):
     assert toks.dtype == torch.int32 and toks.shape == (B, STEPS)
     np.testing.assert_array_equal(toks.numpy(), np.asarray(jtoks))
     assert cache["len"] == int(jcache["len"])
-    for name in ("k", "v"):
+    for name in CACHE_KEYS[m.cfg.family]:
         np.testing.assert_allclose(cache[name].numpy(),
                                    np.asarray(jcache[name]), **LOGIT_TOL)
 
 
 def test_uncached_forward_matches_reference(pair):
-    """The stack without a cache (causal reference_attention per layer)."""
+    """The stack without a cache (causal reference_attention per layer;
+    rwkv layers from a zero state)."""
     jm, jparams, m, params, batch = pair
     toks = {k: batch[k] for k in ("tokens", "positions")}
     jh, _ = jforward(jm.cfg, jparams, toks)
@@ -96,21 +100,27 @@ def test_uncached_forward_matches_reference(pair):
 
 
 def test_plain_decode_path_matches_dispatch_on_cpu(pair):
-    """On CPU tensors the kernel path is the plain version: both decode
-    paths give the same logits."""
+    """On CPU tensors the kernel path is the plain version: both paths
+    give the same prefill and decode logits.  A pass writes its cache in
+    place, so each path's decode step starts from its own copy."""
     _, _, m, params, batch = pair
     cache = m.make_cache(B, PROMPT + 1)
-    _, cache = m.prefill(params, _prompt(batch), cache)
+    a, cache = m.prefill(params, _prompt(batch), cache)
+    b, _ = m.prefill(params, _prompt(batch), m.make_cache(B, PROMPT + 1),
+                     plain_kernels=True)
+    np.testing.assert_allclose(a.numpy(), b.numpy(), **LOGIT_TOL)
     sb = {k: batch[k][:, PROMPT:PROMPT + 1] for k in ("tokens", "positions")}
+    copy = {k: (t.clone() if torch.is_tensor(t) else t)
+            for k, t in cache.items()}
     a, _ = m.decode_step(params, sb, cache)
-    b, _ = m.decode_step(params, sb, cache, plain_decode=True)
+    b, _ = m.decode_step(params, sb, copy, plain_kernels=True)
     np.testing.assert_allclose(a.numpy(), b.numpy(), **LOGIT_TOL)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_param_count_matches_reference(arch):
     cfg = get_config(arch)
-    if cfg.family != "dense":
+    if cfg.family not in PORTED_FAMILIES:
         with pytest.raises(NotImplementedError, match="not ported"):
             Model(cfg, device="cpu")
         return

@@ -10,7 +10,6 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from repro_torch.kernels import decode_attn
 from repro_torch.launch import serve
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -19,21 +18,24 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
-@pytest.mark.parametrize("arch", ["stablelm-1.6b", "starcoder2-3b"])
+@pytest.mark.parametrize("arch", ["stablelm-1.6b", "starcoder2-3b",
+                                  "rwkv6-1.6b"])
 def test_serve_main_smoke_on_cpu(arch, capsys):
-    before = decode_attn.KERNEL.launches
+    kernels = [k for family in serve.PATH_KERNELS.values()
+               for k in family.values()]
+    before = [k.launches for k in kernels]
     toks = serve.main(["--arch", arch, "--smoke", "--device", "cpu",
                        "--batch", "3", "--prompt-len", "10", "--gen", "5"])
     assert isinstance(toks, np.ndarray) and toks.shape == (3, 5)
     assert toks.min() >= 0 and toks.max() < 256
     out = capsys.readouterr().out
     assert "prefill 3x10 tokens" in out and "tok/s" in out
-    assert decode_attn.KERNEL.launches == before
+    assert [k.launches for k in kernels] == before
 
 
 def test_serve_refuses_unported_family():
     with pytest.raises(NotImplementedError, match="not ported"):
-        serve.main(["--arch", "rwkv6-1.6b", "--smoke", "--device", "cpu"])
+        serve.main(["--arch", "olmoe-1b-7b", "--smoke", "--device", "cpu"])
 
 
 def _imported_roots(path: Path):
