@@ -5,23 +5,29 @@
 
 Phases; any failure exits non-zero and no phase swallows one:
   1. print the card (nvidia-smi name, power limit) and build every kernel
-     of the serving paths from ``src/repro_torch/kernels/csrc`` (one nvcc
-     per source, all started together);
+     of the paths from ``src/repro_torch/kernels/csrc`` (one nvcc per
+     source, all started together);
   2. hold each kernel against its plain PyTorch version on the card, at the
      shapes the paths give it and beyond, in bf16 and f32: decode_attn at
      lengths that are not tile multiples and with poisoned cache tails;
      wkv at ragged lengths, both decay ranges, and chained bit-exactly;
-  3. drive each serving path once through ``repro_torch.launch.serve.main``
-     at full width, bf16, batch 8, prompt 1024, 32 new tokens, random
-     weights from a seed, with every kernel's launch count set to 0 just
-     before and read just after; each count must be exactly what the path
-     implies:
-       stablelm-1.6b: decode_attn gen x n_layers, wkv 0;
-       rwkv6-1.6b:    wkv (gen + 2) x n_layers (serve's timed prefill,
-                      greedy_generate's prefill and gen steps), decode_attn 0;
-  4. per path: prefill and first-decode-step logits through the kernels
-     and through their plain versions must agree (stablelm in bf16,
-     rwkv6 in float32); time decode steps on both paths in bf16 and
+     the four STREAM kernels bit for bit (torch.equal) at the reference's
+     test shapes, at ragged n and at the probe's size;
+  3. drive each path once through its entry point, with every kernel's
+     launch count set to 0 just before and read just after; each count
+     must be exactly what the path implies:
+       stablelm-1.6b, rwkv6-1.6b: ``repro_torch.launch.serve.main`` at
+         full width, bf16, batch 8, prompt 1024, 32 new tokens, random
+         weights from a seed; decode_attn gen x n_layers for stablelm;
+         wkv (gen + 2) x n_layers for rwkv6 (serve's timed prefill,
+         greedy_generate's prefill and gen steps); no other kernel;
+       the STREAM probe: ``repro_torch.launch.stream.main`` at 2**26
+         float32 elements an array; each stream kernel 2 x (warm-up +
+         iters) (the probe's size, then the reference's L2-resident
+         shape); no other kernel;
+  4. per serving path: prefill and first-decode-step logits through the
+     kernels and through their plain versions must agree (stablelm in
+     bf16, rwkv6 in float32); time decode steps on both paths in bf16 and
      profile the device's busy share and the kernel's time a launch;
   5. time each kernel at the paths' shapes beside its bound, its plain
      version and the PyTorch library call that computes the same function
@@ -75,12 +81,13 @@ WKV_TOL = dict(atol=1e-4, rtol=1e-4)
 #    ~1e-1.  The gate sits between the two.
 PATH_CHECK = {DENSE_ARCH: (torch.bfloat16, 0.125),
               SSM_ARCH: (torch.float32, 1e-2)}
-# Published peaks of the H100 parts (NVIDIA data sheets, dense): HBM
-# bytes/s, bf16 tensor-core FLOP/s and fp32 CUDA-core FLOP/s, picked by
-# the card's name.
-PEAKS = {"PCIe": (2.0e12, 756e12, 51e12),
-         "NVL": (3.9e12, 835e12, 60e12),
-         "SXM": (3.35e12, 989e12, 67e12)}
+# STREAM: the probe's elements an array (268 MB in float32, more than 4x
+# the 50 MB L2), its timed launches, and a scalar that bf16 cannot hold
+# exactly, so that the kernels must round it as the plain versions do.
+STREAM_N, STREAM_ITERS, STREAM_ALPHA = 2**26, 20, 0.1
+# Each op, and the line of the TPU kernel it replaces in
+# src/repro/kernels/stream.py.
+STREAM_OPS = {"copy": 35, "scale": 39, "add": 43, "triad": 47}
 
 
 def fail(msg: str):
@@ -90,13 +97,6 @@ def fail(msg: str):
 
 def log(msg: str):
     print(f"[chip_smoke] {msg}", flush=True)
-
-
-def peaks(name: str):
-    for key in ("PCIe", "NVL"):
-        if key in name:
-            return key, PEAKS[key]
-    return "SXM", PEAKS["SXM"]
 
 
 def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -222,6 +222,47 @@ def profile(fn):
         return None, []
     rows.sort(reverse=True)
     return sum(r[0] for r in rows), rows
+
+
+def stream_args(op, a, b, alpha):
+    """The arguments of STREAM ``op`` on arrays a, b."""
+    return {"copy": (a,), "scale": (a, alpha), "add": (a, b),
+            "triad": (a, b, alpha)}[op]
+
+
+def stream_library(op, a, b, alpha):
+    """The one PyTorch call that computes STREAM ``op`` (alpha already
+    rounded to a's type); timed beside the kernel, used nowhere in the
+    port."""
+    return {"copy": lambda: torch.empty_like(a).copy_(a),
+            "scale": lambda: torch.mul(a, alpha),
+            "add": lambda: torch.add(a, b),
+            "triad": lambda: torch.add(a, b, alpha=alpha)}[op]
+
+
+def check_stream(ks, ref, shape, dtype, seed):
+    """The four STREAM kernels against their plain versions on the card,
+    bit for bit; copy also against its input's bits.  Returns {op: max
+    |error|} (0.0 when equal)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    a, b = (torch.randn(shape, device="cuda", generator=gen).to(dtype)
+            for _ in range(2))
+    errs = {}
+    for op in STREAM_OPS:
+        args = stream_args(op, a, b, STREAM_ALPHA)
+        got = getattr(ks, f"stream_{op}")(*args)
+        want = getattr(ref, f"stream_{op}_ref")(*args)
+        torch.cuda.synchronize()
+        if got.shape != want.shape or not torch.equal(got, want):
+            fail(f"stream_{op} differs from its plain version at {shape}, "
+                 f"{dtype}")
+        errs[op] = (got.float() - want.float()).abs().max().item()
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    if not torch.equal(ks.stream_copy(a).view(bits), a.view(bits)):
+        fail(f"stream_copy changed the bits of its input at {shape}, {dtype}")
+    log(f"  stream copy/scale/add/triad {dtype} {shape} (alpha "
+        f"{STREAM_ALPHA}): equal to plain (torch.equal), copy bit-exact")
+    return errs
 
 
 def serve_path(serve, kernels, arch, expected):
@@ -369,11 +410,14 @@ def main():
         fail("torch sees no CUDA card; this script runs only on one")
 
     from repro_torch.configs import get_config
+    from repro_torch.core import hw
     from repro_torch.data.pipeline import SyntheticDataset
     from repro_torch.kernels import build, ref
     from repro_torch.kernels import decode_attn as da
     from repro_torch.kernels import rwkv_wkv as kw
+    from repro_torch.kernels import stream as ks
     from repro_torch.launch import serve
+    from repro_torch.launch import stream as probe
     from repro_torch.models.model import Model
 
     # -- phase 1: the card and the build --------------------------------
@@ -383,20 +427,24 @@ def main():
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     name = torch.cuda.get_device_name(0)
-    part, (peak_bw, peak_bf16, peak_f32) = peaks(name)
+    spec = hw.spec_for(name)
+    peak_bw, peak_bf16, peak_f32 = \
+        spec.hbm_bw, spec.peak_bf16_flops, spec.peak_fp32_flops
     log(f"torch {torch.__version__} cuda {torch.version.cuda} card {name} "
-        f"({part} peaks: {peak_bw / 1e12} TB/s, {peak_bf16 / 1e12} TFLOP/s "
-        f"bf16 tensor cores, {peak_f32 / 1e12} TFLOP/s fp32)")
+        f"({spec.part} peaks: {peak_bw / 1e12} TB/s, {peak_bf16 / 1e12} "
+        f"TFLOP/s bf16 tensor cores, {peak_f32 / 1e12} TFLOP/s fp32)")
     kernels = {kname: kern for family in serve.PATH_KERNELS.values()
                for kname, kern in family.items()}
+    kernels.update(ks.KERNELS)
     t0 = time.time()
     build.load_all([kern.library for kern in kernels.values()])
     log(f"built the kernels {sorted(kernels)} in {time.time() - t0:.1f} s")
-    for kern in kernels.values():
-        for line in kern.library.ptxas_log.splitlines():
+    for lib in dict.fromkeys(kern.library for kern in kernels.values()):
+        for line in lib.ptxas_log.splitlines():
             if any(w in line for w in ("entry function", "registers",
                                        "spill")):
-                log(f"  ptxas {kern.library.name}: {line.strip()}")
+                log(f"  ptxas {lib.name}: {line.strip()}")
+    for kern in kernels.values():
         kern.fn()
 
     # -- phase 2: each kernel against its plain version -------------------
@@ -428,20 +476,53 @@ def main():
                     path_err["wkv"] = max(path_err["wkv"], err)
             seed += 1
             check_wkv(kw, ref, (2, 40, 4, 16), dtype, decay, seed)  # smoke
+    # STREAM: the reference's test shapes, ragged n (not a multiple of the
+    # 16-byte vector, and shorter than one), and the probe's size.
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in ((128, 128), (512, 256), (1024, 384), (2048, 128),
+                      (300, 128), (1,), (7,), (4099,), (2**20 + 3,),
+                      (1000003,), (STREAM_N,)):
+            seed += 1
+            errs = check_stream(ks, ref, shape, dtype, seed)
+            if shape == (STREAM_N,) and dtype == torch.float32:
+                path_err.update({f"stream_{op}": e for op, e in errs.items()})
 
-    # -- phase 3: the serving paths at full width --------------------------
+    # -- phase 3: each path through its entry point --------------------------
     launches = {}
+    none = dict.fromkeys(kernels, 0)
     for arch, cfg, kname, expected in (
             (DENSE_ARCH, dense, "decode_attn",
-             {"decode_attn": GEN * dense.n_layers, "wkv": 0}),
+             {**none, "decode_attn": GEN * dense.n_layers}),
             (SSM_ARCH, ssm, "wkv",
-             {"decode_attn": 0, "wkv": (GEN + 2) * ssm.n_layers})):
+             {**none, "wkv": (GEN + 2) * ssm.n_layers})):
         toks, counts = serve_path(serve, kernels, arch, expected)
         launches[kname] = counts[kname]
         if toks.shape != (BATCH, GEN) or toks.min() < 0 or \
                 toks.max() >= cfg.vocab:
             fail(f"{arch}: bad generated tokens: shape {toks.shape}, "
                  f"range [{toks.min()}, {toks.max()}]")
+
+    # The STREAM probe: its own size, then the reference's shape in L2.
+    for kern in kernels.values():
+        kern.launches = 0
+    probed = probe.main(["--n", str(STREAM_N), "--iters", str(STREAM_ITERS),
+                         "--seed", str(SEED)])
+    counts = {kname: kern.launches for kname, kern in kernels.items()}
+    per_op = 2 * (probe.WARMUP + STREAM_ITERS)
+    expected = {**none, **{f"stream_{op}": per_op for op in STREAM_OPS}}
+    log(f"STREAM probe: kernel launches {counts} (expected {expected})")
+    if counts != expected:
+        fail(f"STREAM probe: launch counts {counts} != {expected}")
+    for op in STREAM_OPS:
+        launches[f"stream_{op}"] = counts[f"stream_{op}"]
+        frac = probed[op]["hbm_fraction"]
+        if frac is None or not 0.0 < frac <= 1.0:
+            fail(f"STREAM probe {op}: HBM fraction {frac} outside (0, 1]")
+        log(f"STREAM probe {op}: {probed[op]['gbps']:.1f} GB/s best of "
+            f"{STREAM_ITERS}, {frac:.4f} of {peak_bw / 1e12} TB/s (mean "
+            f"{probed[op]['mean_ms']:.5f} ms, best "
+            f"{probed[op]['best_ms']:.5f} ms, L2-resident reference shape "
+            f"{probed[op]['l2_mean_ms']:.5f} ms)")
 
     # -- phase 4: path checks and decode-step timing ------------------------
     step_launch_ms = {}
@@ -569,6 +650,64 @@ def main():
         "replaces": "src/repro/kernels/rwkv_wkv.py:31",
         "launches": launches["wkv"], "max_abs_err": path_err["wkv"],
         **wkv_row, "library_ms": None})
+
+    # STREAM at the probe's size: plain version, kernel and the one PyTorch
+    # call for the same function, in turns; each allocates its output.
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    a, b = (torch.randn(STREAM_N, device="cuda", generator=gen)
+            for _ in range(2))
+    alpha = ref.round_to(STREAM_ALPHA, a.dtype)
+    for op in STREAM_OPS:
+        kfn = getattr(ks, f"stream_{op}")
+        pfn = getattr(ref, f"stream_{op}_ref")
+        args = stream_args(op, a, b, alpha)
+        st = {}
+        for key, fn in (("plain", lambda: pfn(*args)),
+                        ("kernel", lambda: kfn(*args)),
+                        ("library", stream_library(op, a, b, alpha)),
+                        ("kernel", lambda: kfn(*args)),
+                        ("plain", lambda: pfn(*args))):
+            st.setdefault(key, []).append(time_ms(fn))
+        nbytes = ks.stream_bytes(op, (STREAM_N,), a.dtype)
+        flops = {"copy": 0, "scale": 1, "add": 1, "triad": 2}[op] * STREAM_N
+        t_bytes, t_ops = nbytes / peak_bw, flops / peak_f32
+        s_bound = max(t_bytes, t_ops) * 1e3
+        s_by = "bytes" if t_bytes >= t_ops else "operations"
+        s_ms = min(st["kernel"])
+        log(f"stream_{op} f32 n {STREAM_N}: kernel {st['kernel']} ms, plain "
+            f"{st['plain']} ms, library {st['library']} ms; bound "
+            f"{s_bound:.5f} ms by {s_by} ({nbytes} B) -> "
+            f"{s_bound / s_ms:.4f} of roofline, {nbytes / s_ms / 1e6:.1f} "
+            f"GB/s")
+        entries.append({
+            "name": f"stream_{op}", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/stream.cu",
+            "replaces": f"src/repro/kernels/stream.py:{STREAM_OPS[op]}",
+            "launches": launches[f"stream_{op}"],
+            "max_abs_err": path_err[f"stream_{op}"],
+            "ms": s_ms, "plain_ms": min(st["plain"]), "bound_ms": s_bound,
+            "bound_by": s_by, "library_ms": min(st["library"])})
+    del a, b
+    # At the reference's (2048, 512) shape back-to-back calls are as fast
+    # as the host issues them: events time the host side (the kernel's and
+    # the library call's); the profiler gives the kernel's device time.
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    a, b = (torch.randn(probe.REF_SHAPE, device="cuda", generator=gen)
+            for _ in range(2))
+    for op in STREAM_OPS:
+        args = stream_args(op, a, b, alpha)
+        kfn = getattr(ks, f"stream_{op}")
+        _, rows = profile(lambda: [kfn(*args) for _ in range(20)])
+        dev = [(ms, c) for ms, key, c in rows if "stream_kernel" in key]
+        call_ms = time_ms(lambda: kfn(*args), iters=20, warmup=3)
+        lib_ms = time_ms(stream_library(op, a, b, alpha), iters=20,
+                         warmup=3)
+        dev_txt = "device time not measured" if not dev else \
+            f"{dev[0][0] / dev[0][1]:.5f} ms device time a launch " \
+            f"(x{dev[0][1]})"
+        log(f"stream_{op} f32 {probe.REF_SHAPE} (in L2): {dev_txt}; by "
+            f"events {call_ms:.5f} ms a call, library {lib_ms:.5f} ms")
+    del a, b
 
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

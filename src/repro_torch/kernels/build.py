@@ -78,16 +78,19 @@ class CudaLibrary:
 
 
 class Kernel:
-    """The launcher of one built library and a count of the launches made
+    """One launcher of a built library and a count of the launches made
     through it.
 
-    ``csrc/<name>.cu`` exports ``int <name>_launch(...)``, which returns a
+    The library exports ``int <name>_launch(...)``, which returns a
     cudaError_t (0 on success) or -1 for a configuration the source does
-    not instantiate, and ``const char* <name>_error_string(int)``.
+    not instantiate, and ``const char* <library>_error_string(int)``.  By
+    default the library is ``csrc/<name>.cu``; several kernels of one
+    source share one ``CudaLibrary`` and each counts its own launches.
     """
 
-    def __init__(self, name: str, argtypes):
-        self.library = CudaLibrary(name)
+    def __init__(self, name: str, argtypes, library: CudaLibrary | None = None):
+        self.name = name
+        self.library = CudaLibrary(name) if library is None else library
         self.argtypes = list(argtypes)
         self.launches = 0
         self._fn = None
@@ -97,7 +100,7 @@ class Kernel:
         """The launcher, building and loading the library at first use."""
         if self._fn is None:
             lib = self.library.load()
-            fn = getattr(lib, f"{self.library.name}_launch")
+            fn = getattr(lib, f"{self.name}_launch")
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int
             err = getattr(lib, f"{self.library.name}_error_string")
@@ -110,19 +113,19 @@ class Kernel:
         """Launch once; raises if the launch was refused, else counts it.
         ``config`` names the instantiation asked for, for the error."""
         err = self.fn()(*args)
-        name = self.library.name
         if err == -1:
-            raise ValueError(f"{name}: no kernel built for {config} "
-                             f"(see csrc/{name}.cu)")
+            raise ValueError(f"{self.name}: no kernel built for {config} "
+                             f"(see csrc/{self.library.name}.cu)")
         if err:
-            raise RuntimeError(f"{name} launch failed: "
+            raise RuntimeError(f"{self.name} launch failed: "
                                f"{self._error_string(err).decode()}")
         self.launches += 1
 
 
 def load_all(libraries) -> None:
     """Build every library at once (one nvcc each, all started together),
-    then load them."""
+    then load them.  A library named more than once is built once."""
+    libraries = list(dict.fromkeys(libraries))
     procs = [(lib, lib.start_build()) for lib in libraries]
     for lib, proc in procs:
         if proc is not None:

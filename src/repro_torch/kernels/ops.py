@@ -14,6 +14,7 @@ from __future__ import annotations
 from repro_torch.kernels import decode_attn as _da
 from repro_torch.kernels import ref
 from repro_torch.kernels import rwkv_wkv as _wkv
+from repro_torch.kernels import stream as _stream
 
 
 def _all_on_cpu(*tensors) -> bool:
@@ -24,6 +25,34 @@ def _all_on_cpu(*tensors) -> bool:
         return False
     raise ValueError(f"inputs on mixed or unsupported devices: "
                      f"{[str(t.device) for t in tensors]}")
+
+
+def stream_copy(a):
+    """o = a, a new tensor."""
+    if _all_on_cpu(a):
+        return ref.stream_copy_ref(a)
+    return _stream.stream_copy(a)
+
+
+def stream_scale(a, alpha):
+    """o = alpha * a, alpha rounded to a's type."""
+    if _all_on_cpu(a):
+        return ref.stream_scale_ref(a, alpha)
+    return _stream.stream_scale(a, alpha)
+
+
+def stream_add(a, b):
+    """o = a + b."""
+    if _all_on_cpu(a, b):
+        return ref.stream_add_ref(a, b)
+    return _stream.stream_add(a, b)
+
+
+def stream_triad(a, b, alpha):
+    """o = a + alpha * b, rounded as the reference."""
+    if _all_on_cpu(a, b):
+        return ref.stream_triad_ref(a, b, alpha)
+    return _stream.stream_triad(a, b, alpha)
 
 
 def decode_attn(q, k, v, length: int):

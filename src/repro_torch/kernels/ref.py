@@ -10,6 +10,36 @@ from __future__ import annotations
 import torch
 
 
+# --- STREAM (paper §5 workloads: copy/scale/add/triad) ---------------------
+# The reference's kernels take alpha as an input of a's type
+# (``jnp.asarray([alpha], a.dtype)``), so alpha is rounded to that type
+# first.  Its float32 triad rounds a + alpha * b once (as one FMA does); its
+# bfloat16 triad rounds alpha * b to bfloat16 before the add.
+
+def round_to(alpha, dtype) -> float:
+    """``alpha`` rounded to ``dtype``, as a Python float."""
+    return torch.tensor(float(alpha), dtype=dtype).item()
+
+
+def stream_copy_ref(a):
+    return a.clone()
+
+
+def stream_scale_ref(a, alpha):
+    return a * round_to(alpha, a.dtype)
+
+
+def stream_add_ref(a, b):
+    return a + b
+
+
+def stream_triad_ref(a, b, alpha):
+    alpha = round_to(alpha, a.dtype)
+    if a.dtype == torch.float32:
+        return torch.add(a, b, alpha=alpha)     # one rounding, as an FMA
+    return a + b * alpha                        # alpha * b rounded first
+
+
 # --- GQA flash-decode attention --------------------------------------------
 
 def decode_attn_ref(q, k, v, length):

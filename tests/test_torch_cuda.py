@@ -16,6 +16,7 @@ from repro_torch.data.pipeline import SyntheticDataset
 from repro_torch.kernels import decode_attn as da
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import rwkv_wkv as kw
+from repro_torch.kernels import stream as ks
 from repro_torch.launch import serve
 from repro_torch.models import Model, smoke_variant
 
@@ -231,3 +232,66 @@ def test_serve_smoke_launches_wkv_every_layer_and_pass():
     n_layers = smoke_variant(get_config("rwkv6-1.6b")).n_layers
     assert (kw.KERNEL.launches - before[0],
             da.KERNEL.launches - before[1]) == ((4 + 2) * n_layers, 0)
+
+
+# ---------------------------------------------------------------------------
+# STREAM (K1a-d)
+# ---------------------------------------------------------------------------
+
+def _stream_inputs(shape, dtype, seed=0):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(shape, device="cuda", generator=gen).to(dtype)
+            for _ in range(2)]
+
+
+def _stream_pairs(a, b, alpha):
+    return {"copy": (ks.stream_copy(a), ref.stream_copy_ref(a)),
+            "scale": (ks.stream_scale(a, alpha),
+                      ref.stream_scale_ref(a, alpha)),
+            "add": (ks.stream_add(a, b), ref.stream_add_ref(a, b)),
+            "triad": (ks.stream_triad(a, b, alpha),
+                      ref.stream_triad_ref(a, b, alpha))}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [
+    (128, 128), (300, 128),     # the reference tests' shapes
+    (1,), (7,), (4099,),        # shorter than a vector, ragged tails
+    (2**20 + 3,),
+])
+def test_stream_kernels_equal_plain(dtype, shape):
+    """Bit for bit: alpha 0.1 is not exact in bf16, so the kernels must
+    round it, and the triad, as the plain versions do."""
+    _need_card()
+    a, b = _stream_inputs(shape, dtype)
+    for name, (got, want) in _stream_pairs(a, b, 0.1).items():
+        assert got.shape == want.shape and got.dtype == dtype, name
+        assert torch.equal(got, want), name
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    assert torch.equal(ks.stream_copy(a).view(bits), a.view(bits))
+
+
+def test_stream_kernels_count_one_launch_a_call_and_raise_on_bad_input():
+    _need_card()
+    a, b = _stream_inputs(1000, torch.float32)
+    before = {n: k.launches for n, k in ks.KERNELS.items()}
+    ops.stream_copy(a)
+    ops.stream_scale(a, 2.0)
+    ops.stream_add(a, b)
+    ops.stream_triad(a, b, 2.0)
+    assert {n: k.launches - before[n] for n, k in ks.KERNELS.items()} == \
+        dict.fromkeys(ks.KERNELS, 1)
+    with pytest.raises(TypeError):                  # fp16
+        ops.stream_copy(a.half())
+    with pytest.raises(TypeError):                  # mixed types
+        ops.stream_add(a, b.bfloat16())
+    with pytest.raises(ValueError, match="shapes"):
+        ops.stream_add(a, b[:999])
+    with pytest.raises(ValueError, match="aligned"):   # 4-byte offset
+        ops.stream_triad(a[1:], b[1:], 2.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.stream_scale(a.view(10, 100).t(), 2.0)
+    with pytest.raises(ValueError, match="mixed"):
+        ops.stream_add(a, b.cpu())
+    assert {n: k.launches - before[n] for n, k in ks.KERNELS.items()} == \
+        dict.fromkeys(ks.KERNELS, 1)
