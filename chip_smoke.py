@@ -10,7 +10,9 @@ Phases; any failure exits non-zero and no phase swallows one:
   2. hold each kernel against its plain PyTorch version on the card, at the
      shapes the paths give it and beyond, in bf16 and f32: decode_attn at
      lengths that are not tile multiples and with poisoned cache tails;
-     wkv at ragged lengths, both decay ranges, and chained bit-exactly;
+     wkv at ragged lengths and at the edges of its chunk of steps, both
+     decay ranges, and chained bit-exactly, cut inside a chunk and at its
+     edge;
      the four STREAM kernels bit for bit (torch.equal) at the reference's
      test shapes, at ragged n and at the probe's size;
   3. drive each path once through its entry point, with every kernel's
@@ -31,7 +33,10 @@ Phases; any failure exits non-zero and no phase swallows one:
      profile the device's busy share and the kernel's time a launch;
   5. time each kernel at the paths' shapes beside its bound, its plain
      version and the PyTorch library call that computes the same function
-     (none for wkv).
+     (none for wkv); wkv's lines give the launch it made (blocks x
+     threads, steps a chunk, the tile of key groups x columns, shared
+     bytes) and the profiler's share of the bound at the prefill and the
+     decode shape.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``.  Needs one CUDA card, nvcc, and
@@ -164,9 +169,10 @@ def rand_wkv(b, t, h, d, dtype, decay, seed):
     return r, k, v, w, mk(h, d), mk(b, h, d, d)
 
 
-def check_wkv(kw, ref, shape, dtype, decay, seed):
+def check_wkv(kw, ref, shape, dtype, decay, seed, cuts=()):
     """wkv against wkv_ref on the card, then wkv over T against two
-    chained pieces (bit-exact); returns the max |error| against plain."""
+    chained pieces (bit-exact), cut at t // 3 + 1 and at each of ``cuts``
+    below t; returns the max |error| against plain."""
     b, t, h, d = shape
     r, k, v, w, u, s0 = rand_wkv(b, t, h, d, dtype, decay, seed)
     y, s = kw.wkv(r, k, v, w, u, s0)
@@ -180,9 +186,8 @@ def check_wkv(kw, ref, shape, dtype, decay, seed):
         f"rtol {WKV_TOL['rtol']}) {'ok' if ok else 'MISMATCH'}")
     if not ok:
         fail(f"wkv disagrees with wkv_ref at {shape}, {dtype}, w~{decay}")
-    if t > 1:
-        cut = t // 3 + 1
-        piece = lambda x, sl: x[:, sl].contiguous()
+    piece = lambda x, sl: x[:, sl].contiguous()
+    for cut in dict.fromkeys(c for c in (t // 3 + 1, *cuts) if 0 < c < t):
         y1, s1 = kw.wkv(*(piece(x, slice(0, cut)) for x in (r, k, v, w)),
                         u, s0)
         y2, s2 = kw.wkv(*(piece(x, slice(cut, None)) for x in (r, k, v, w)),
@@ -467,11 +472,15 @@ def main():
     path_err["wkv"] = 0.0
     seed = 10
     for dtype in (torch.bfloat16, torch.float32):
+        # The kernel's chunk of tc steps: lengths at its edges, and cuts
+        # exactly at a chunk's edge.
+        tc = kw.geometry(dtype, (BATCH, PROMPT, h, hd))["chunk_steps"]
         for decay in ("model", "sigmoid"):
-            for t in (1, 7, 128, 1000, PROMPT):
+            for t in (1, 7, tc - 1, tc, tc + 1, 2 * tc + 1, 128, 1000,
+                      PROMPT):
                 seed += 1
                 err = check_wkv(kw, ref, (BATCH, t, h, hd), dtype, decay,
-                                seed)
+                                seed, cuts=(tc, 2 * tc))
                 if dtype == torch.bfloat16 and decay == "model":
                     path_err["wkv"] = max(path_err["wkv"], err)
             seed += 1
@@ -594,17 +603,22 @@ def main():
     # wrapper's host time reads as the host time; the profiler's kernel
     # time is the device's own.
     def wkv_line(t, w_ms, dev_ms, plain_ms, note):
+        geo = kw.geometry(torch.bfloat16, (BATCH, t, h, hd))
         nbytes, wflops = wkv_cost(BATCH, t, h, hd, 2)
         t_bytes, t_ops = nbytes / peak_bw, wflops / peak_f32
         w_bound = max(t_bytes, t_ops) * 1e3
         w_by = "bytes" if t_bytes >= t_ops else "operations"
         dev_txt = "not measured" if dev_ms is None else (
-            f"{dev_ms:.5f} ms a launch, {w_bound / dev_ms:.3f} of roofline")
+            f"{dev_ms:.5f} ms a launch, {w_bound / dev_ms:.3f} of the bound")
         log(f"wkv bf16 B{BATCH} T{t} H{h} D{hd}{note}: kernel {w_ms} ms by "
             f"events (profiler: {dev_txt}), plain {plain_ms} ms; bound "
             f"{w_bound:.5f} ms by {w_by} ({nbytes} B, {wflops} FLOP at "
             f"{peak_f32 / 1e12} TFLOP/s fp32) -> {w_bound / min(w_ms):.3f} "
-            f"of roofline by events ({BATCH * h} blocks of {hd} threads)")
+            f"of the bound by events; launch {geo['blocks']} blocks x "
+            f"{geo['threads']} threads, {geo['chunk_steps']} steps a chunk, "
+            f"{geo['key_groups']} key groups of {geo['columns']} columns a "
+            f"thread, {geo['smem_bytes']} B dynamic shared memory a block, "
+            f"{geo['blocks_per_sm']} blocks an SM")
         return w_bound, w_by
 
     def wkv_dev_ms(fn, n):

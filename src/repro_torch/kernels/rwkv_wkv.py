@@ -7,8 +7,10 @@ The kernel (``csrc/rwkv_wkv.cu``) replaces the Pallas TPU kernel
 
 sequential in t, one (D, D) fp32 state per (batch, head).  At a prefill
 shape it is bounded by its 5 * B*T*H*D^2 fp32 operations (the bonus term
-u factors out of the sum), at a decode step by the state's bytes; the
-source note says what its design does.
+u factors out of the sum), at a decode step by the state's bytes.  The
+source note gives the lane map (a tile of keys x columns a thread, fixed
+at compile time), the chunks staged by asynchronous copy, and why chaining
+stays bit-exact; ``geometry`` reports the launch the kernel makes.
 
 ``wkv`` here launches the kernel on CUDA tensors only and raises on
 anything it does not take.  Its plain version is ``ref.wkv_ref``;
@@ -96,3 +98,29 @@ def wkv(r, k, v, w, u, state, state_out=None):
                       state.data_ptr(), y.data_ptr(), s_out.data_ptr(), b, t,
                       h, stream, config=f"head dim {d}")
     return y, s_out
+
+
+#: What ``geometry`` reports, in the order the library writes it.
+GEOMETRY = ("blocks", "threads", "chunk_steps", "key_groups", "columns",
+            "smem_bytes", "blocks_per_sm")
+
+
+def geometry(dtype, shape) -> dict:
+    """The launch ``wkv`` makes for r/k/v of ``dtype`` and ``shape``
+    (B, T, H, D): blocks, threads a block, steps a chunk, key groups,
+    value columns a thread, dynamic shared bytes a block, and the blocks
+    an SM of the current device holds at once.  Builds the library at
+    first use; launches nothing."""
+    KERNEL.fn()   # builds and loads the library
+    fn = KERNEL.library.load().rwkv_wkv_geometry
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * len(GEOMETRY))()
+    b, t, h, d = shape
+    err = fn(DTYPES[dtype], d, b, t, h, out)
+    if err == -1:
+        raise ValueError(f"wkv: no kernel built for head dim {d}")
+    if err:
+        raise RuntimeError(f"wkv geometry: "
+                           f"{KERNEL._error_string(err).decode()}")
+    return dict(zip(GEOMETRY, out))

@@ -146,24 +146,71 @@ def test_wkv_kernel_matches_plain(dtype, b, t, h, d):
     torch.testing.assert_close(s, s_ref, **WKV_TOL)
 
 
+def _chunk_steps(dtype, d):
+    """The kernel's steps a chunk for r/k/v of ``dtype``, as the built
+    library reports it."""
+    return kw.geometry(dtype, (1, 2, 1, d))["chunk_steps"]
+
+
+# Sequence lengths around the kernel's chunk of tc steps.
+CHUNK_EDGES = {"1": lambda tc: 1, "tc-1": lambda tc: tc - 1,
+               "tc": lambda tc: tc, "tc+1": lambda tc: tc + 1,
+               "2tc+1": lambda tc: 2 * tc + 1, "1024": lambda tc: 1024}
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_wkv_kernel_chains_bit_exactly(dtype):
-    """wkv over T equals two chained halves, bit for bit."""
+@pytest.mark.parametrize("d", [16, 32, 64])
+@pytest.mark.parametrize("length", list(CHUNK_EDGES))
+def test_wkv_kernel_matches_plain_at_chunk_edges(dtype, d, length):
+    """Lengths at and around the chunk's edges; B * H = 15 blocks, not a
+    multiple of the blocks an SM holds."""
     _need_card()
-    r, k, v, w, u, s0 = _wkv_inputs(2, 130, 8, 64, dtype, seed=1)
+    t = CHUNK_EDGES[length](_chunk_steps(dtype, d))
+    args = _wkv_inputs(3, t, 5, d, dtype, seed=t + d)
+    y, s = kw.wkv(*args)
+    y_ref, s_ref = ref.wkv_ref(*args)
+    torch.testing.assert_close(y, y_ref, **WKV_TOL)
+    torch.testing.assert_close(s, s_ref, **WKV_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cut", ["53", "tc", "2tc", "2tc+1"])
+def test_wkv_kernel_chains_bit_exactly(dtype, cut):
+    """wkv over T equals two chained pieces, bit for bit, cut inside a
+    chunk (53) or exactly at a chunk's edge."""
+    _need_card()
+    tc = _chunk_steps(dtype, 64)
+    at = {"53": 53, "tc": tc, "2tc": 2 * tc, "2tc+1": 2 * tc + 1}[cut]
+    r, k, v, w, u, s0 = _wkv_inputs(2, 4 * tc + 3, 8, 64, dtype, seed=1)
     y, s = kw.wkv(r, k, v, w, u, s0)
     half = lambda x, sl: x[:, sl].contiguous()
-    y1, s1 = kw.wkv(*(half(x, slice(0, 53)) for x in (r, k, v, w)), u, s0)
-    y2, s2 = kw.wkv(*(half(x, slice(53, None)) for x in (r, k, v, w)), u, s1)
+    y1, s1 = kw.wkv(*(half(x, slice(0, at)) for x in (r, k, v, w)), u, s0)
+    y2, s2 = kw.wkv(*(half(x, slice(at, None)) for x in (r, k, v, w)), u, s1)
     assert torch.equal(torch.cat([y1, y2], dim=1), y) and torch.equal(s2, s)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv_geometry_reports_the_launch(dtype):
+    """One block a (batch, head); a prefill stages its chunks in shared
+    memory, a decode step takes none; the card holds the blocks."""
+    _need_card()
+    prefill = kw.geometry(dtype, (8, 1024, 32, 64))
+    decode = kw.geometry(dtype, (8, 1, 32, 64))
+    for geo in (prefill, decode):
+        assert geo["blocks"] == 8 * 32
+        assert geo["threads"] % 32 == 0
+        assert geo["threads"] == 64 // geo["columns"] * geo["key_groups"]
+        assert geo["blocks_per_sm"] >= 2
+    assert prefill["smem_bytes"] > 0 and decode["smem_bytes"] == 0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_wkv_kernel_in_place_state_matches_out_of_place(dtype):
     """state_out = state (the decode cache's update) gives the same y and
-    final state, bit for bit, as a new output state."""
+    final state, bit for bit, as a new output state, also at a length of
+    several chunks."""
     _need_card()
-    for t in (1, 37):
+    for t in (1, 37, 3 * _chunk_steps(dtype, 64) + 5):
         r, k, v, w, u, s0 = _wkv_inputs(4, t, 32, 64, dtype, seed=t)
         y, s = kw.wkv(r, k, v, w, u, s0)
         state = s0.clone()
@@ -197,6 +244,8 @@ def test_wkv_dispatch_launches_on_cuda_and_raises_on_bad_input():
                 state_out=buf[4:4 + s0.numel()].view(s0.shape))
     with pytest.raises(ValueError, match="no kernel built"):
         ops.wkv(*_wkv_inputs(1, 5, 2, 128, torch.float32))
+    with pytest.raises(ValueError, match="no kernel built"):
+        kw.geometry(torch.float32, (1, 5, 2, 128))
     assert kw.KERNEL.launches == before + 1
 
 
