@@ -36,7 +36,20 @@ Phases; any failure exits non-zero and no phase swallows one:
      (none for wkv); wkv's lines give the launch it made (blocks x
      threads, steps a chunk, the tile of key groups x columns, shared
      bytes) and the profiler's share of the bound at the prefill and the
-     decode shape.
+     decode shape;
+  6. the design-space engine (``repro_torch.core``, no kernel of its own):
+     ``repro_torch.launch.coaxial_study.main`` on the card, every number
+     it prints held to the same code run with ``device="cpu"``; each of
+     three grids (``default_sweep``'s 40 cells, the 110 cells of
+     ``benchmarks/sweep_grid.py``, and that grid x 8 LLC sizes x 8 kappa
+     x 16 eta = 112,640 cells) solved warm and timed by the host clock,
+     with the CUDA launches a solve makes, the device's busy share
+     (profiler) and the peak device memory; 1,000 cells of the dense grid
+     solved on the CPU and held to the card's (where the fixed point has
+     not settled, within the span of the card's orbit over steps 118 to
+     122; such elements are counted), and
+     ``design_gradient`` at coaxial-4x over every field held to its CPU
+     run.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``.  Needs one CUDA card, nvcc, and
@@ -93,6 +106,16 @@ STREAM_N, STREAM_ITERS, STREAM_ALPHA = 2**26, 20, 0.1
 # Each op, and the line of the TPU kernel it replaces in
 # src/repro/kernels/stream.py.
 STREAM_OPS = {"copy": 35, "scale": 39, "add": 43, "triad": 47}
+# The design-space engine (phase 6), card against CPU, the same port code
+# in float32: only the libraries' pow/exp/log/sqrt may differ in their last
+# bits, which the 120-step fixed point carries to 1e-7..5e-6 (measured on
+# an H100; the port sits within 1.1e-6 of the JAX reference on the CPU);
+# a wrong operation moves results by far more.  Gradient fields that are 0 on both sides (the
+# harvest fields, a link floor that does not bind) meet the atol.
+ENGINE_RTOL, ENGINE_GRAD_ATOL = 1e-5, 1e-8
+# Timed solves of each grid after a warm one, and dense cells held to a
+# CPU solve.
+ENGINE_REPEATS, ENGINE_SAMPLE = 5, 1000
 
 
 def fail(msg: str):
@@ -268,6 +291,186 @@ def check_stream(ks, ref, shape, dtype, seed):
     log(f"  stream copy/scale/add/triad {dtype} {shape} (alpha "
         f"{STREAM_ALPHA}): equal to plain (torch.equal), copy bit-exact")
     return errs
+
+
+def engine_close(what, card, cpu, atol=0.0, orbit=None):
+    """Phase 6: hold the card's numbers to the CPU's, elementwise within
+    ``atol + ENGINE_RTOL * |cpu|`` of the card's value or, where ``orbit``
+    (the card's values at the steps around it, stacked on a leading axis)
+    is given, of the span those values cover; returns the largest relative
+    difference from the card's value (NaN on both sides counts as
+    equal)."""
+    import numpy as np
+    card = np.asarray(card, np.float64)
+    cpu = np.asarray(cpu, np.float64)
+    span = card[None] if orbit is None else np.concatenate(
+        [card[None], np.asarray(orbit, np.float64)])
+    lo, hi = span.min(0), span.max(0)
+    pad = atol + ENGINE_RTOL * np.abs(cpu)
+    ok = card.shape == cpu.shape and bool(np.all(
+        (np.isnan(card) & np.isnan(cpu)) | (card == cpu)
+        | ((cpu >= lo - pad) & (cpu <= hi + pad))))
+    both = ~(np.isnan(card) & np.isnan(cpu)) & (cpu != 0)
+    rel = float(np.max(np.abs(card - cpu)[both] / np.abs(cpu[both]),
+                       initial=0.0)) if card.shape == cpu.shape else np.inf
+    if not ok:
+        fail(f"engine: {what} differs between card and CPU (max rel "
+             f"{rel:.3e}, rtol {ENGINE_RTOL}, atol {atol}"
+             f"{'' if orbit is None else ', beyond the orbit'})")
+    return rel
+
+
+def steps_further(cpu_model, k, solve):
+    """``solve()`` with the fixed point run ``k`` steps longer (shorter
+    where ``k`` < 0)."""
+    cpu_model.FP_ITERS += k
+    try:
+        return solve()
+    finally:
+        cpu_model.FP_ITERS -= k
+
+
+def engine_grid(label, solve, cells, cpu_model):
+    """Phase 6 for one grid: a warm solve, ``ENGINE_REPEATS`` timed ones
+    (host clock, ending in a synchronise), one profiled (kernel launches,
+    copies, device time) and one under the peak-memory counter (less what
+    was allocated before it).  Each solve must be one call of the cell
+    solver.  Returns the last result."""
+    calls = cpu_model.solve_trace_count()
+    res = solve()
+    if cpu_model.solve_trace_count() != calls + 1:
+        fail(f"engine {label}: one solve made "
+             f"{cpu_model.solve_trace_count() - calls} cell-solver calls")
+    ms = []
+    for _ in range(ENGINE_REPEATS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = solve()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    dev_ms, rows = profile(solve)
+    copies = [r for r in rows if r[1].startswith(("Memcpy", "Memset"))]
+    launches = sum(r[2] for r in rows) - sum(r[2] for r in copies)
+    # The solve's own peak: what earlier phases left allocated is not its.
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    solve()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - held
+    wall = sorted(ms)[len(ms) // 2]
+    busy = "not measured" if dev_ms is None else \
+        f"{dev_ms:.3f} ms -> busy share {dev_ms / wall:.3f}"
+    log(f"engine {label} ({cells} cells x 35 workloads): solve "
+        f"{', '.join(f'{m:.3f}' for m in ms)} ms (median {wall:.3f}); "
+        f"{launches} kernel launches and {sum(r[2] for r in copies)} "
+        f"copies a solve; device time {busy}; peak device memory of a "
+        f"solve {peak / 2**20:.1f} MiB")
+    for dms, key, count in rows[:4]:
+        log(f"  {dms:9.3f} ms  x{count:<5d} {key[:80]}")
+    return res
+
+
+def engine_phase():
+    """Phase 6: the design-space engine on the card, against the CPU."""
+    import numpy as np
+
+    from repro_torch.core import coaxial, cpu_model, hw
+    from repro_torch.core.sweepspec import build_flat
+    from repro_torch.launch import coaxial_study
+
+    card = coaxial_study.main([])
+    cpu = coaxial_study.main(["--device", "cpu"])
+    worst = 0.0
+    for key, want in cpu.items():
+        if isinstance(want, str) or isinstance(want, int):
+            if card[key] != want:
+                fail(f"engine: study {key} {card[key]!r} on the card, "
+                     f"{want!r} on the CPU")
+        else:
+            worst = max(worst, engine_close(f"study {key}", card[key], want))
+    log(f"engine: coaxial_study on the card equals its CPU run: {len(cpu)} "
+        f"numbers, max rel diff {worst:.3e} (rtol {ENGINE_RTOL})")
+
+    # benchmarks/sweep_grid.py's grid: the baseline + 10 CXL channel counts
+    # x 10 premiums; the dense grid crosses it with three more axes.
+    designs = [cpu_model.DDR_BASELINE] + [cpu_model.MemSystem(
+        f"grid-cxl-{ch}x", dram_channels=ch, links=ch,
+        link_rd_gbps=hw.CXL_X8_RD_GBPS, link_wr_gbps=hw.CXL_X8_WR_GBPS,
+        iface_lat_ns=hw.CXL_LAT_NS, llc_mb_per_core=1.0)
+        for ch in range(1, 11)]
+    lats = tuple(float(x) for x in np.linspace(10.0, 100.0, 10))
+    grid = coaxial.sweep_spec(design=designs, iface_lat_ns=lats)
+    dense = coaxial.sweep_spec(
+        design=designs, iface_lat_ns=lats,
+        llc_mb_per_core=np.linspace(0.5, 4.0, 8),
+        kappa=np.linspace(1.0, 3.2, 8), eta=np.linspace(0.4, 1.0, 16))
+    n = int(np.prod(dense.shape))
+    engine_grid("default_sweep", lambda: coaxial.default_sweep.__wrapped__(
+        "cuda"), 40, cpu_model)
+    engine_grid("sweep_grid", lambda: coaxial.solve_spec(grid), 110,
+                cpu_model)
+    sw = engine_grid("dense", lambda: coaxial.solve_spec(dense), n,
+                     cpu_model)
+
+    # Where the damped fixed point has not settled in FP_ITERS steps (its
+    # last step moves ipc by more than ENGINE_RTOL), its value is a point of
+    # a period-2 or chaotic orbit that rounding alone moves: such (cell,
+    # workload) elements are counted, and the CPU's value must lie within
+    # the span of the card's orbit over steps FP_ITERS - 2 .. FP_ITERS + 2
+    # (plus ENGINE_RTOL).  One step's move is not enough: on an H100 one
+    # unsettled element of the sample differs from the CPU by 1.22 of it.
+    nxt = steps_further(
+        cpu_model, 1, lambda: coaxial.solve_spec(dense).results.ipc)
+    ipc = sw.results.ipc
+    moving = np.abs(nxt - ipc) > ENGINE_RTOL * np.abs(ipc)
+    log(f"engine dense: the fixed point has not settled after "
+        f"{cpu_model.FP_ITERS} steps in {int(moving.sum())} of {moving.size} "
+        f"(cell, workload) elements ({moving.mean():.4f}; "
+        f"{int(moving.any(-1).sum())} of {n} cells); its last step moves "
+        f"ipc by up to {float(np.max(np.abs(nxt - ipc) / ipc)):.3e}")
+    if not (np.isfinite(ipc).all() and (ipc > 0).all()):
+        fail("engine dense: ipc not finite and positive everywhere")
+
+    flat = build_flat(dense)
+    idx = np.unique(np.linspace(0, n - 1, ENGINE_SAMPLE).round().astype(int))
+    pick = lambda d: {k: v[idx] for k, v in d.items()}
+    sample = lambda device: cpu_model.solve_cells(
+        cpu_model.MemSystemArrays(*(leaf[idx] for leaf in flat["sysa"])),
+        n_active=flat["n_active"][idx],
+        iface_override_ns=flat["iface_override_ns"][idx],
+        design_overrides=pick(flat["design_overrides"]),
+        workload_overrides=pick(flat["workload_overrides"]), device=device)
+    ref = sample("cpu")
+    got = sw.results.reshape(n)[idx]
+    unsettled = moving.reshape(n, -1)[idx]
+    around = [steps_further(cpu_model, k, lambda: sample("cuda"))
+              for k in (-2, -1, 1, 2)]
+    orbit = lambda f: [np.where(unsettled, getattr(r, f), getattr(got, f))
+                       for r in around]
+    worst = max(engine_close(f"dense grid {f.name}", getattr(got, f.name),
+                             getattr(ref, f.name), orbit=orbit(f.name))
+                for f in dataclasses.fields(ref))
+    step = np.abs(nxt.reshape(n, -1)[idx] - got.ipc)[unsettled]
+    steps = np.abs(got.ipc - ref.ipc)[unsettled] / step
+    log(f"engine: {len(idx)} cells of the dense grid on the CPU equal the "
+        f"card's in every ModelResult field (max rel diff {worst:.3e}; rtol "
+        f"{ENGINE_RTOL}, and for the {int(unsettled.sum())} unsettled "
+        f"elements the span of the card's orbit over steps "
+        f"{cpu_model.FP_ITERS - 2}..{cpu_model.FP_ITERS + 2}); the "
+        f"unsettled ones differ by up to {float(np.max(steps, initial=0)):.3f}"
+        f" of the card's last step")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g_card = cpu_model.design_gradient(cpu_model.COAXIAL_4X, device="cuda")
+    g_ms = (time.perf_counter() - t0) * 1e3
+    g_cpu = cpu_model.design_gradient(cpu_model.COAXIAL_4X, device="cpu")
+    worst = max(engine_close(f"design_gradient {k}", g_card[k], g_cpu[k],
+                             atol=ENGINE_GRAD_ATOL) for k in g_cpu)
+    log(f"engine: design_gradient(coaxial-4x) on the card ({g_ms:.1f} ms) "
+        f"equals the CPU's over {list(g_cpu)}: max rel diff {worst:.3e} "
+        f"(rtol {ENGINE_RTOL}, atol {ENGINE_GRAD_ATOL}); "
+        + ", ".join(f"{k}={v:+.6g}" for k, v in g_card.items()))
 
 
 def serve_path(serve, kernels, arch, expected):
@@ -722,6 +925,9 @@ def main():
         log(f"stream_{op} f32 {probe.REF_SHAPE} (in L2): {dev_txt}; by "
             f"events {call_ms:.5f} ms a call, library {lib_ms:.5f} ms")
     del a, b
+
+    # -- phase 6: the design-space engine -------------------------------------
+    engine_phase()
 
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -30,6 +30,8 @@ x64) and returns float32 tensors; all are differentiable by
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.core import hw
@@ -62,8 +64,35 @@ def _arg(x):
     return x if isinstance(x, (int, float)) else _f32(x)
 
 
+@functools.lru_cache(maxsize=None)
+def _bound(value: float, dtype: torch.dtype) -> torch.Tensor:
+    """A clip bound as a 0-dim host tensor, which a CUDA kernel takes as
+    an argument; made once per value and dtype, outside inference mode so
+    that autograd may save it."""
+    with torch.inference_mode(False):
+        return torch.tensor(value, dtype=dtype)
+
+
+def maximum(x, lo: float) -> torch.Tensor:
+    """``jnp.maximum(x, lo)`` with its gradient: at a tie torch.maximum
+    splits the gradient 0.5/0.5, as JAX does (torch.clamp would pass all
+    of it)."""
+    return torch.maximum(x, _bound(float(lo), x.dtype))
+
+
+def minimum(x, hi: float) -> torch.Tensor:
+    """``jnp.minimum(x, hi)`` with its gradient (see :func:`maximum`)."""
+    return torch.minimum(x, _bound(float(hi), x.dtype))
+
+
+def clip(x, lo: float, hi: float) -> torch.Tensor:
+    """``jnp.clip(x, lo, hi)``: ``minimum(maximum(x, lo), hi)``, as JAX
+    computes it, gradient at the bounds included."""
+    return minimum(maximum(x, lo), hi)
+
+
 def _clip_rho(rho):
-    return torch.clamp(_f32(rho), 0.0, RHO_MAX)
+    return clip(_f32(rho), 0.0, RHO_MAX)
 
 
 def queue_wait_ns(rho):
@@ -113,7 +142,7 @@ def effective_queue_wait_ns(
     utilization is modest (the paper's bwaves case)."""
     w_open = _arg(eta) * burst_queue_wait_ns(rho, kappa)
     cap = closed_loop_cap_ns(outstanding_per_channel, channel_bw_gbps)
-    occupancy = torch.clamp(_f32(_arg(rho) * _arg(kappa)), max=1.0)
+    occupancy = minimum(_f32(_arg(rho) * _arg(kappa)), 1.0)
     return torch.minimum(w_open, cap * occupancy)
 
 

@@ -238,3 +238,43 @@ def test_worked_example_60_to_15_on_the_port():
     cxl_p90 = float(queueing.p90_latency_ns(0.15)) + 30.0
     assert 1 - cxl_avg / base_avg == pytest.approx(0.50, abs=0.05)
     assert 1 - cxl_p90 / base_p90 == pytest.approx(0.68, abs=0.05)
+
+
+# --- queueing: gradients at the clip bounds and the cap's kink ----------------
+
+# (rho, kappa): rho at both clip bounds, and rho * kappa == 1 exactly in
+# float32 (the closed-loop cap's occupancy bound; at 0.5 x 2 the default
+# cap and the open wait also meet).
+BOUNDARY_POINTS = [(0.0, 1.3), (jq.RHO_MAX, 1.3), (0.5, 2.0), (0.25, 4.0)]
+BOUNDARY_FNS = {
+    "queue_wait_ns": lambda m, r, k: m.queue_wait_ns(r),
+    "avg_latency_ns": lambda m, r, k: m.avg_latency_ns(r),
+    "p90_latency_ns": lambda m, r, k: m.p90_latency_ns(r),
+    "_clip_rho": lambda m, r, k: m._clip_rho(r),
+    "burst_queue_wait_ns": lambda m, r, k: m.burst_queue_wait_ns(r, k),
+    "effective_queue_wait_ns": lambda m, r, k: m.effective_queue_wait_ns(
+        r, kappa=k),
+    "effective_queue_wait_ns(eta 0.6, cap 48 x 64 B / 26 GB/s)":
+        lambda m, r, k: m.effective_queue_wait_ns(
+            r, kappa=k, eta=0.6, outstanding_per_channel=48.0,
+            channel_bw_gbps=26.0),
+    "link_queue_wait_ns": lambda m, r, k: m.link_queue_wait_ns(r, 2.0, k),
+    **{f"closed_form_stats[{key}]":
+       (lambda key: lambda m, r, k: m.closed_form_stats(
+           r, kappa=k, cxl_lat_ns=30.0)[key])(key)
+       for key in ("mean_ns", "p90_ns", "stdev_ns")},
+}
+
+
+@pytest.mark.parametrize("rho,kappa", BOUNDARY_POINTS)
+@pytest.mark.parametrize("fn", list(BOUNDARY_FNS))
+def test_rho_gradients_at_bounds_match_jax(fn, rho, kappa):
+    """jnp.clip / jnp.minimum split the gradient 0.5/0.5 at a tie; the
+    port must too (torch.clamp passes all of it)."""
+    f = BOUNDARY_FNS[fn]
+    rho32 = np.float32(rho)
+    r = torch.tensor(rho32, requires_grad=True)
+    f(queueing, r, kappa).backward()
+    want = jax.grad(lambda x: f(jq, x, kappa))(jnp.asarray(rho32))
+    np.testing.assert_allclose(r.grad.numpy(), np.asarray(want),
+                               rtol=GRAD_RTOL)
