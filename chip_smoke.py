@@ -49,11 +49,30 @@ Phases; any failure exits non-zero and no phase swallows one:
      not settled, within the span of the card's orbit over steps 118 to
      122; such elements are counted), and
      ``design_gradient`` at coaxial-4x over every field held to its CPU
-     run.
+     run;
+  7. the memory-system DES (``repro_torch.core.memsim``, its scans the
+     hand kernels memsim_ts_scan and memsim_event_scan, which phase 2
+     holds bit for bit to their plain versions at the default LUT grid's
+     4,032 lanes and at 37, chained, harvest on and off, open and closed
+     loop, at the study's own launch shapes (384, 512 and 128 lanes at the
+     chunk rules' lengths) and at a chunk of 1021, and which this phase
+     holds again to their plain versions on the inputs it times):
+     ``repro_torch.launch.memsim_study.main`` on the card at its
+     full budget, each scan kernel launched exactly once a chunk of the
+     runs it makes, the timestep engine's ``validate_calibration`` ok;
+     every number of the study held to the same code on the CPU (both at
+     ``MEMSIM_CHECK_STEPS``) at the histogram gates; three runs timed warm
+     by the host clock, each with its launches, the device's busy share
+     and peak memory: ``validate_calibration`` of both engines,
+     ``crosscheck_engines``, and the default QueueLUT grid as one event
+     engine sweep; the two scan kernels timed at the study's shapes.  To
+     run only this phase: ``python3 -c "import chip_smoke;
+     chip_smoke.memsim_phase()"``.
 
-The line before the last is a JSON object ``{"kernels": [...]}``; the last
-line is ``{"ok": true, "device": {...}}``.  Needs one CUDA card, nvcc, and
-nothing of JAX.
+The card's nvidia-smi line is printed again just before the JSON object
+``{"kernels": [...]}``, the line before the last; the last line is
+``{"ok": true, "device": {...}}``.  Needs one CUDA card, nvcc, and nothing
+of JAX.
 """
 
 import dataclasses
@@ -116,6 +135,29 @@ ENGINE_RTOL, ENGINE_GRAD_ATOL = 1e-5, 1e-8
 # Timed solves of each grid after a warm one, and dense cells held to a
 # CPU solve.
 ENGINE_REPEATS, ENGINE_SAMPLE = 5, 1000
+# The memory-system DES (phases 2 and 7).  The reference's default QueueLUT
+# grid (repro/core/queuelut.py: DEFAULT_{RHO,KAPPA,OUTSTANDING,ETA}_GRID,
+# DEFAULT_STEPS, DEFAULT_REPS, built by the event engine): 14 x 6 x 6 x 4
+# cells x 2 replicas = 4,032 lanes.
+LUT_RHO = (0.05, 0.15, 0.25, 0.35, 0.45, 0.55, 0.62, 0.68, 0.74, 0.79,
+           0.84, 0.88, 0.91, 0.93)
+LUT_KAPPA = (1.0, 1.3, 1.6, 2.2, 2.7, 3.2)
+LUT_OUTSTANDING = (2.0, 4.0, 8.0, 24.0, 64.0, 192.0)
+LUT_ETA = (0.05, 0.30, 0.60, 1.0)
+LUT_STEPS, LUT_REPS = 120_000, 2
+# The study's budget on the card (its gates' own), and the budget at which
+# card and CPU both run it to be compared: on the CPU (8 cores of the H100
+# host) the study takes ~50 s at 60,000 steps, nearly all of it the plain
+# scans' per-step loops, so ~170 s at the full budget; the comparison is
+# cut to keep the CPU side near 100 s.
+MEMSIM_STEPS, MEMSIM_CHECK_STEPS = 200_000, 120_000
+# Card against CPU, the histogram gates of tests/test_torch_memsim.py:
+# quantiles within one 4-ns bin, means and stdevs within 1e-4 relative.
+# (Stage A is the same integer hash and emulated float32 math on both, and
+# the scans agree bit for bit, so the measured difference is 0.)
+MEMSIM_MEAN_RTOL = 1e-4
+# Warm timed repeats of each of phase 7's three runs.
+MEMSIM_REPEATS = 2
 
 
 def fail(msg: str):
@@ -473,6 +515,434 @@ def engine_phase():
         + ", ".join(f"{k}={v:+.6g}" for k, v in g_card.items()))
 
 
+def lut_cells(lanes: int):
+    """``lanes`` cells of the default QueueLUT grid (its 2,016 cells twice
+    over for 4,032; an even spread of it for fewer)."""
+    grid = [(r, k, o, e) for r in LUT_RHO for k in LUT_KAPPA
+            for o in LUT_OUTSTANDING for e in LUT_ETA] * LUT_REPS
+    step = max(1, len(grid) // lanes)
+    return grid[::step][:lanes]
+
+
+def memsim_scan_inputs(memsim, threefry, lanes, ts_chunk, ev_chunk, harvest,
+                       open_loop, seed):
+    """Stage A of both engines on the card for ``lanes`` cells of the LUT
+    grid, two chained chunks each, of ``ts_chunk`` steps and ``ev_chunk``
+    requests (no event chunks if it is None): yields ``(engine, terms,
+    chunks)`` with each chunk's scan arguments."""
+    cfgs = [memsim.ChannelConfig(
+        rho=r, kappa=k, outstanding=float("inf") if open_loop else o, eta=e,
+        harvest_duty=0.3 if harvest else 0.0,
+        harvest_bw_gbps=20.0 if harvest else 0.0, harvest_sojourn_ns=400.0)
+        for r, k, o, e in lut_cells(lanes)]
+    c = memsim.stack_channels(cfgs, device="cuda")
+    t = memsim._channel_terms(c)
+    ids = torch.arange(lanes, device="cuda")
+    keys = threefry.split(threefry.prng_key(seed, "cuda"), 3)
+    ts = []
+    for k in range(2):
+        sw, au, jit_ns, svc = memsim._ts_draws(c, t, ids, keys[k], ts_chunk)
+        hu = (memsim._ts_harvest_u(ids, keys[k], ts_chunk) if harvest
+              else None)
+        # Ragged record windows: from step 300 of the first chunk to step
+        # 517 of the second.
+        ts.append((sw, au, jit_ns, svc, hu, 300 if k == 0 else 0,
+                   ts_chunk if k == 0 else 517))
+    yield "timestep", memsim._ts_terms(c, t), ts
+    if ev_chunk is None:
+        return
+    tabs = memsim._event_tables(c, t, ids, keys[2], 64)
+    if harvest:
+        htabs = memsim._event_harvest_tabs(c, ids, keys[2], 64)
+        h_scale = memsim._harvest_terms(c)["h_scale"]
+    state = (torch.zeros(lanes, device="cuda"),
+             torch.zeros(lanes, device="cuda"))
+    ev = []
+    for k in range(2):
+        t_prev = state[1]
+        state, gaps, svc, rec = memsim._event_arrivals(
+            c, t, state, ids, keys[k], tabs, 200, ev_chunk)
+        if harvest:
+            svc = memsim._event_harvest_scale(svc, gaps, t_prev, htabs,
+                                              h_scale)
+        ev.append((gaps, svc, rec))
+    yield "event", memsim._event_terms(c, t), ev
+
+
+def scan_error(kernel, plain) -> float:
+    """Largest |kernel - plain| over the pairs of carries and histograms
+    ``kernel`` and ``plain``."""
+    return max(float((k.double() - p.double()).abs().max())
+               for k, p in zip(kernel, plain))
+
+
+def run_scans(ms, ref, engine, terms, chunks):
+    """Each chunk of ``chunks`` through the kernel and through its plain
+    version, chained from zero carries; returns ``{"kernel": (carry,
+    hist), "plain": (carry, hist)}``."""
+    n = terms.shape[1]
+    out = {}
+    for path in ("kernel", "plain"):
+        hist = torch.zeros((n, ms.N_BINS), dtype=torch.int32, device="cuda")
+        if engine == "timestep":
+            carry = torch.stack([torch.zeros(n), torch.ones(n),
+                                 torch.zeros(n)]).cuda()
+            fn = ms.ts_scan if path == "kernel" else ref.ts_scan_ref
+        else:
+            carry = torch.zeros(n, device="cuda")
+            fn = ms.event_scan if path == "kernel" else ref.event_scan_ref
+        for args in chunks:
+            fn(terms, carry, *args, hist)
+        out[path] = (carry, hist)
+    torch.cuda.synchronize()
+    return out
+
+
+# Phase 2's cases for K4/K5: (lanes, timestep chunk, event chunk, harvest,
+# open loop).  The default LUT grid's 4,032 lanes and a ragged 37 at the
+# canonical chunk, harvest on and off, outstanding finite and infinite;
+# the study's own launch shapes (validate_calibration's 384 lanes,
+# crosscheck_engines' 512 and the worked example's 128, timestep only, at
+# the chunk rules' lengths); a chunk of 1021, not a multiple of the
+# kernels' unroll of 8.
+MEMSIM_SCAN_CASES = (
+    [(lanes, 1024, 1024, harvest, open_loop) for lanes in (4032, 37)
+     for harvest in (False, True) for open_loop in (False, True)]
+    + [(384, 8192, 8192, False, False), (512, 8192, 8192, False, True),
+       (128, 8192, None, False, False), (37, 1021, 1021, True, False)])
+
+
+def check_memsim_scans(ms, ref, memsim, threefry, seed):
+    """Phase 2 for K4/K5: each against its plain version on the card, bit
+    for bit (torch.equal on carries and histograms after two chained
+    chunks) over ``MEMSIM_SCAN_CASES``.  Returns each kernel's largest
+    |kernel - plain| over its carries and histograms."""
+    err = {"memsim_ts_scan": 0.0, "memsim_event_scan": 0.0}
+    for lanes, ts_chunk, ev_chunk, harvest, open_loop in MEMSIM_SCAN_CASES:
+        seed += 1
+        for engine, terms, chunks in memsim_scan_inputs(
+                memsim, threefry, lanes, ts_chunk, ev_chunk, harvest,
+                open_loop, seed):
+            name = "memsim_ts_scan" if engine == "timestep" else \
+                "memsim_event_scan"
+            out = run_scans(ms, ref, engine, terms, chunks)
+            err[name] = max(err[name], scan_error(out["kernel"],
+                                                  out["plain"]))
+            if not all(torch.equal(k, p)
+                       for k, p in zip(out["kernel"], out["plain"])):
+                fail(f"{name} differs from its plain version at {lanes} "
+                     f"lanes, chunks of {len(chunks[0][0])}, harvest "
+                     f"{harvest}, open loop {open_loop}: max |err| "
+                     f"{err[name]}")
+            if int(out["plain"][1].sum()) == 0:
+                fail(f"{name} recorded nothing at {lanes} lanes")
+        log(f"  memsim_ts_scan / memsim_event_scan, {lanes} lanes, chunks "
+            f"of {ts_chunk} / {ev_chunk}, harvest "
+            f"{'on' if harvest else 'off'}, outstanding "
+            f"{'inf' if open_loop else 'finite'}: 2 chained chunks, "
+            f"carries and histograms equal to plain (torch.equal)")
+    return err
+
+
+def memsim_launches(memsim, runs):
+    """Launches of each scan kernel that ``runs`` make by the chunk rules:
+    ``runs`` holds (engine, lanes, steps) of each simulation."""
+    out = {"memsim_ts_scan": 0, "memsim_event_scan": 0}
+    for engine, lanes, steps in runs:
+        if engine == "timestep":
+            out["memsim_ts_scan"] += -(-steps // memsim._ts_chunk_len(lanes))
+        else:
+            out["memsim_event_scan"] += -(-memsim.events_for_steps(steps) //
+                                          memsim._event_chunk_len(lanes))
+    return out
+
+
+def study_runs(study, steps):
+    """(engine, lanes, steps) of each simulation ``memsim_study`` makes."""
+    cal = 8 * study.CALIBRATION_REPS
+    cc = 8 * study.CROSSCHECK_REPS
+    return [("timestep", cal, steps), ("event", cal, steps),
+            ("timestep", cc, steps), ("event", cc, steps),
+            ("timestep", 4 * study.EXAMPLE_REPS, steps)]
+
+
+def memsim_close(card: dict, cpu: dict) -> float:
+    """Phase 7: every number of the study on the card against the CPU's at
+    the histogram gates; returns the largest difference found, as a share
+    of its gate."""
+    import numpy as np
+
+    from repro_torch.core.memsim import BIN_NS
+    p90_floor = min(v for k, v in card.items()
+                    if "p90_ns" in k and not isinstance(v, bool))
+    worst = 0.0
+    for key, want in cpu.items():
+        got = card[key]
+        if isinstance(want, bool):
+            if got != want:
+                fail(f"memsim: study {key} {got} on the card, {want} on "
+                     f"the CPU")
+            continue
+        if key.endswith("_ns"):
+            tol = (BIN_NS if any(q in key for q in ("p50", "p90", "p99"))
+                   else MEMSIM_MEAN_RTOL * abs(want))
+        elif "p90" in key:      # a ratio of p90s
+            tol = (1.0 + abs(want)) * BIN_NS / p90_floor
+        else:                   # a ratio of means or stdevs
+            tol = (1.0 + abs(want)) * 2 * MEMSIM_MEAN_RTOL
+        diff = abs(got - want)
+        if not np.isfinite(got) or diff > tol:
+            fail(f"memsim: study {key} {got!r} on the card, {want!r} on the "
+                 f"CPU (gate {tol:.3e})")
+        worst = max(worst, diff / tol if tol > 0 else 0.0)
+    return worst
+
+
+def memsim_run(label, fn, kernels, expected, lanes):
+    """Phase 7 for one timed run: a warm call (its launches counted), then
+    ``MEMSIM_REPEATS`` timed ones (host clock, ending in a synchronise, the
+    stats on the host), one profiled (device time, kernel launches) and one
+    under the peak-memory counter (less what was allocated before it)."""
+    for kern in kernels.values():
+        kern.launches = 0
+    fn()
+    counts = {k: v.launches for k, v in kernels.items()}
+    if counts != expected:
+        fail(f"memsim {label}: scan launches {counts} != {expected}")
+    ms_ = []
+    for _ in range(MEMSIM_REPEATS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms_.append((time.perf_counter() - t0) * 1e3)
+    dev_ms, rows = profile(fn)
+    copies = [r for r in rows if r[1].startswith(("Memcpy", "Memset"))]
+    launches = sum(r[2] for r in rows) - sum(r[2] for r in copies)
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - held
+    wall = min(ms_)
+    busy = "not measured" if dev_ms is None else \
+        f"{dev_ms:.3f} ms -> busy share {dev_ms / wall:.3f}"
+    log(f"memsim {label} ({lanes} lanes): "
+        f"{', '.join(f'{m:.3f}' for m in ms_)} ms a run; scan launches "
+        f"{counts}; {launches} kernel launches and "
+        f"{sum(r[2] for r in copies)} copies a run; device time {busy}; "
+        f"peak device memory of a run {peak / 2**20:.1f} MiB")
+    for dms, key, count in rows[:6]:
+        log(f"  {dms:9.3f} ms  x{count:<5d} {key[:80]}")
+    return rows
+
+
+def scan_line(name, ms, ref, args, plain_args, norec_args, steps, lanes,
+              peak_bw, peak_f32, launch_rows):
+    """One scan kernel at a launch shape of the study: first the kernel and
+    its plain version once each on the same inputs from fresh carries and
+    histograms, which must be equal (torch.equal); then timed (the kernel
+    over many launches, its plain version once, and the kernel with
+    nothing to record, which skips the histogram's read-modify-writes).
+    Returns the JSON fields and the largest |kernel - plain|."""
+    kfn = getattr(ms, name.removeprefix("memsim_"))
+    pfn = getattr(ref, name.removeprefix("memsim_") + "_ref")
+    carry, hist = args[1], args[-1]
+    pair = {}
+    for path, fn, inputs in (("kernel", kfn, args), ("plain", pfn, plain_args)):
+        c, h = carry.clone(), torch.zeros_like(hist)
+        fn(inputs[0], c, *inputs[2:-1], h)
+        pair[path] = (c, h)
+    torch.cuda.synchronize()
+    err = scan_error(pair["kernel"], pair["plain"])
+    if not all(torch.equal(k, p) for k, p in zip(pair["kernel"],
+                                                 pair["plain"])):
+        fail(f"{name} differs from its plain version at the study's shape "
+             f"{steps} x {lanes}: max |err| {err}")
+    if int(pair["plain"][1].sum()) == 0:
+        fail(f"{name} recorded nothing at the study's shape")
+    times = {}
+    for key, fn, it in (("plain", lambda: pfn(*plain_args), 1),
+                        ("kernel", lambda: kfn(*args), 20),
+                        ("no record", lambda: kfn(*norec_args), 20),
+                        ("kernel", lambda: kfn(*args), 20),
+                        ("plain", lambda: pfn(*plain_args), 1)):
+        times.setdefault(key, []).append(time_ms(fn, iters=it,
+                                                 warmup=min(it, 2)))
+    nbytes = ms.scan_bytes(name, steps, lanes)
+    # ~15 float32 operations a lane-step (K4: 4 compares and selects of
+    # the two chains, the admission test, 2 adds of the latency, the
+    # service scale, 3 of the backlog update, the binning); K5: 6.
+    flops = (15 if name == "memsim_ts_scan" else 6) * steps * lanes
+    # The serial chain: ~6 dependent float32 operations a step at ~4
+    # cycles each, at the H100 SXM's 1.98 GHz boost clock (data sheet):
+    # a lane's steps cannot go faster, however many lanes run beside it.
+    t_bytes, t_ops = nbytes / peak_bw, flops / peak_f32
+    t_chain = steps * 6 * 4 / 1.98e9
+    bound = max(t_bytes, t_ops, t_chain) * 1e3
+    by = "bytes" if t_bytes >= max(t_ops, t_chain) else "operations"
+    what = ("the serial chain" if t_chain >= max(t_bytes, t_ops) else by)
+    dev = [(d, c) for d, key, c in launch_rows if "scan_kernel" in key
+           and ("ts_scan" in key) == (name == "memsim_ts_scan")]
+    dev_txt = "not measured" if not dev else \
+        f"{dev[0][0] / dev[0][1]:.5f} ms a launch (x{dev[0][1]})"
+    ms_k = min(times["kernel"])
+    log(f"{name} {steps} steps x {lanes} lanes: equal to plain "
+        f"(torch.equal) on the same inputs; kernel {times['kernel']} ms "
+        f"by events (in the timed run, profiler: {dev_txt}), with nothing "
+        f"recorded {times['no record']} ms, plain {times['plain']} ms; "
+        f"bound {bound:.5f} ms by {what} (bytes {t_bytes * 1e3:.5f} ms for "
+        f"{nbytes} B, FLOPs {t_ops * 1e3:.5f} ms for {flops}, the serial "
+        f"chain of ~6 dependent float32 operations a step "
+        f"{t_chain * 1e3:.5f} ms) -> {bound / ms_k:.3f} of it")
+    return {"ms": ms_k, "plain_ms": min(times["plain"]), "bound_ms": bound,
+            "bound_by": by}, err
+
+
+def memsim_phase(scan_err=None):
+    """Phase 7: the memory-system DES on the card, against the CPU; returns
+    the kernel JSON entries of the two scan kernels.  ``scan_err`` holds
+    each scan kernel's largest |kernel - plain| from phase 2."""
+    from repro_torch.core import coaxial, hw, memsim, threefry
+    from repro_torch.kernels import build, ref
+    from repro_torch.kernels import memsim_scan as ms
+    from repro_torch.launch import memsim_study as study
+
+    kernels = ms.KERNELS
+    build.load_all([ms.LIBRARY])
+    spec = hw.spec_for(torch.cuda.get_device_name(0))
+    # The main path: the study on the card at its full budget.
+    for kern in kernels.values():
+        kern.launches = 0
+    t0 = time.perf_counter()
+    card = study.main(["--steps", str(MEMSIM_STEPS)])
+    torch.cuda.synchronize()
+    study_s = time.perf_counter() - t0
+    launches = {k: v.launches for k, v in kernels.items()}
+    runs = study_runs(study, MEMSIM_STEPS)
+    expected = memsim_launches(memsim, runs)
+    each = ", ".join(
+        f"{e} at {n} lanes {sum(memsim_launches(memsim, [(e, n, st)]).values())}"
+        for e, n, st in runs)
+    log(f"memsim_study on the card ({MEMSIM_STEPS} steps, {study_s:.1f} s, "
+        f"first run): scan launches {launches} (expected {expected} by the "
+        f"chunk rules: {each})")
+    if launches != expected:
+        fail(f"memsim_study: scan launches {launches} != {expected}")
+    if not card["timestep_calibration_ok"]:
+        fail("memsim_study: the timestep engine's validate_calibration is "
+             "not ok on the card at its gate settings")
+    log(f"memsim: timestep validate_calibration ok (max |err| mean "
+        f"{card['timestep_max_abs_mean_err']:.4f}, p90 "
+        f"{card['timestep_max_abs_p90_err']:.4f}, stdev "
+        f"{card['timestep_max_abs_stdev_err']:.4f}); event engine "
+        f"(printed, not gated: the reference itself misses its p90 gate): "
+        f"mean {card['event_max_abs_mean_err']:.4f}, p90 "
+        f"{card['event_max_abs_p90_err']:.4f}, stdev "
+        f"{card['event_max_abs_stdev_err']:.4f}, ok "
+        f"{card['event_calibration_ok']}")
+
+    # Card against CPU, both at the comparison budget.
+    log(f"memsim: card vs CPU at {MEMSIM_CHECK_STEPS} steps, cut from "
+        f"{MEMSIM_STEPS} to keep the CPU side near 100 s")
+    t0 = time.perf_counter()
+    cpu = study.main(["--device", "cpu", "--steps", str(MEMSIM_CHECK_STEPS)])
+    cpu_s = time.perf_counter() - t0
+    card_cut = study.main(["--steps", str(MEMSIM_CHECK_STEPS)])
+    worst = memsim_close(card_cut, cpu)
+    equal = sum(card_cut[k] == v for k, v in cpu.items())
+    log(f"memsim: the study on the card equals its CPU run ({cpu_s:.1f} s "
+        f"on the CPU): {len(cpu)} numbers, {equal} identical, largest "
+        f"difference {worst:.3e} of its gate")
+
+    # The three timed runs.
+    calib = [(e, 8 * study.CALIBRATION_REPS, MEMSIM_STEPS)
+             for e in memsim.ENGINES]
+    rows_cal = memsim_run(
+        "validate_calibration, both engines",
+        lambda: [coaxial.validate_calibration(
+            steps=MEMSIM_STEPS, seed=study.CALIBRATION_SEED,
+            reps=study.CALIBRATION_REPS, engine=e) for e in memsim.ENGINES],
+        kernels, memsim_launches(memsim, calib), 8 * study.CALIBRATION_REPS)
+    cross = [(e, 8 * study.CROSSCHECK_REPS, MEMSIM_STEPS)
+             for e in memsim.ENGINES]
+    memsim_run("crosscheck_engines",
+               lambda: coaxial.crosscheck_engines(
+                   steps=MEMSIM_STEPS, seed=study.CROSSCHECK_SEED,
+                   reps=study.CROSSCHECK_REPS),
+               kernels, memsim_launches(memsim, cross),
+               8 * study.CROSSCHECK_REPS)
+    lut_lanes = len(lut_cells(4032))
+    chunk = memsim.canonical_chunk("event")
+    lut_expected = {"memsim_ts_scan": 0, "memsim_event_scan": -(
+        -memsim.events_for_steps(LUT_STEPS) // chunk)}
+    rows_lut = memsim_run(
+        "default QueueLUT grid, event engine",
+        lambda: coaxial.distribution_sweep(
+            rho=LUT_RHO, kappa=LUT_KAPPA, outstanding=LUT_OUTSTANDING,
+            eta=LUT_ETA, steps=LUT_STEPS, reps=LUT_REPS, engine="event",
+            chunk=chunk),
+        kernels, lut_expected, lut_lanes)
+
+    # The scan kernels at the study's shape: validate_calibration's 384
+    # lanes, 8192 steps a chunk (both engines' chunk at that width).
+    lanes = 8 * study.CALIBRATION_REPS
+    cfgs = [memsim.ChannelConfig(rho=r) for r in coaxial.CALIBRATION_RHOS]
+    c = memsim.stack_channels(cfgs * study.CALIBRATION_REPS, device="cuda")
+    t = memsim._channel_terms(c)
+    ids = torch.arange(lanes, device="cuda")
+    key = threefry.split(threefry.prng_key(0, "cuda"), 2)[1]
+    steps = memsim._ts_chunk_len(lanes)
+    draws = memsim._ts_draws(c, t, ids, key, steps)
+    terms = memsim._ts_terms(c, t)
+    carry = torch.stack([torch.zeros(lanes), torch.ones(lanes),
+                         torch.zeros(lanes)]).cuda()
+    hist = torch.zeros((lanes, ms.N_BINS), dtype=torch.int32, device="cuda")
+    args = (terms, carry, *draws, None, 0, steps, hist)
+    plain = (terms, carry.clone(), *draws, None, 0, steps, hist.clone())
+    norec = (terms, carry.clone(), *draws, None, 0, 0, hist.clone())
+    err = dict(scan_err or {})
+    fields, e = scan_line("memsim_ts_scan", ms, ref, args, plain, norec,
+                          steps, lanes, spec.hbm_bw, spec.peak_fp32_flops,
+                          rows_cal)
+    entries = [{
+        "name": "memsim_ts_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/memsim_scan.cu",
+        "replaces": "src/repro/core/memsim.py:639",
+        "launches": launches["memsim_ts_scan"],
+        "max_abs_err": max(err.get("memsim_ts_scan", 0.0), e),
+        **fields, "library_ms": None}]
+    ev_steps = memsim._event_chunk_len(lanes)
+    tabs = memsim._event_tables(c, t, ids, key, 64)
+    _, gaps, svc, rec = memsim._event_arrivals(
+        c, t, (torch.zeros(lanes, device="cuda"),
+               torch.zeros(lanes, device="cuda")), ids, key, tabs, 0, ev_steps)
+    ev_terms = memsim._event_terms(c, t)
+    W = torch.zeros(lanes, device="cuda")
+    args = (ev_terms, W, gaps, svc, rec, hist)
+    plain = (ev_terms, W.clone(), gaps, svc, rec, hist.clone())
+    norec = (ev_terms, W.clone(), gaps, svc, torch.zeros_like(rec),
+             hist.clone())
+    fields, e = scan_line("memsim_event_scan", ms, ref, args, plain, norec,
+                          ev_steps, lanes, spec.hbm_bw, spec.peak_fp32_flops,
+                          rows_cal)
+    entries.append({
+        "name": "memsim_event_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/memsim_scan.cu",
+        "replaces": "src/repro/core/memsim.py:887",
+        "launches": launches["memsim_event_scan"],
+        "max_abs_err": max(err.get("memsim_event_scan", 0.0), e),
+        **fields, "library_ms": None})
+    dev = [(d, n) for d, key, n in rows_lut if "event_scan_kernel" in key]
+    if dev:
+        log(f"memsim_event_scan at the LUT grid's shape ({chunk} requests x "
+            f"{lut_lanes} lanes): {dev[0][0] / dev[0][1]:.5f} ms a launch "
+            f"(profiler, x{dev[0][1]}); bound "
+            f"{ms.scan_bytes('memsim_event_scan', chunk, lut_lanes) / spec.hbm_bw * 1e3:.5f}"
+            f" ms by bytes")
+    return entries
+
+
 def serve_path(serve, kernels, arch, expected):
     """Phase 3 for one path: counts to 0, serve once, read the counts."""
     for kern in kernels.values():
@@ -621,7 +1091,9 @@ def main():
     from repro_torch.core import hw
     from repro_torch.data.pipeline import SyntheticDataset
     from repro_torch.kernels import build, ref
+    from repro_torch.core import memsim, threefry
     from repro_torch.kernels import decode_attn as da
+    from repro_torch.kernels import memsim_scan as ms
     from repro_torch.kernels import rwkv_wkv as kw
     from repro_torch.kernels import stream as ks
     from repro_torch.launch import serve
@@ -644,6 +1116,7 @@ def main():
     kernels = {kname: kern for family in serve.PATH_KERNELS.values()
                for kname, kern in family.items()}
     kernels.update(ks.KERNELS)
+    kernels.update(ms.KERNELS)
     t0 = time.time()
     build.load_all([kern.library for kern in kernels.values()])
     log(f"built the kernels {sorted(kernels)} in {time.time() - t0:.1f} s")
@@ -698,6 +1171,8 @@ def main():
             errs = check_stream(ks, ref, shape, dtype, seed)
             if shape == (STREAM_N,) and dtype == torch.float32:
                 path_err.update({f"stream_{op}": e for op, e in errs.items()})
+    # memsim's two scans, bit for bit, on stage-A draws made on the card.
+    path_err["memsim"] = check_memsim_scans(ms, ref, memsim, threefry, seed)
 
     # -- phase 3: each path through its entry point --------------------------
     launches = {}
@@ -929,6 +1404,11 @@ def main():
     # -- phase 6: the design-space engine -------------------------------------
     engine_phase()
 
+    # -- phase 7: the memory-system DES --------------------------------------
+    entries.extend(memsim_phase(path_err["memsim"]))
+
+    # The card's line again, so that it stands in the output's tail.
+    print(smi, flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -26,10 +26,18 @@ A sweep lowers to ONE flattened call of the cell solver
     sw.sel(design="coaxial-4x", kappa=1.6).geomean_grid()
     sw.pareto()                      # area/pins vs speedup frontier
 
-The reference's distribution half (``distribution_sweep``,
-``DistributionSweepResult``, ``validate_calibration``,
-``crosscheck_engines``) and its memsim queue backend come with the memsim
-slice; ``queue_model="memsim"`` raises ``NotImplementedError`` here.
+The DES is a sweep target too (the distribution half): on ``device``,
+
+  * :func:`distribution_sweep` -- named-axis latency distributions from
+    ``memsim`` (:class:`DistributionSweepResult`, ``sel``/``cell``/
+    ``curve``);
+  * :func:`validate_calibration` -- DES vs the closed form at the rho
+    anchors (mean / p90 / stdev gates);
+  * :func:`crosscheck_engines` -- timestep vs event engine.
+
+The memsim queue backend of the fixed point (the reference's QueueLUT)
+is not ported yet: ``queue_model="memsim"`` raises
+``NotImplementedError`` here.
 """
 
 from __future__ import annotations
@@ -41,17 +49,19 @@ import functools
 import numpy as np
 import torch
 
-from repro_torch.core import cpu_model, hw
+from repro_torch.core import cpu_model, hw, memsim, queueing
 from repro_torch.core import workloads as _workloads
 from repro_torch.core.cpu_model import (COAXIAL_2X, COAXIAL_4X, COAXIAL_5X,
                                         COAXIAL_ASYM, DDR_BASELINE, DESIGNS,
                                         QUEUE_MODELS, MemSystem, ModelResult,
                                         design_gradient, geomean, solve,
                                         solve_batch)
+from repro_torch.core.memsim import ChannelConfig, LatencyStats
 from repro_torch.core.sweepspec import (KIND_DESIGN, KIND_IFACE,
                                         KIND_N_ACTIVE, KIND_QUEUE_MODEL,
                                         KIND_WORKLOAD_FIELD, Axis, SweepSpec,
-                                        _flat, build_flat, sweep_spec)
+                                        _flat, build_flat, build_flat_memsim,
+                                        distribution_spec, sweep_spec)
 from repro_torch.core.workloads import NAMES, WORKLOADS
 
 __all__ = [
@@ -62,6 +72,9 @@ __all__ = [
     "all_designs", "scoped_registry", "knee_point",
     "area_report", "pin_report", "design_cost", "edp_report",
     "sensitivity_latency", "sensitivity_cores", "headline", "QUEUE_MODELS",
+    "ChannelConfig", "LatencyStats", "DistributionSweepResult",
+    "distribution_spec", "distribution_sweep", "validate_calibration",
+    "crosscheck_engines",
 ]
 
 
@@ -797,6 +810,292 @@ def sensitivity_cores(cores=(1, 4, 8, 12), sys: MemSystem = COAXIAL_4X, *,
     sw = sweep((DDR_BASELINE, sys), n_active_grid=tuple(cores),
                device=device)
     return {n: sw.comparison(sys, n_active=n) for n in cores}
+
+
+# ---------------------------------------------------------------------------
+# Distribution sweeps: the DES (memsim) as a first-class sweep target.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class DistributionSweepResult(_NamedAxes):
+    """Stacked DES latency distributions over a grid of named channel axes.
+
+    ``stats`` leaves have the grid shape (``hist`` with one trailing bin
+    axis); the axes name each dimension.  Cells are selected by
+    coordinate, never by position, with the same tolerant numeric
+    matching and KeyError UX as :class:`SweepResult`:
+    ``sw.sel(rho=0.6, kappa=2.0, cxl_lat_ns=30.0)`` returns the cell's
+    :class:`LatencyStats` once every axis is pinned, or a reduced sweep
+    over the remaining axes otherwise.
+    """
+
+    axes: tuple[Axis, ...]
+    stats: LatencyStats
+    base: ChannelConfig
+    steps: int
+    warmup: int
+    seed: int
+    reps: int = 1
+    #: Which memsim engine produced the distributions ("timestep" or
+    #: "event").
+    engine: str = "timestep"
+    #: The device the DES ran on.
+    device: str = "cuda"
+
+    def sel(self, **coords):
+        """Select coordinates by axis name; each selected axis is dropped.
+
+        Numeric coordinates match tolerantly; an unknown axis or
+        coordinate raises one clear :class:`KeyError` listing the valid
+        choices.  Returns the cell's :class:`LatencyStats` when no axes
+        remain, else a reduced :class:`DistributionSweepResult`.
+        """
+        for k in coords:
+            if k not in self.axis_names:
+                raise KeyError(f"no axis {k!r} in sweep; axes: "
+                               f"{list(self.axis_names)}")
+        stats = self.stats
+        kept: list[Axis] = []
+        pos = 0
+        for ax in self.axes:
+            if ax.name in coords:
+                i = ax.index(coords[ax.name])
+                stats = stats[(slice(None),) * pos + (i,)]
+            else:
+                kept.append(ax)
+                pos += 1
+        if not kept:
+            return stats
+        return dataclasses.replace(self, axes=tuple(kept), stats=stats)
+
+    def cell(self, **coords) -> LatencyStats:
+        """The single-cell :class:`LatencyStats` at fully pinned
+        coordinates (axes of length 1 may be omitted)."""
+        full = dict(coords)
+        for ax in self.axes:
+            if ax.name not in full:
+                if len(ax) == 1:
+                    full[ax.name] = ax.values[0]
+                else:
+                    raise KeyError(
+                        f"axis {ax.name!r} has {len(ax)} coordinates; pass "
+                        f"{ax.name}=<one of {list(ax.coords)}>")
+        return self.sel(**full)
+
+    def curve(self, along: str, field: str = "mean_ns", **coords):
+        """(axis coordinates, stat values) along one axis, other axes
+        pinned by ``coords`` -- the Fig-2a load-latency curve shape."""
+        ax = self.axis(along)
+        sub = self.sel(**coords) if coords else self
+        if isinstance(sub, LatencyStats) or sub.axis_names != (along,):
+            raise KeyError(
+                f"curve(along={along!r}) needs every other axis pinned; "
+                f"axes: {list(self.axis_names)}")
+        return np.asarray(ax.values, np.float64), getattr(sub.stats, field)
+
+
+def distribution_sweep(spec: SweepSpec | None = None, *,
+                       base: ChannelConfig | None = None,
+                       steps: int = 200_000, seed: int = 0,
+                       warmup: int | None = None, reps: int = 1,
+                       engine: str = "timestep", devices=None,
+                       stream_ids=None, chunk: int | None = None,
+                       device="cuda", **axes) -> DistributionSweepResult:
+    """Run the DES over a named-axis grid of channel parameters on
+    ``device``.
+
+    Pass a memsim-targeted :class:`SweepSpec` (from
+    :func:`distribution_spec`) or the axes directly as keywords; the grid
+    lowers to ONE simulation over the flattened cell batch (``reps``
+    replicas a cell, merged into the histograms).  ``base`` supplies every
+    unbound channel field (default: a plain DDR channel at the field
+    defaults); ``engine`` picks ``"timestep"`` or ``"event"``;
+    ``stream_ids``/``chunk`` pass through to ``memsim.simulate_cells``
+    (the canonical stream contract); ``devices`` must be ``None`` or 1.
+
+    Example (doctest-sized step budget, on the CPU)::
+
+        >>> from repro_torch.core import coaxial
+        >>> sw = coaxial.distribution_sweep(rho=(0.2, 0.6),
+        ...                                 cxl_lat_ns=(0.0, 30.0),
+        ...                                 steps=20_000, reps=2,
+        ...                                 device="cpu")
+        >>> sw.shape
+        (2, 2)
+        >>> cell = sw.sel(rho=0.6, cxl_lat_ns=30.0)   # -> LatencyStats
+        >>> bool(cell.p90_ns >= cell.p50_ns)
+        True
+    """
+    if spec is None:
+        spec = distribution_spec(**axes)
+    elif axes:
+        raise TypeError("pass a spec OR axis keywords, not both")
+    flat = build_flat_memsim(spec, base=base)
+    warmup = memsim.default_warmup(steps) if warmup is None else int(warmup)
+    stats = memsim.simulate_cells(
+        flat["cha"], overrides=flat["overrides"], steps=steps, seed=seed,
+        warmup=warmup, reps=reps, engine=engine, devices=devices,
+        stream_ids=stream_ids, chunk=chunk, device=device)
+    return DistributionSweepResult(
+        axes=spec.axes, stats=stats.reshape(*spec.shape),
+        base=base if base is not None else ChannelConfig(rho=0.5),
+        steps=steps, warmup=warmup, seed=seed, reps=reps, engine=engine,
+        device=str(device))
+
+
+#: Default rho anchors for the DES <-> closed-form cross-check.
+CALIBRATION_RHOS = (0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8)
+#: Cross-check tolerances: relative mean / p90 / stdev deviation per
+#: anchor (the stdev gate is deliberately loose: the closed form's sigma is
+#: a §6.2 workload-level fit, the DES measures the channel's own
+#: heavy-tailed dispersion).
+CALIBRATION_MEAN_TOL = 0.15
+CALIBRATION_P90_TOL = 0.20
+CALIBRATION_STDEV_TOL = 1.25
+
+
+def validate_calibration(rhos=CALIBRATION_RHOS, *, kappa: float = 1.0,
+                         cxl_lat_ns: float = 0.0, steps: int = 200_000,
+                         seed: int = 0, warmup: int | None = None,
+                         reps: int = 48, engine: str = "timestep",
+                         devices=None,
+                         mean_tol: float = CALIBRATION_MEAN_TOL,
+                         p90_tol: float = CALIBRATION_P90_TOL,
+                         stdev_tol: float = CALIBRATION_STDEV_TOL,
+                         device="cuda") -> dict:
+    """Cross-validate the DES against the closed-form queueing model.
+
+    ONE batched distribution sweep over the rho anchors on ``device``,
+    its mean / p90 / stdev held against :func:`queueing.closed_form_stats`
+    at every anchor.  Returns ``anchors`` (one row per rho with both
+    values and the relative deltas), ``max_abs_mean_err`` /
+    ``max_abs_p90_err`` / ``max_abs_stdev_err``, the tolerances, an
+    overall ``ok`` flag, and the ``sweep`` itself.
+    """
+    rhos = tuple(float(r) for r in rhos)
+    base = ChannelConfig(rho=0.5, kappa=float(kappa),
+                         cxl_lat_ns=float(cxl_lat_ns))
+    sw = distribution_sweep(distribution_spec(rho=rhos), base=base,
+                            steps=steps, seed=seed, warmup=warmup,
+                            reps=reps, engine=engine, devices=devices,
+                            device=device)
+    anchors = []
+    for r in rhos:
+        des = sw.sel(rho=r)
+        cf = {k: float(v) for k, v in queueing.closed_form_stats(
+            r, kappa=kappa, cxl_lat_ns=cxl_lat_ns).items()}
+        row = dict(rho=r,
+                   des_mean_ns=float(des.mean_ns),
+                   closed_mean_ns=cf["mean_ns"],
+                   mean_err=float(des.mean_ns) / cf["mean_ns"] - 1.0,
+                   des_p90_ns=float(des.p90_ns),
+                   closed_p90_ns=cf["p90_ns"],
+                   p90_err=float(des.p90_ns) / cf["p90_ns"] - 1.0,
+                   des_stdev_ns=float(des.stdev_ns),
+                   closed_stdev_ns=cf["stdev_ns"],
+                   stdev_err=float(des.stdev_ns) / cf["stdev_ns"] - 1.0)
+        anchors.append(row)
+    max_mean = max(abs(a["mean_err"]) for a in anchors)
+    max_p90 = max(abs(a["p90_err"]) for a in anchors)
+    max_stdev = max(abs(a["stdev_err"]) for a in anchors)
+    return dict(anchors=anchors, max_abs_mean_err=max_mean,
+                max_abs_p90_err=max_p90, max_abs_stdev_err=max_stdev,
+                mean_tol=mean_tol, p90_tol=p90_tol, stdev_tol=stdev_tol,
+                engine=engine,
+                ok=bool(max_mean <= mean_tol and max_p90 <= p90_tol
+                        and max_stdev <= stdev_tol),
+                sweep=sw)
+
+
+#: Engine-vs-engine agreement gates (relative mean / p90 deviation per
+#: anchor); the engines agree statistically, not bitwise.
+ENGINE_MEAN_TOL = 0.10
+ENGINE_P90_TOL = 0.15
+#: Noise allowance: an anchor whose engine delta lies within ``k``
+#: batched-means standard errors of zero passes as well.
+ENGINE_SE_K = 3.0
+
+
+def crosscheck_engines(rhos=CALIBRATION_RHOS, *, kappa: float = 1.0,
+                       cxl_lat_ns: float = 0.0, steps: int = 200_000,
+                       seed: int = 0, warmup: int | None = None,
+                       reps: int = 32,
+                       mean_tol: float = ENGINE_MEAN_TOL,
+                       p90_tol: float = ENGINE_P90_TOL,
+                       se_k: float = ENGINE_SE_K, devices=None,
+                       base: ChannelConfig | None = None,
+                       device="cuda") -> dict:
+    """Statistical cross-check of the two memsim engines at the closed-form
+    rho anchors, on ``device``.
+
+    The same anchor grid runs through both engines at the same ``steps``
+    budget; an anchor passes if its relative mean (p90) deviation is
+    within ``mean_tol`` (``p90_tol``) OR within ``se_k`` batched-means
+    standard errors of zero (the ``reps`` replicas are the batches).
+    ``base`` replaces the default anchor channel wholesale (its ``rho`` is
+    overridden per anchor).  Returns one row per anchor, the largest
+    deviations, the per-engine ``sweeps`` and an ``ok`` flag.
+    """
+    rhos = tuple(float(r) for r in rhos)
+    if base is None:
+        base = ChannelConfig(rho=0.5, kappa=float(kappa),
+                             cxl_lat_ns=float(cxl_lat_ns))
+    spec = distribution_spec(rho=rhos)
+    flat = build_flat_memsim(spec, base=base)
+    warm = memsim.default_warmup(steps) if warmup is None else int(warmup)
+    sweeps, per_rep = {}, {}
+    for eng in memsim.ENGINES:
+        # ONE simulation per engine: per-replica stats for the SE, merged
+        # histograms (equal to a keep_reps=False run) for the rest.
+        per_rep[eng] = memsim.simulate_cells(
+            flat["cha"], overrides=flat["overrides"], steps=int(steps),
+            seed=seed, warmup=warm, reps=reps, engine=eng,
+            devices=devices, keep_reps=True, device=device)
+        merged = memsim.merge_reps(per_rep[eng])
+        sweeps[eng] = DistributionSweepResult(
+            axes=spec.axes, stats=merged.reshape(*spec.shape), base=base,
+            steps=int(steps), warmup=warm, seed=seed, reps=reps,
+            engine=eng, device=str(device))
+
+    def se(field, eng, i):
+        """Batched-means standard error of the merged statistic."""
+        batch = np.asarray(getattr(per_rep[eng], field))[:, i]
+        if batch.shape[0] < 2:
+            return np.nan
+        return float(np.std(batch, ddof=1) / np.sqrt(batch.shape[0]))
+
+    anchors = []
+    for i, r in enumerate(rhos):
+        ts = sweeps["timestep"].sel(rho=r)
+        ev = sweeps["event"].sel(rho=r)
+        row = dict(rho=r,
+                   timestep_mean_ns=float(ts.mean_ns),
+                   event_mean_ns=float(ev.mean_ns),
+                   mean_err=float(ev.mean_ns) / float(ts.mean_ns) - 1.0,
+                   timestep_p90_ns=float(ts.p90_ns),
+                   event_p90_ns=float(ev.p90_ns),
+                   p90_err=float(ev.p90_ns) / float(ts.p90_ns) - 1.0)
+        for stat, field in (("mean", "mean_ns"), ("p90", "p90_ns")):
+            se_d = np.sqrt(se(field, "timestep", i) ** 2 +
+                           se(field, "event", i) ** 2)
+            delta = row[f"event_{field}"] - row[f"timestep_{field}"]
+            # A zero/NaN SE degenerates cleanly: zero delta passes with
+            # z = 0, any other delta falls back to the relative gate.
+            z = delta / se_d if se_d > 0 else (
+                0.0 if delta == 0.0 else np.copysign(np.inf, delta))
+            row[f"{stat}_se_ns"] = float(se_d)
+            row[f"{stat}_z"] = float(z)
+            row[f"{stat}_ok"] = bool(abs(row[f"{stat}_err"]) <= (
+                mean_tol if stat == "mean" else p90_tol)
+                or abs(z) <= se_k)
+        row["ok"] = row["mean_ok"] and row["p90_ok"]
+        anchors.append(row)
+    max_mean = max(abs(a["mean_err"]) for a in anchors)
+    max_p90 = max(abs(a["p90_err"]) for a in anchors)
+    return dict(anchors=anchors, max_abs_mean_err=max_mean,
+                max_abs_p90_err=max_p90, mean_tol=mean_tol,
+                p90_tol=p90_tol, se_k=se_k, sweeps=sweeps,
+                ok=all(a["ok"] for a in anchors))
 
 
 # ---------------------------------------------------------------------------

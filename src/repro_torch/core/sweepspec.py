@@ -17,6 +17,13 @@ axis can bind
   * ``queue_model`` -- the solver backend; the port solves only
     ``"closed_form"`` and raises ``NotImplementedError`` for ``"memsim"``.
 
+The DES is a sweep target too: :func:`distribution_spec` builds a spec
+whose axes bind :class:`memsim.ChannelConfig` fields (``rho``, ``kappa``,
+``cxl_lat_ns``, any calibration constant), :func:`build_flat_memsim`
+lowers it the same NaN-masked way, and ``spec.solve()`` dispatches on
+``spec.target`` -- ``coaxial.distribution_sweep`` returns named-axis
+latency *distributions* instead of model results.
+
 Example::
 
     spec = sweep_spec(design=all_designs(),
@@ -29,8 +36,7 @@ Example::
 The spec is pure data: :func:`build_flat` lowers it to the flattened
 per-cell numpy arrays that :func:`cpu_model.solve_cells` consumes, and
 ``coaxial.solve_spec`` wraps the solved grid in a named-axis
-``SweepResult``.  The reference's memsim target (``distribution_spec``,
-``build_flat_memsim``, channel-field axes) comes with the memsim slice.
+``SweepResult``.
 """
 
 from __future__ import annotations
@@ -39,14 +45,18 @@ import dataclasses
 
 import numpy as np
 
-from repro_torch.core import cpu_model, workloads
+from repro_torch.core import cpu_model, memsim, workloads
 from repro_torch.core.cpu_model import QUEUE_MODELS, MemSystem, MemSystemArrays
+from repro_torch.core.memsim import ChannelArrays, ChannelConfig
 
 #: Design fields an axis may override (``iface_lat_ns`` has its own
 #: dedicated axis with the legacy CXL-only semantics).
 DESIGN_FIELDS = cpu_model.SWEEPABLE_DESIGN_FIELDS
 #: Workload behavioral parameters an axis may override.
 WORKLOAD_FIELDS = workloads.SWEEPABLE_FIELDS
+#: memsim channel fields a distribution-sweep axis may bind (the operating
+#: point AND every calibration constant; see :func:`distribution_spec`).
+CHANNEL_FIELDS = memsim.CHANNEL_FIELDS
 
 #: Axis kinds.
 KIND_DESIGN = "design"
@@ -54,6 +64,7 @@ KIND_IFACE = "iface_lat"
 KIND_N_ACTIVE = "n_active"
 KIND_DESIGN_FIELD = "design_field"
 KIND_WORKLOAD_FIELD = "workload_field"
+KIND_CHANNEL_FIELD = "channel_field"
 KIND_QUEUE_MODEL = "queue_model"
 
 #: Every bindable axis name (the valid ``sweep_spec`` keywords).
@@ -157,16 +168,19 @@ class SweepSpec:
 
     @property
     def target(self) -> str:
-        """Which engine the spec lowers to: ``"cpu"``, the closed-form
-        ``cpu_model`` solver (the reference's ``"memsim"`` target, specs of
-        channel-field axes, is not ported yet)."""
-        return "cpu"
+        """Which engine the spec lowers to: ``"cpu"`` (the closed-form
+        ``cpu_model`` solver) or ``"memsim"`` (the DES)."""
+        return ("memsim" if any(ax.kind == KIND_CHANNEL_FIELD
+                                for ax in self.axes) else "cpu")
 
     def solve(self, **kwargs):
-        """Solve the grid into a ``coaxial.SweepResult``; keyword arguments
-        (``workloads``, ``baseline``, ``device``, ...) pass through to
-        ``coaxial.solve_spec``."""
+        """Solve the grid: ``coaxial.SweepResult`` for cpu-targeted specs,
+        ``coaxial.DistributionSweepResult`` for memsim-targeted ones.
+        Keyword arguments (``device`` among them) pass through to
+        ``coaxial.solve_spec`` or ``coaxial.distribution_sweep``."""
         from repro_torch.core import coaxial  # runtime: coaxial imports us
+        if self.target == "memsim":
+            return coaxial.distribution_sweep(self, **kwargs)
         return coaxial.solve_spec(self, **kwargs)
 
 
@@ -353,3 +367,67 @@ def build_flat(spec: SweepSpec, *, pin_design: MemSystem | None = None
         raise ValueError("spec has no design axis (use sweep_spec(...))")
     return dict(sysa=sysa, n_active=n_active, iface_override_ns=iface,
                 design_overrides=sys_ov, workload_overrides=wl_ov)
+
+
+# ---------------------------------------------------------------------------
+# memsim target: distribution sweeps over ChannelConfig fields.
+# ---------------------------------------------------------------------------
+
+def distribution_spec(**axes) -> SweepSpec:
+    """Build a memsim-targeted :class:`SweepSpec` of channel-field axes.
+
+    Every keyword names a :class:`memsim.ChannelConfig` field (``rho``,
+    ``kappa``, ``cxl_lat_ns``, ``stall_ns``, ...); axis order is
+    declaration order and scalars are promoted to length-1 axes.  The
+    spec lowers to ONE simulation over the flattened cell batch
+    (:func:`build_flat_memsim`) under either memsim engine, and
+    ``coaxial.distribution_sweep`` wraps the result in a named-axis
+    ``DistributionSweepResult``.
+    """
+    if not axes:
+        raise ValueError("distribution_spec needs at least one axis; "
+                         f"bindable channel fields: {CHANNEL_FIELDS}")
+    built = []
+    for name, values in axes.items():
+        if name not in CHANNEL_FIELDS:
+            raise ValueError(
+                f"unknown distribution axis {name!r}; bindable channel "
+                f"fields: {CHANNEL_FIELDS}")
+        if np.ndim(values) == 0 and not isinstance(values, (list, tuple)):
+            values = (values,)
+        conv = []
+        for v in values:
+            if v is None:
+                raise ValueError(
+                    f"axis {name!r}: None is not a channel coordinate")
+            conv.append(float(v))
+        if not conv:
+            raise ValueError(f"axis {name!r} has no coordinate values")
+        built.append(Axis(name=name, values=tuple(conv),
+                          kind=KIND_CHANNEL_FIELD))
+    return SweepSpec(axes=tuple(built))
+
+
+def build_flat_memsim(spec: SweepSpec,
+                      base: ChannelConfig | None = None) -> dict:
+    """Lower a memsim-targeted spec to flattened simulator inputs.
+
+    Returns ``cha`` (a :class:`ChannelArrays` of the base channel's values
+    broadcast to ``(N,)`` numpy arrays) and ``overrides`` (NaN = "keep the
+    base channel's value", one ``(N,)`` array per bound axis), which
+    ``memsim.simulate_cells`` applies branch-free.
+    """
+    base = base if base is not None else ChannelConfig(rho=0.5)
+    bad = [ax.name for ax in spec.axes if ax.kind != KIND_CHANNEL_FIELD]
+    if bad:
+        raise ValueError(
+            f"memsim lowering needs channel-field axes only; non-channel "
+            f"axes in spec: {bad} (build with distribution_spec(...))")
+    shape = spec.shape
+    n = int(np.prod(shape))
+    cha = ChannelArrays(*(
+        np.full(n, float(getattr(base, f))) for f in CHANNEL_FIELDS))
+    overrides = {}
+    for pos, ax in enumerate(spec.axes):
+        overrides[ax.name] = _flat(ax.values, pos, shape)
+    return dict(cha=cha, overrides=overrides)

@@ -12,6 +12,7 @@ between the compiled Pallas kernel and interpret mode.  Here:
 from __future__ import annotations
 
 from repro_torch.kernels import decode_attn as _da
+from repro_torch.kernels import memsim_scan as _ms
 from repro_torch.kernels import ref
 from repro_torch.kernels import rwkv_wkv as _wkv
 from repro_torch.kernels import stream as _stream
@@ -71,3 +72,24 @@ def wkv(r, k, v, w, u, state, state_out=None):
     if _all_on_cpu(r, k, v, w, u, state, *extra):
         return ref.wkv_ref(r, k, v, w, u, state, state_out)
     return _wkv.wkv(r, k, v, w, u, state, state_out)
+
+
+def ts_scan(terms, carry, switch_u, arrive_u, jitter, svc, harvest_u,
+            rec_lo: int, rec_hi: int, hist):
+    """One chunk of memsim's timestep backlog scan: carry and hist updated
+    in place (arguments: ``ref.ts_scan_ref``)."""
+    extra = () if harvest_u is None else (harvest_u,)
+    if _all_on_cpu(terms, carry, switch_u, arrive_u, jitter, svc, hist,
+                   *extra):
+        return ref.ts_scan_ref(terms, carry, switch_u, arrive_u, jitter, svc,
+                               harvest_u, rec_lo, rec_hi, hist)
+    return _ms.ts_scan(terms, carry, switch_u, arrive_u, jitter, svc,
+                       harvest_u, rec_lo, rec_hi, hist)
+
+
+def event_scan(terms, W, gaps, svc, rec_time, hist):
+    """One chunk of memsim's Lindley scan: W and hist updated in place
+    (arguments: ``ref.event_scan_ref``)."""
+    if _all_on_cpu(terms, W, gaps, svc, rec_time, hist):
+        return ref.event_scan_ref(terms, W, gaps, svc, rec_time, hist)
+    return _ms.event_scan(terms, W, gaps, svc, rec_time, hist)

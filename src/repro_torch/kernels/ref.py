@@ -82,3 +82,94 @@ def wkv_ref(r, k, v, w, u, state, state_out=None):
     if state_out is not None:
         s = state_out.copy_(s)
     return torch.stack(ys, dim=1), s
+
+
+# --- memsim stage B: the timestep backlog scan and the Lindley scan ---------
+# Per-step loops of torch ops in the order of the reference's scan bodies
+# (repro/core/memsim.py ``_ts_chunk_core`` and ``_event_chunk_core``):
+# correctly-rounded elementwise float32 arithmetic only, so these equal the
+# reference's scans bit for bit on the same inputs.  Both bin each recorded
+# latency into ``hist`` ((n, n_bins) int32, accumulated in place) as the
+# reference's ``_flat_bins``: ``lat * (1 / 4)`` truncated toward zero and
+# clipped to [0, n_bins - 1].
+
+MEMSIM_BIN_SCALE = 0.25       # 1 / memsim.BIN_NS
+
+
+def _bin_into(hist, lat, rec):
+    n, n_bins = hist.shape
+    bins = torch.clamp((lat * MEMSIM_BIN_SCALE).to(torch.int32), 0,
+                       n_bins - 1)
+    lane = torch.arange(n, device=hist.device, dtype=torch.int64)
+    flat = (lane * n_bins)[None, :] + bins.to(torch.int64)
+    counts = torch.bincount(flat[rec], minlength=n * n_bins)
+    hist += counts.reshape(n, n_bins).to(torch.int32)
+
+
+def ts_scan_ref(terms, carry, switch_u, arrive_u, jitter, svc, harvest_u,
+                rec_lo, rec_hi, hist):
+    """One chunk of the timestep engine's backlog scan, in place.
+
+    terms: (9, n) float32, rows p_leave, p_enter, rate_hi, rate_lo, bound,
+    lat0, h_leave, h_enter, h_scale; carry: (3, n) float32 (backlog,
+    in_burst, lent), updated; switch_u/arrive_u/jitter/svc: (C, n) float32;
+    harvest_u: (C, n) float32, or None for zeros; step k is recorded iff
+    rec_lo <= k < rec_hi and its request was admitted; hist: (n, n_bins)
+    int32, accumulated.
+
+    The comparisons that do not depend on the carry (switch and arrival
+    draws against their thresholds) and ``svc * h_scale`` are taken for
+    the whole chunk first; the loop carries the two 0/1 chains and the
+    backlog, whose update keeps the reference's rounding:
+    ``max((backlog + arrive * s_eff) - 1, 0)`` with an exact 0/1 arrive.
+    The latency ``(backlog + lat0) + jitter`` is formed after the loop
+    from the backlog of each step."""
+    (p_leave, p_enter, rate_hi, rate_lo, bound, lat0, h_leave, h_enter,
+     h_scale) = terms.unbind(0)
+    backlog = carry[0].clone()
+    burst, lent = carry[1] > 0.5, carry[2] > 0.5
+    hu = torch.zeros_like(switch_u) if harvest_u is None else harvest_u
+    # The reference's 0/1 selects: leaving burst iff sw < p_leave, entering
+    # iff sw < p_enter (a NaN threshold compares false either way).
+    stay_burst, enter_burst = ~(switch_u < p_leave), switch_u < p_enter
+    stay_lent, enter_lent = ~(hu < h_leave), hu < h_enter
+    arrive_hi, arrive_lo = arrive_u < rate_hi, arrive_u < rate_lo
+    svc_lent = svc * h_scale
+    steps = switch_u.shape[0]
+    backlogs = torch.empty_like(jitter)
+    arrived = torch.empty(jitter.shape, dtype=torch.bool,
+                          device=jitter.device)
+    for k in range(steps):
+        burst = torch.where(burst, stay_burst[k], enter_burst[k])
+        lent = torch.where(lent, stay_lent[k], enter_lent[k])
+        arrive = torch.where(burst, arrive_hi[k], arrive_lo[k]) & \
+            (backlog <= bound)
+        backlogs[k] = backlog
+        arrived[k] = arrive
+        s_eff = torch.where(lent, svc_lent[k], svc[k])
+        backlog = torch.clamp(backlog + arrive.float() * s_eff - 1.0,
+                              min=0.0)
+    carry.copy_(torch.stack([backlog, burst.float(), lent.float()]))
+    rec = torch.zeros_like(arrived)
+    lo, hi = max(int(rec_lo), 0), min(int(rec_hi), steps)
+    if hi > lo:
+        rec[lo:hi] = arrived[lo:hi]
+    _bin_into(hist, backlogs + lat0 + jitter, rec)
+
+
+def event_scan_ref(terms, W, gaps, svc, rec_time, hist):
+    """One chunk of the event engine's Lindley scan, in place.
+
+    terms: (2, n) float32, rows bound, lat0; W: (n,) float32 wait carry,
+    updated; gaps/svc: (C, n) float32; rec_time: (C, n) bool; hist:
+    (n, n_bins) int32, accumulated with the admitted, recorded requests'
+    latencies ``wait + lat0``."""
+    bound, lat0 = terms.unbind(0)
+    wc = W.clone()
+    wq = torch.empty_like(gaps)
+    for k in range(gaps.shape[0]):
+        wc = torch.clamp(wc - gaps[k], min=0.0)
+        wq[k] = wc
+        wc = wc + torch.where(wc <= bound, svc[k], 0.0)
+    W.copy_(wc)
+    _bin_into(hist, wq + lat0, rec_time & (wq <= bound))

@@ -344,3 +344,90 @@ def test_stream_kernels_count_one_launch_a_call_and_raise_on_bad_input():
         ops.stream_add(a, b.cpu())
     assert {n: k.launches - before[n] for n, k in ks.KERNELS.items()} == \
         dict.fromkeys(ks.KERNELS, 1)
+
+
+# --- memsim stage B: the two scan kernels (K4, K5) --------------------------
+
+def _memsim_stage_a(lanes, harvest, outstanding, chunk=1024, seed=0):
+    from repro_torch.core import memsim, threefry
+    cfgs = [memsim.ChannelConfig(rho=0.05 + 0.9 * i / lanes,
+                                 kappa=1.0 + (i % 4) * 0.7,
+                                 outstanding=outstanding,
+                                 harvest_duty=0.3 if harvest else 0.0,
+                                 harvest_bw_gbps=20.0 if harvest else 0.0)
+            for i in range(lanes)]
+    c = memsim.stack_channels(cfgs, device="cuda")
+    t = memsim._channel_terms(c)
+    ids = torch.arange(lanes, device="cuda")
+    key = threefry.split(threefry.prng_key(seed, "cuda"), 2)[1]
+    return memsim, c, t, ids, key
+
+
+@pytest.mark.parametrize("lanes", [37, 1000])
+@pytest.mark.parametrize("harvest", [False, True])
+@pytest.mark.parametrize("outstanding", [4.0, float("inf")])
+@pytest.mark.parametrize("chunk", [1024, 1021])
+def test_memsim_scans_match_plain(lanes, harvest, outstanding, chunk):
+    """K4 and K5 equal ref.ts_scan_ref / ref.event_scan_ref bit for bit on
+    stage-A draws made on the card, over two chained chunks (1021 steps is
+    not a multiple of the kernels' unroll of 8)."""
+    _need_card()
+    from repro_torch.kernels import memsim_scan as ms
+    memsim, c, t, ids, key = _memsim_stage_a(lanes, harvest, outstanding)
+    terms = memsim._ts_terms(c, t)
+    carry = [torch.stack([torch.zeros(lanes), torch.ones(lanes),
+                          torch.zeros(lanes)]).cuda() for _ in range(2)]
+    hist = [torch.zeros((lanes, ms.N_BINS), dtype=torch.int32,
+                        device="cuda") for _ in range(2)]
+    for k in range(2):
+        draws = memsim._ts_draws(c, t, ids, key, chunk)
+        hu = memsim._ts_harvest_u(ids, key, chunk) if harvest else None
+        ms.ts_scan(terms, carry[0], *draws, hu, 100 * k, 900, hist[0])
+        ref.ts_scan_ref(terms, carry[1], *draws, hu, 100 * k, 900, hist[1])
+        assert torch.equal(carry[0], carry[1])
+        assert torch.equal(hist[0], hist[1])
+    tabs = memsim._event_tables(c, t, ids, key, 64)
+    ev_terms = memsim._event_terms(c, t)
+    w = [torch.zeros(lanes, device="cuda") for _ in range(2)]
+    state = (torch.zeros(lanes, device="cuda"),
+             torch.zeros(lanes, device="cuda"))
+    for k in range(2):
+        state, gaps, svc, rec = memsim._event_arrivals(
+            c, t, state, ids, key, tabs, 100, chunk)
+        ms.event_scan(ev_terms, w[0], gaps, svc, rec, hist[0])
+        ref.event_scan_ref(ev_terms, w[1], gaps, svc, rec, hist[1])
+        assert torch.equal(w[0], w[1])
+        assert torch.equal(hist[0], hist[1])
+    assert int(hist[0].sum()) > 0
+
+
+def test_memsim_simulate_card_equals_cpu():
+    """The whole DES on the card equals the same code on the CPU."""
+    _need_card()
+    import numpy as np
+
+    from repro_torch.core import memsim
+    cfgs = [memsim.ChannelConfig(rho=r, kappa=k) for r in (0.2, 0.5, 0.8)
+            for k in (1.0, 2.5)]
+    for engine in memsim.ENGINES:
+        a = memsim.simulate(cfgs, steps=20_000, reps=2, engine=engine,
+                            device="cuda")
+        b = memsim.simulate(cfgs, steps=20_000, reps=2, engine=engine,
+                            device="cpu")
+        np.testing.assert_array_equal(a.hist, b.hist)
+
+
+def test_memsim_scan_wrappers_refuse_bad_inputs():
+    _need_card()
+    from repro_torch.kernels import memsim_scan as ms
+    n = 5
+    terms, w = torch.zeros(2, n, device="cuda"), torch.zeros(n, device="cuda")
+    gaps = torch.zeros(8, n, device="cuda")
+    rec = torch.zeros(8, n, dtype=torch.bool, device="cuda")
+    hist = torch.zeros(n, ms.N_BINS, dtype=torch.int32, device="cuda")
+    with pytest.raises(TypeError):
+        ms.event_scan(terms, w, gaps.double(), gaps, rec, hist)
+    with pytest.raises(ValueError):
+        ms.event_scan(terms, w, gaps.t().contiguous().t(), gaps, rec, hist)
+    with pytest.raises(ValueError):
+        ms.event_scan(terms, w.cpu(), gaps, gaps, rec, hist)
