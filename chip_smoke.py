@@ -55,8 +55,11 @@ Phases; any failure exits non-zero and no phase swallows one:
      holds bit for bit to their plain versions at the default LUT grid's
      4,032 lanes and at 37, chained, harvest on and off, open and closed
      loop, at the study's own launch shapes (384, 512 and 128 lanes at the
-     chunk rules' lengths) and at a chunk of 1021, and which this phase
-     holds again to their plain versions on the inputs it times):
+     chunk rules' lengths), at a chunk of 1021, and at the edges of their
+     ring and blocks (lanes 1, 31, 32, 33, 4,032 x chunks of 1, D - 1, D,
+     D + 1, 1,021 steps for a ring of D steps, record windows that start
+     and end inside a ring stage), and which this phase holds again to
+     their plain versions on the inputs it times):
      ``repro_torch.launch.memsim_study.main`` on the card at its
      full budget, each scan kernel launched exactly once a chunk of the
      runs it makes, the timestep engine's ``validate_calibration`` ok;
@@ -158,6 +161,9 @@ MEMSIM_STEPS, MEMSIM_CHECK_STEPS = 200_000, 120_000
 MEMSIM_MEAN_RTOL = 1e-4
 # Warm timed repeats of each of phase 7's three runs.
 MEMSIM_REPEATS = 2
+# Dependent float32 operations a step in the shortest carried chain the
+# reference's scan bodies allow (scan_line), for K4 and K5 alike.
+CHAIN_OPS = 4
 
 
 def fail(msg: str):
@@ -524,6 +530,17 @@ def lut_cells(lanes: int):
     return grid[::step][:lanes]
 
 
+def record_window(chunk: int):
+    """Phase 2's timestep record window over two chained chunks of
+    ``chunk`` steps: from step ``lo`` of the first chunk to step ``hi`` of
+    the second.  300 and 517 for long chunks, a third and two thirds in
+    for the shorter ones; each inside a stage of the kernels' ring (a
+    chunk of 1 records its second step only)."""
+    if chunk > 600:
+        return 300, 517
+    return chunk // 3 + 3, 2 * chunk // 3 + 1
+
+
 def memsim_scan_inputs(memsim, threefry, lanes, ts_chunk, ev_chunk, harvest,
                        open_loop, seed):
     """Stage A of both engines on the card for ``lanes`` cells of the LUT
@@ -540,14 +557,13 @@ def memsim_scan_inputs(memsim, threefry, lanes, ts_chunk, ev_chunk, harvest,
     ids = torch.arange(lanes, device="cuda")
     keys = threefry.split(threefry.prng_key(seed, "cuda"), 3)
     ts = []
+    lo, hi = record_window(ts_chunk)
     for k in range(2):
         sw, au, jit_ns, svc = memsim._ts_draws(c, t, ids, keys[k], ts_chunk)
         hu = (memsim._ts_harvest_u(ids, keys[k], ts_chunk) if harvest
               else None)
-        # Ragged record windows: from step 300 of the first chunk to step
-        # 517 of the second.
-        ts.append((sw, au, jit_ns, svc, hu, 300 if k == 0 else 0,
-                   ts_chunk if k == 0 else 517))
+        ts.append((sw, au, jit_ns, svc, hu, lo if k == 0 else 0,
+                   ts_chunk if k == 0 else hi))
     yield "timestep", memsim._ts_terms(c, t), ts
     if ev_chunk is None:
         return
@@ -604,7 +620,7 @@ def run_scans(ms, ref, engine, terms, chunks):
 # the study's own launch shapes (validate_calibration's 384 lanes,
 # crosscheck_engines' 512 and the worked example's 128, timestep only, at
 # the chunk rules' lengths); a chunk of 1021, not a multiple of the
-# kernels' unroll of 8.
+# kernels' stage of steps.
 MEMSIM_SCAN_CASES = (
     [(lanes, 1024, 1024, harvest, open_loop) for lanes in (4032, 37)
      for harvest in (False, True) for open_loop in (False, True)]
@@ -612,13 +628,26 @@ MEMSIM_SCAN_CASES = (
        (128, 8192, None, False, False), (37, 1021, 1021, True, False)])
 
 
+def ring_cases(depth: int):
+    """Phase 2's cases at the edges of the kernels' ring of ``depth``
+    steps and of their 32-lane blocks: lanes 1, 31, 32, 33 and 4,032 x
+    chunks of 1, depth - 1, depth, depth + 1 and 1,021 steps, harvest and
+    outstanding alternating (record windows by ``record_window``)."""
+    shapes = [(lanes, chunk) for lanes in (1, 31, 32, 33, 4032)
+              for chunk in (1, depth - 1, depth, depth + 1, 1021)]
+    return [(lanes, chunk, chunk, i % 2 == 1, (i // 2) % 2 == 1)
+            for i, (lanes, chunk) in enumerate(shapes)]
+
+
 def check_memsim_scans(ms, ref, memsim, threefry, seed):
     """Phase 2 for K4/K5: each against its plain version on the card, bit
     for bit (torch.equal on carries and histograms after two chained
-    chunks) over ``MEMSIM_SCAN_CASES``.  Returns each kernel's largest
-    |kernel - plain| over its carries and histograms."""
+    chunks) over ``MEMSIM_SCAN_CASES`` and ``ring_cases``.  Returns each
+    kernel's largest |kernel - plain| over its carries and histograms."""
     err = {"memsim_ts_scan": 0.0, "memsim_event_scan": 0.0}
-    for lanes, ts_chunk, ev_chunk, harvest, open_loop in MEMSIM_SCAN_CASES:
+    cases = MEMSIM_SCAN_CASES + ring_cases(ms.ring_steps())
+    recorded = {"memsim_ts_scan": 0, "memsim_event_scan": 0}
+    for lanes, ts_chunk, ev_chunk, harvest, open_loop in cases:
         seed += 1
         for engine, terms, chunks in memsim_scan_inputs(
                 memsim, threefry, lanes, ts_chunk, ev_chunk, harvest,
@@ -634,13 +663,21 @@ def check_memsim_scans(ms, ref, memsim, threefry, seed):
                      f"lanes, chunks of {len(chunks[0][0])}, harvest "
                      f"{harvest}, open loop {open_loop}: max |err| "
                      f"{err[name]}")
-            if int(out["plain"][1].sum()) == 0:
+            counted = int(out["plain"][1].sum())
+            # A lane or two over two short chunks may record nothing; the
+            # wide and long cases must.
+            if counted == 0 and lanes * ts_chunk >= 4096:
                 fail(f"{name} recorded nothing at {lanes} lanes")
+            recorded[name] += counted
+        lo, hi = record_window(ts_chunk)
         log(f"  memsim_ts_scan / memsim_event_scan, {lanes} lanes, chunks "
             f"of {ts_chunk} / {ev_chunk}, harvest "
             f"{'on' if harvest else 'off'}, outstanding "
-            f"{'inf' if open_loop else 'finite'}: 2 chained chunks, "
-            f"carries and histograms equal to plain (torch.equal)")
+            f"{'inf' if open_loop else 'finite'}: 2 chained chunks "
+            f"(timestep record window step {lo} to step {hi} of the "
+            f"second), carries and histograms equal to plain (torch.equal)")
+    log(f"  memsim scans: {len(cases)} cases, {recorded} latencies "
+        f"recorded in all")
     return err
 
 
@@ -743,7 +780,7 @@ def scan_line(name, ms, ref, args, plain_args, norec_args, steps, lanes,
     its plain version once each on the same inputs from fresh carries and
     histograms, which must be equal (torch.equal); then timed (the kernel
     over many launches, its plain version once, and the kernel with
-    nothing to record, which skips the histogram's read-modify-writes).
+    nothing to record, whose adds to the histogram are then all of 0).
     Returns the JSON fields and the largest |kernel - plain|."""
     kfn = getattr(ms, name.removeprefix("memsim_"))
     pfn = getattr(ref, name.removeprefix("memsim_") + "_ref")
@@ -774,11 +811,18 @@ def scan_line(name, ms, ref, args, plain_args, norec_args, steps, lanes,
     # the two chains, the admission test, 2 adds of the latency, the
     # service scale, 3 of the backlog update, the binning); K5: 6.
     flops = (15 if name == "memsim_ts_scan" else 6) * steps * lanes
-    # The serial chain: ~6 dependent float32 operations a step at ~4
-    # cycles each, at the H100 SXM's 1.98 GHz boost clock (data sheet):
-    # a lane's steps cannot go faster, however many lanes run beside it.
+    # The serial chain: dependent float32 operations a step at ~4 cycles
+    # each, at the H100 SXM's 1.98 GHz boost clock (data sheet): a lane's
+    # steps cannot go faster, however many lanes run beside it.  The
+    # shortest chain the reference's semantics allow is 4 operations for
+    # each kernel: K4 (backlog + s_arr) - 1 and (backlog + s_none) - 1 side
+    # by side with the admission test, the select, a NaN-keeping max; K5
+    # W - gap, then + svc and + 0 side by side with the tests, two
+    # selects.  (K5's build runs that 4; K4's runs 6, the admission test,
+    # the select of the service as a multiply by 0, two adds, the max as a
+    # compare and a select: forming both outcomes first measured slower.)
     t_bytes, t_ops = nbytes / peak_bw, flops / peak_f32
-    t_chain = steps * 6 * 4 / 1.98e9
+    t_chain = steps * CHAIN_OPS * 4 / 1.98e9
     bound = max(t_bytes, t_ops, t_chain) * 1e3
     by = "bytes" if t_bytes >= max(t_ops, t_chain) else "operations"
     what = ("the serial chain" if t_chain >= max(t_bytes, t_ops) else by)
@@ -793,7 +837,7 @@ def scan_line(name, ms, ref, args, plain_args, norec_args, steps, lanes,
         f"recorded {times['no record']} ms, plain {times['plain']} ms; "
         f"bound {bound:.5f} ms by {what} (bytes {t_bytes * 1e3:.5f} ms for "
         f"{nbytes} B, FLOPs {t_ops * 1e3:.5f} ms for {flops}, the serial "
-        f"chain of ~6 dependent float32 operations a step "
+        f"chain of {CHAIN_OPS} dependent float32 operations a step "
         f"{t_chain * 1e3:.5f} ms) -> {bound / ms_k:.3f} of it")
     return {"ms": ms_k, "plain_ms": min(times["plain"]), "bound_ms": bound,
             "bound_by": by}, err

@@ -5,9 +5,11 @@ replace the reference's two ``lax.scan`` loops in ``repro/core/memsim.py``:
 ``memsim_ts_scan`` (K4) the timestep engine's backlog scan
 ``_ts_chunk_core``, ``memsim_event_scan`` (K5) the event engine's Lindley
 scan ``_event_chunk_core``.  Each call runs one chunk of steps over n
-lanes, one thread a lane, updates the carry in place and adds the chunk's
-recorded latencies to a per-lane int32 histogram in place.  The source
-note gives the design and the bound (``scan_bytes`` counts the bytes).
+lanes, 32 lanes a block: one warp copies the draws into a ring of
+``ring_steps()`` steps in shared memory, the other runs the lanes' chains
+from it.  It updates the carry in place and adds the chunk's recorded
+latencies to a per-lane int32 histogram in place.  The source note gives
+the design and the bound (``scan_bytes`` counts the bytes).
 
 The wrappers launch on CUDA tensors only: float32 terms, carries and
 draws, a bool ``rec_time``, an int32 ``(n, 1024)`` histogram, all on one
@@ -37,6 +39,14 @@ KERNELS = {
     "memsim_event_scan": Kernel(
         "memsim_event_scan", [_P, _P, _P, _P, _P, _I, _I, _P, _P], LIBRARY),
 }
+
+
+def ring_steps() -> int:
+    """Steps of draws the kernels stage ahead in shared memory (the
+    source's ``kDepth``); builds the library."""
+    fn = LIBRARY.load().memsim_scan_ring_steps
+    fn.restype = ctypes.c_int
+    return int(fn())
 
 
 def scan_bytes(name: str, steps: int, n: int) -> int:

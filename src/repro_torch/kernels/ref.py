@@ -91,15 +91,18 @@ def wkv_ref(r, k, v, w, u, state, state_out=None):
 # reference's scans bit for bit on the same inputs.  Both bin each recorded
 # latency into ``hist`` ((n, n_bins) int32, accumulated in place) as the
 # reference's ``_flat_bins``: ``lat * (1 / 4)`` truncated toward zero and
-# clipped to [0, n_bins - 1].
+# clipped to [0, n_bins - 1].  XLA converts float32 to int32 with saturation
+# (NaN to 0, +-inf and out-of-range values to the nearest int32), where a
+# torch cast on the CPU gives INT_MIN for all of those; clipping in float32
+# first, with NaN taken to 0, gives XLA's bins for every latency.
 
 MEMSIM_BIN_SCALE = 0.25       # 1 / memsim.BIN_NS
 
 
 def _bin_into(hist, lat, rec):
     n, n_bins = hist.shape
-    bins = torch.clamp((lat * MEMSIM_BIN_SCALE).to(torch.int32), 0,
-                       n_bins - 1)
+    scaled = torch.nan_to_num(lat * MEMSIM_BIN_SCALE, nan=0.0)
+    bins = torch.clamp(scaled, 0, n_bins - 1).to(torch.int32)
     lane = torch.arange(n, device=hist.device, dtype=torch.int64)
     flat = (lane * n_bins)[None, :] + bins.to(torch.int64)
     counts = torch.bincount(flat[rec], minlength=n * n_bins)
@@ -163,12 +166,16 @@ def event_scan_ref(terms, W, gaps, svc, rec_time, hist):
     terms: (2, n) float32, rows bound, lat0; W: (n,) float32 wait carry,
     updated; gaps/svc: (C, n) float32; rec_time: (C, n) bool; hist:
     (n, n_bins) int32, accumulated with the admitted, recorded requests'
-    latencies ``wait + lat0``."""
+    latencies ``wait + lat0``.  ``jnp.maximum(d, 0.0)`` is +0 at d = -0
+    (XLA keeps the second operand on a tie), where ``torch.clamp`` keeps
+    -0: ``d <= 0 ? 0 : d`` is the reference's max for every d, NaN
+    included."""
     bound, lat0 = terms.unbind(0)
     wc = W.clone()
     wq = torch.empty_like(gaps)
     for k in range(gaps.shape[0]):
-        wc = torch.clamp(wc - gaps[k], min=0.0)
+        d = wc - gaps[k]
+        wc = torch.where(d <= 0.0, 0.0, d)
         wq[k] = wc
         wc = wc + torch.where(wc <= bound, svc[k], 0.0)
     W.copy_(wc)

@@ -20,6 +20,8 @@ from repro_torch.kernels import stream as ks
 from repro_torch.launch import serve
 from repro_torch.models import Model, smoke_variant
 
+import memsim_edge_inputs as edge
+
 # float32: the reference's own kernel-test tolerance.  bfloat16: kernel and
 # plain version both compute in fp32 and round once to bf16.
 TOL = {torch.float32: dict(atol=2e-5, rtol=2e-3),
@@ -370,7 +372,7 @@ def _memsim_stage_a(lanes, harvest, outstanding, chunk=1024, seed=0):
 def test_memsim_scans_match_plain(lanes, harvest, outstanding, chunk):
     """K4 and K5 equal ref.ts_scan_ref / ref.event_scan_ref bit for bit on
     stage-A draws made on the card, over two chained chunks (1021 steps is
-    not a multiple of the kernels' unroll of 8)."""
+    not a multiple of the kernels' stage of steps)."""
     _need_card()
     from repro_torch.kernels import memsim_scan as ms
     memsim, c, t, ids, key = _memsim_stage_a(lanes, harvest, outstanding)
@@ -399,6 +401,103 @@ def test_memsim_scans_match_plain(lanes, harvest, outstanding, chunk):
         assert torch.equal(w[0], w[1])
         assert torch.equal(hist[0], hist[1])
     assert int(hist[0].sum()) > 0
+
+
+def _bits(x):
+    return x.view(torch.int32)
+
+
+@pytest.mark.parametrize("harvest", [False, True], ids=["plain", "harvest"])
+@pytest.mark.parametrize("window", edge.WINDOWS)
+def test_memsim_ts_scan_edges_match_plain(window, harvest):
+    """K4 on the crafted edges of tests/memsim_edge_inputs.py (a backlog at
+    the bound, draws at their thresholds, services 0, -0, inf and NaN,
+    latencies on bin edges, past 4,096 ns and below 0, bound inf) equals
+    ref.ts_scan_ref: carries by bit pattern, histograms exactly."""
+    _need_card()
+    import numpy as np
+
+    from repro_torch.core.memsim import TS_TERMS
+    from repro_torch.kernels import memsim_scan as ms
+    terms, carry, chunks = edge.ts_inputs(harvest)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()
+    p_terms = t(np.stack([terms[k] for k in TS_TERMS]))
+    carries = [t(np.stack(carry)) for _ in range(2)]
+    n = p_terms.shape[1]
+    hists = [torch.zeros((n, ms.N_BINS), dtype=torch.int32, device="cuda")
+             for _ in range(2)]
+    for sw, au, jit_ns, svc, hu in chunks:
+        args = (t(sw), t(au), t(jit_ns), t(svc), t(hu) if harvest else None,
+                *window)
+        ms.ts_scan(p_terms, carries[0], *args, hists[0])
+        ref.ts_scan_ref(p_terms, carries[1], *args, hists[1])
+        assert torch.equal(_bits(carries[0]), _bits(carries[1]))
+        assert torch.equal(hists[0], hists[1])
+
+
+@pytest.mark.parametrize("window", edge.WINDOWS)
+def test_memsim_event_scan_edges_match_plain(window):
+    """K5 on the crafted edges (a wait at the bound, services 0, -0, inf
+    and NaN, a wait of -0 with gap 0 and service -0, latencies on bin
+    edges, past 4,096 ns and below 0, bound inf) equals
+    ref.event_scan_ref: carries by bit pattern, histograms exactly."""
+    _need_card()
+    import numpy as np
+
+    from repro_torch.kernels import memsim_scan as ms
+    terms, w0, chunks = edge.event_inputs(window)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()
+    p_terms = t(np.stack([terms["bound"], terms["lat0"]]))
+    ws = [t(w0) for _ in range(2)]
+    n = p_terms.shape[1]
+    hists = [torch.zeros((n, ms.N_BINS), dtype=torch.int32, device="cuda")
+             for _ in range(2)]
+    for gaps, svc, rec in chunks:
+        args = (t(gaps), t(svc), t(rec))
+        ms.event_scan(p_terms, ws[0], *args, hists[0])
+        ref.event_scan_ref(p_terms, ws[1], *args, hists[1])
+        assert torch.equal(_bits(ws[0]), _bits(ws[1]))
+        assert torch.equal(hists[0], hists[1])
+
+
+@pytest.mark.parametrize("lanes", [1, 31, 32, 33])
+@pytest.mark.parametrize("chunk", ["1", "D-1", "D", "D+1", "1021"])
+def test_memsim_scans_match_plain_at_ring_edges(lanes, chunk):
+    """K4 and K5 equal their plain versions bit for bit at the edges of
+    their 32-lane blocks and of their ring of D steps (ms.ring_steps()),
+    over two chained chunks, harvest on for the timestep scan, record
+    windows that start and end inside a stage of the ring."""
+    _need_card()
+    from repro_torch.kernels import memsim_scan as ms
+    depth = ms.ring_steps()
+    steps = {"1": 1, "D-1": depth - 1, "D": depth, "D+1": depth + 1,
+             "1021": 1021}[chunk]
+    memsim, c, t, ids, key = _memsim_stage_a(lanes, True, 4.0)
+    terms = memsim._ts_terms(c, t)
+    carry = [torch.stack([torch.zeros(lanes), torch.ones(lanes),
+                          torch.zeros(lanes)]).cuda() for _ in range(2)]
+    hist = [torch.zeros((lanes, ms.N_BINS), dtype=torch.int32,
+                        device="cuda") for _ in range(2)]
+    for k, (lo, hi) in enumerate([(steps // 3 + 3, steps),
+                                  (0, 2 * steps // 3 + 1)]):
+        draws = memsim._ts_draws(c, t, ids, key, steps)
+        hu = memsim._ts_harvest_u(ids, key, steps)
+        ms.ts_scan(terms, carry[0], *draws, hu, lo, hi, hist[0])
+        ref.ts_scan_ref(terms, carry[1], *draws, hu, lo, hi, hist[1])
+        assert torch.equal(carry[0], carry[1])
+        assert torch.equal(hist[0], hist[1])
+    tabs = memsim._event_tables(c, t, ids, key, 64)
+    ev_terms = memsim._event_terms(c, t)
+    w = [torch.zeros(lanes, device="cuda") for _ in range(2)]
+    state = (torch.zeros(lanes, device="cuda"),
+             torch.zeros(lanes, device="cuda"))
+    for _ in range(2):
+        state, gaps, svc, rec = memsim._event_arrivals(
+            c, t, state, ids, key, tabs, 0, steps)
+        ms.event_scan(ev_terms, w[0], gaps, svc, rec, hist[0])
+        ref.event_scan_ref(ev_terms, w[1], gaps, svc, rec, hist[1])
+        assert torch.equal(w[0], w[1])
+        assert torch.equal(hist[0], hist[1])
 
 
 def test_memsim_simulate_card_equals_cpu():
