@@ -164,6 +164,16 @@ MEMSIM_REPEATS = 2
 # Dependent float32 operations a step in the shortest carried chain the
 # reference's scan bodies allow (scan_line), for K4 and K5 alike.
 CHAIN_OPS = 4
+# Phase 8: the sub-grid of the default QueueLUT built again on the CPU (24
+# cells x LUT_REPS at LUT_STEPS), and of the harvest surface at two of its
+# duties (48 cells), each held bit for bit to the card's cells; warm store
+# reads timed.
+LUT_CPU_GRID = dict(rho=(0.35, 0.74, 0.91), kappa=(1.0, 2.7),
+                    outstanding=(8.0, 64.0), eta=(0.3, 1.0))
+LUT_CPU_HARVEST = (0.0, 0.5)
+LUT_WARM_READS = 5
+# Cold builds of each surface alone, timed after the counted one.
+LUT_COLD_REPEATS = 3
 
 
 def fail(msg: str):
@@ -300,6 +310,12 @@ def profile(fn):
     return sum(r[0] for r in rows), rows
 
 
+def launch_counts(rows):
+    """(kernel launches, copies and sets) in ``profile``'s rows."""
+    copies = sum(r[2] for r in rows if r[1].startswith(("Memcpy", "Memset")))
+    return sum(r[2] for r in rows) - copies, copies
+
+
 def stream_args(op, a, b, alpha):
     """The arguments of STREAM ``op`` on arrays a, b."""
     return {"copy": (a,), "scale": (a, alpha), "add": (a, b),
@@ -383,7 +399,8 @@ def engine_grid(label, solve, cells, cpu_model):
     (host clock, ending in a synchronise), one profiled (kernel launches,
     copies, device time) and one under the peak-memory counter (less what
     was allocated before it).  Each solve must be one call of the cell
-    solver.  Returns the last result."""
+    solver.  Returns the last result and the kernel launches and median
+    ms of a solve."""
     calls = cpu_model.solve_trace_count()
     res = solve()
     if cpu_model.solve_trace_count() != calls + 1:
@@ -397,8 +414,7 @@ def engine_grid(label, solve, cells, cpu_model):
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
     dev_ms, rows = profile(solve)
-    copies = [r for r in rows if r[1].startswith(("Memcpy", "Memset"))]
-    launches = sum(r[2] for r in rows) - sum(r[2] for r in copies)
+    launches, copies = launch_counts(rows)
     # The solve's own peak: what earlier phases left allocated is not its.
     held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -410,12 +426,12 @@ def engine_grid(label, solve, cells, cpu_model):
         f"{dev_ms:.3f} ms -> busy share {dev_ms / wall:.3f}"
     log(f"engine {label} ({cells} cells x 35 workloads): solve "
         f"{', '.join(f'{m:.3f}' for m in ms)} ms (median {wall:.3f}); "
-        f"{launches} kernel launches and {sum(r[2] for r in copies)} "
+        f"{launches} kernel launches and {copies} "
         f"copies a solve; device time {busy}; peak device memory of a "
         f"solve {peak / 2**20:.1f} MiB")
     for dms, key, count in rows[:4]:
         log(f"  {dms:9.3f} ms  x{count:<5d} {key[:80]}")
-    return res
+    return res, launches, wall
 
 
 def engine_phase():
@@ -457,8 +473,8 @@ def engine_phase():
         "cuda"), 40, cpu_model)
     engine_grid("sweep_grid", lambda: coaxial.solve_spec(grid), 110,
                 cpu_model)
-    sw = engine_grid("dense", lambda: coaxial.solve_spec(dense), n,
-                     cpu_model)
+    sw, _, _ = engine_grid("dense", lambda: coaxial.solve_spec(dense), n,
+                           cpu_model)
 
     # Where the damped fixed point has not settled in FP_ITERS steps (its
     # last step moves ipc by more than ENGINE_RTOL), its value is a point of
@@ -754,8 +770,7 @@ def memsim_run(label, fn, kernels, expected, lanes):
         torch.cuda.synchronize()
         ms_.append((time.perf_counter() - t0) * 1e3)
     dev_ms, rows = profile(fn)
-    copies = [r for r in rows if r[1].startswith(("Memcpy", "Memset"))]
-    launches = sum(r[2] for r in rows) - sum(r[2] for r in copies)
+    launches, copies = launch_counts(rows)
     held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     fn()
@@ -767,7 +782,7 @@ def memsim_run(label, fn, kernels, expected, lanes):
     log(f"memsim {label} ({lanes} lanes): "
         f"{', '.join(f'{m:.3f}' for m in ms_)} ms a run; scan launches "
         f"{counts}; {launches} kernel launches and "
-        f"{sum(r[2] for r in copies)} copies a run; device time {busy}; "
+        f"{copies} copies a run; device time {busy}; "
         f"peak device memory of a run {peak / 2**20:.1f} MiB")
     for dms, key, count in rows[:6]:
         log(f"  {dms:9.3f} ms  x{count:<5d} {key[:80]}")
@@ -985,6 +1000,265 @@ def memsim_phase(scan_err=None):
             f"{ms.scan_bytes('memsim_event_scan', chunk, lut_lanes) / spec.hbm_bw * 1e3:.5f}"
             f" ms by bytes")
     return entries
+
+
+def lut_store_entries(lutstore, harvest):
+    """The store's entries of the default (``harvest`` False) or the
+    harvest surface."""
+    return [e for e in lutstore.entries()
+            if bool(e.get("harvest")) == harvest]
+
+
+def lut_build(label, run, harvest, kernels, expected, lutstore, queuelut):
+    """Phase 8 for one surface: ``run`` (the CLI's prebuild) from cold
+    (the surface's store entry deleted, the in-process layer emptied),
+    with every scan count set to 0 just before and read just after, which
+    must be ``expected``, timed by the host clock.  Then the surface alone
+    (``default_queue_lut``: the harvest surface without the CLI's warm
+    read of the default one), each from cold: ``LUT_COLD_REPEATS`` builds
+    timed by the host clock, one under the profiler (device time,
+    launches) and one under the peak-memory counter.  Each rebuild must
+    equal the first bit for bit.  Returns the surface, the host ms of the
+    CLI's build and of each timed build alone, the device ms and the peak
+    bytes."""
+    def cold():
+        lutstore.clear_lut_cache()
+        for e in lut_store_entries(lutstore, harvest):
+            Path(e["path"]).unlink()
+
+    def surface():
+        return queuelut.default_queue_lut(harvest=harvest, device="cuda")
+
+    def timed(fn):
+        cold()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, out
+
+    for kern in kernels.values():
+        kern.launches = 0
+    cli_ms, _ = timed(run)
+    counts = {k: v.launches for k, v in kernels.items()}
+    if counts != expected:
+        fail(f"lut {label}: scan launches {counts} != {expected}")
+    lut = surface()
+    if len(lut_store_entries(lutstore, harvest)) != 1:
+        fail(f"lut {label}: the build did not land in the store")
+    host_ms, rebuilt = [], []
+    for _ in range(LUT_COLD_REPEATS):
+        ms_, got = timed(surface)
+        host_ms.append(ms_)
+        rebuilt.append(got)
+    cold()
+    dev_ms, rows = profile(lambda: rebuilt.append(surface()))
+    launches, copies = launch_counts(rows)
+    cold()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    rebuilt.append(surface())
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - held
+    for other in rebuilt:
+        if not all(torch.equal(a, b) for a, b in zip(lut, other)
+                   if a is not None):
+            fail(f"lut {label}: a rebuild differs from the first build")
+    wall = sorted(host_ms)[len(host_ms) // 2]
+    busy = "not measured" if dev_ms is None else \
+        f"{dev_ms:.3f} ms -> busy share {dev_ms / wall:.3f}"
+    log(f"lut {label}: counted cold build through the CLI {cli_ms:.3f} ms, "
+        f"scan launches {counts}; cold builds of the surface alone "
+        f"{', '.join(f'{t:.3f}' for t in host_ms)} ms (host clock, median "
+        f"{wall:.3f}); {launches} kernel launches and {copies} copies a "
+        f"build; device time {busy}; peak device memory of a build "
+        f"{peak / 2**20:.1f} MiB; tables {tuple(lut.wait_ns.shape)}, rebuilt "
+        f"{len(rebuilt)} times bit for bit")
+    for dms, key, count in rows[:4]:
+        log(f"  {dms:9.3f} ms  x{count:<5d} {key[:80]}")
+    return lut, cli_ms, wall, dev_ms, peak
+
+
+def lut_phase():
+    """Phase 8: the QueueLUT (``core/queuelut`` + ``core/lutstore``) and
+    the fixed point's memsim backend on the card, against the CPU."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch import lut as lut_cli
+    from repro_torch.core import (coaxial, cpu_model, hw, lutstore, memsim,
+                                  queuelut)
+    from repro_torch.kernels import build
+    from repro_torch.kernels import memsim_scan as ms
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    log(f"phase 8 on {smi}")
+    kernels = ms.KERNELS
+    build.load_all([ms.LIBRARY])
+    # One K5 launch per canonical chunk of the event budget, whatever the
+    # lanes: the harvest surface (x 4 duties) runs as many chunks.
+    chunks = -(-memsim.events_for_steps(queuelut.DEFAULT_STEPS)
+               // memsim.canonical_chunk(queuelut.DEFAULT_ENGINE))
+    expected = {"memsim_ts_scan": 0, "memsim_event_scan": chunks}
+    saved = os.environ.get(lutstore.ENV_VAR)
+    with tempfile.TemporaryDirectory() as store:
+        os.environ[lutstore.ENV_VAR] = store
+        try:
+            lutstore.clear_lut_cache()
+            # (a) the default and the harvest surface, cold, through the CLI.
+            lut, d_cli, d_ms, d_dev, d_peak = lut_build(
+                "default surface (14 x 6 x 6 x 4 x 2 reps = 4,032 lanes)",
+                lambda: lut_cli.main(["prebuild"]), False, kernels,
+                expected, lutstore, queuelut)
+            hlut, h_cli, h_ms, h_dev, h_peak = lut_build(
+                "harvest surface (x 4 duties = 16,128 lanes)",
+                lambda: lut_cli.main(["prebuild", "--harvest"]), True,
+                kernels, expected, lutstore, queuelut)
+            # (b) warm store reads: no DES, the cold build's bits.
+            warm = {}
+            for harvest, want in ((False, lut), (True, hlut)):
+                times = []
+                for _ in range(LUT_WARM_READS):
+                    lutstore.clear_lut_cache()
+                    for kern in kernels.values():
+                        kern.launches = 0
+                    calls = memsim.sim_call_count()
+                    t0 = time.perf_counter()
+                    got = queuelut.default_queue_lut(harvest=harvest,
+                                                     device="cuda")
+                    times.append((time.perf_counter() - t0) * 1e3)
+                    if memsim.sim_call_count() != calls or any(
+                            k.launches for k in kernels.values()):
+                        fail("lut: a warm store read ran the DES")
+                    if not all(torch.equal(a, b) for a, b in zip(want, got)
+                               if a is not None):
+                        fail("lut: a warm store read differs from the "
+                             "cold build")
+                warm[harvest] = times
+            log(f"lut warm store reads ({LUT_WARM_READS} each, host clock): "
+                f"default {', '.join(f'{t:.3f}' for t in warm[False])} ms; "
+                f"harvest {', '.join(f'{t:.3f}' for t in warm[True])} ms; "
+                f"0 scan launches, 0 DES runs, tables equal to the cold "
+                f"builds (torch.equal)")
+        finally:
+            if saved is None:
+                os.environ.pop(lutstore.ENV_VAR, None)
+            else:
+                os.environ[lutstore.ENV_VAR] = saved
+
+    # (c) sub-grids on the CPU, at the same budget: equal to the card's
+    # cells bit for bit (card = CPU, and a cell independent of its batch:
+    # the harvest surface's cells ran in its 16,128-lane launches).
+    grids = (("rho", LUT_RHO), ("kappa", LUT_KAPPA),
+             ("outstanding", LUT_OUTSTANDING), ("eta", LUT_ETA),
+             ("harvest", queuelut.DEFAULT_HARVEST_GRID))
+    cpu_s = {}
+    for label, surf, harvest in (("default", lut, None),
+                                 ("harvest", hlut, LUT_CPU_HARVEST)):
+        t0 = time.perf_counter()
+        sub = queuelut.build_queue_lut(**LUT_CPU_GRID, harvest=harvest,
+                                       steps=LUT_STEPS, reps=LUT_REPS,
+                                       device="cpu")
+        cpu_s[label] = time.perf_counter() - t0
+        want = dict(LUT_CPU_GRID, harvest=harvest)
+        pos = [[list(g).index(v) for v in want[name]] for name, g in grids
+               if want[name] is not None]
+        cells = tuple(torch.as_tensor(ix) for ix in np.ix_(*pos))
+        for f in ("wait_ns", "p90_wait_ns", "p99_wait_ns", "sigma_ns"):
+            if not torch.equal(getattr(sub, f), getattr(surf, f)[cells]):
+                fail(f"lut: the CPU's {label} sub-grid {f} differs from "
+                     f"the card's cells")
+    n_sub = int(np.prod([len(v) for v in LUT_CPU_GRID.values()]))
+    log(f"lut: {n_sub} cells (default, {cpu_s['default']:.1f} s) and "
+        f"{n_sub} x {len(LUT_CPU_HARVEST)} duties {LUT_CPU_HARVEST} "
+        f"(harvest, {cpu_s['harvest']:.1f} s), x {LUT_REPS} reps, built on "
+        f"the CPU at {LUT_STEPS} steps, equal the card's cells of the "
+        f"default and the harvest surface bit for bit, all four tables "
+        f"(torch.equal)")
+
+    # (d) the memsim-backed solve: card against CPU, timed as phase 6.
+    solve = lambda device: coaxial.default_sweep(device, queue_model="memsim",
+                                                 lut=lut)
+    card, launches, solve_ms = engine_grid(
+        "default_sweep, memsim backend", lambda: solve("cuda"), 40,
+        cpu_model)
+    cpu = solve("cpu")
+    nxt = steps_further(cpu_model, 1, lambda: solve("cuda").results.ipc)
+    ipc = card.results.ipc
+    moving = np.abs(nxt - ipc) > ENGINE_RTOL * np.abs(ipc)
+    around = [steps_further(cpu_model, k, lambda: solve("cuda").results)
+              for k in (-2, -1, 1, 2)]
+    worst = 0.0
+    for f in dataclasses.fields(cpu.results):
+        orbit = [np.where(moving, getattr(r, f.name),
+                          getattr(card.results, f.name)) for r in around]
+        worst = max(worst, engine_close(
+            f"memsim default_sweep {f.name}", getattr(card.results, f.name),
+            getattr(cpu.results, f.name), orbit=orbit))
+    if not (np.isfinite(card.results.latency_p99_ns).all()
+            and np.isfinite(card.results.cpi_mem_p99).all()):
+        fail("lut: memsim p99 outputs not finite")
+    log(f"lut: memsim default_sweep on the card equals the CPU's in every "
+        f"ModelResult field (max rel diff {worst:.3e}; rtol {ENGINE_RTOL}; "
+        f"{int(moving.sum())} of {moving.size} elements unsettled after "
+        f"{cpu_model.FP_ITERS} steps, held within the card's orbit)")
+    key = lambda p: (p["design"], p["iface_lat_ns"], p["n_active"])
+    for cost in ("rel_area", "rel_pins"):
+        fc, fp = card.pareto(cost=cost, tail=True), cpu.pareto(cost=cost,
+                                                               tail=True)
+        if [key(p) for p in fc] != [key(p) for p in fp]:
+            fail(f"lut: pareto(tail=True, cost={cost}) differs: card "
+                 f"{[key(p) for p in fc]}, CPU {[key(p) for p in fp]}")
+        engine_close(f"tail frontier {cost}",
+                     [[p["geomean_speedup"], p["latency_p99_ns"]] for p in fc],
+                     [[p["geomean_speedup"], p["latency_p99_ns"]] for p in fp])
+    log(f"lut: pareto(tail=True) on the card equals the CPU's: "
+        f"{[key(p) for p in fc]} (by rel_pins)")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g_card = cpu_model.design_gradient(cpu_model.COAXIAL_4X,
+                                       queue_model="memsim", device="cuda")
+    g_ms = (time.perf_counter() - t0) * 1e3
+    g_cpu = cpu_model.design_gradient(cpu_model.COAXIAL_4X,
+                                      queue_model="memsim", device="cpu")
+    worst = max(engine_close(f"memsim design_gradient {k}", g_card[k],
+                             g_cpu[k], atol=ENGINE_GRAD_ATOL) for k in g_cpu)
+    log(f"lut: design_gradient(coaxial-4x, memsim, the default harvest "
+        f"surface) on the card ({g_ms:.1f} ms) equals the CPU's: max rel "
+        f"diff {worst:.3e}; "
+        + ", ".join(f"{k}={v:+.6g}" for k, v in g_card.items()))
+    cf = coaxial.default_sweep("cuda")
+    rows = []
+    for label, sys, lat in (("4x", cpu_model.COAXIAL_4X, None),
+                            ("2x", cpu_model.COAXIAL_2X, None),
+                            ("asym", cpu_model.COAXIAL_ASYM, None),
+                            ("50 ns", cpu_model.COAXIAL_4X,
+                             hw.CXL_LAT_PESSIMISTIC_NS)):
+        kw = {} if lat is None else {"iface_lat": lat}
+        m = card.comparison(sys, **kw).geomean_speedup
+        c = cf.comparison(sys, **kw).geomean_speedup
+        rows.append(f"{label} {m:.4f} vs {c:.4f} ({m / c - 1.0:+.1%})")
+    log(f"lut: geomean speedup, memsim vs closed form (the reference's "
+        f"drift experiment): {'; '.join(rows)}")
+    cf_launches, _ = launch_counts(profile(
+        lambda: coaxial.default_sweep.__wrapped__("cuda"))[1])
+    med = lambda xs: sorted(xs)[len(xs) // 2]
+    not_measured = lambda x: "not measured" if x is None else f"{x:.3f}"
+    log(f"lut summary on {smi}: default build {d_ms:.3f} ms host (median "
+        f"of {LUT_COLD_REPEATS}; {d_cli:.3f} through the CLI), "
+        f"{not_measured(d_dev)} ms device, peak {d_peak / 2**20:.1f} MiB; "
+        f"harvest build {h_ms:.3f} ms host ({h_cli:.3f} through the CLI, "
+        f"with its warm read of the default surface), "
+        f"{not_measured(h_dev)} ms device, peak {h_peak / 2**20:.1f} MiB; "
+        f"warm read {med(warm[False]):.3f} / {med(warm[True]):.3f} ms "
+        f"(median); memsim default_sweep {solve_ms:.3f} ms a solve, "
+        f"{launches} launches a solve ({launches / cf_launches:.2f} x) "
+        f"against the closed form's {cf_launches}")
 
 
 def serve_path(serve, kernels, arch, expected):
@@ -1450,6 +1724,9 @@ def main():
 
     # -- phase 7: the memory-system DES --------------------------------------
     entries.extend(memsim_phase(path_err["memsim"]))
+
+    # -- phase 8: the QueueLUT and the memsim backend ---------------------------
+    lut_phase()
 
     # The card's line again, so that it stands in the output's tail.
     print(smi, flush=True)

@@ -1,7 +1,7 @@
 """End-to-end COAXIAL evaluation engine (paper §4-§6, Tables 2 & 5).
 
-Port of ``repro/core/coaxial.py``, its closed-form half.  Everything the
-paper reports is derivable from here:
+Port of ``repro/core/coaxial.py``.  Everything the paper reports is
+derivable from here:
 
   * :func:`sweep` / :func:`solve_spec` -- the design-space engine: one
     solver pass over a grid of named axes, returning a
@@ -18,7 +18,7 @@ paper reports is derivable from here:
 
 A sweep lowers to ONE flattened call of the cell solver
 (``cpu_model.solve_cells``) on ``device`` (default ``"cuda"``; tests pass
-``"cpu"``), whatever its axes::
+``"cpu"``) per queue backend, whatever its axes::
 
     sw = coaxial.solve_spec(coaxial.sweep_spec(
         design=coaxial.all_designs(), iface_lat_ns=[None, 50.0],
@@ -35,9 +35,11 @@ The DES is a sweep target too (the distribution half): on ``device``,
     anchors (mean / p90 / stdev gates);
   * :func:`crosscheck_engines` -- timestep vs event engine.
 
-The memsim queue backend of the fixed point (the reference's QueueLUT)
-is not ported yet: ``queue_model="memsim"`` raises
-``NotImplementedError`` here.
+The fixed point's queue backend is a choice per solve:
+``queue_model="memsim"`` (argument or axis) solves through the
+DES-derived :class:`QueueLUT` (``lut=``, or :func:`default_queue_lut`
+resolved through the LUT store), which also gives each cell its p99
+latency: ``SweepResult.p99_grid`` and ``pareto(tail=True)``.
 """
 
 from __future__ import annotations
@@ -57,6 +59,8 @@ from repro_torch.core.cpu_model import (COAXIAL_2X, COAXIAL_4X, COAXIAL_5X,
                                         design_gradient, geomean, solve,
                                         solve_batch)
 from repro_torch.core.memsim import ChannelConfig, LatencyStats
+from repro_torch.core.queuelut import (QueueLUT, build_queue_lut,
+                                       default_queue_lut)
 from repro_torch.core.sweepspec import (KIND_DESIGN, KIND_IFACE,
                                         KIND_N_ACTIVE, KIND_QUEUE_MODEL,
                                         KIND_WORKLOAD_FIELD, Axis, SweepSpec,
@@ -74,7 +78,7 @@ __all__ = [
     "sensitivity_latency", "sensitivity_cores", "headline", "QUEUE_MODELS",
     "ChannelConfig", "LatencyStats", "DistributionSweepResult",
     "distribution_spec", "distribution_sweep", "validate_calibration",
-    "crosscheck_engines",
+    "crosscheck_engines", "QueueLUT", "build_queue_lut", "default_queue_lut",
 ]
 
 
@@ -283,6 +287,9 @@ class SweepResult(_NamedAxes):
     queue_model: str = "closed_form"
     #: Device the grid was solved on; the baseline reference re-solves there.
     device: str = "cuda"
+    #: Resolved :class:`QueueLUT` (memsim backend only) so the baseline
+    #: reference re-solves against the same surface.
+    lut: object = dataclasses.field(default=None, repr=False, compare=False)
 
     # -- legacy positional views (the historical D/L/C triple) ------------
 
@@ -493,7 +500,7 @@ class SweepResult(_NamedAxes):
                 iface_override_ns=flat["iface_override_ns"],
                 workload_overrides=flat["workload_overrides"],
                 baseline=base, workloads=self.workloads,
-                queue_model=qm, device=self.device)
+                queue_model=qm, lut=self.lut, device=self.device)
             w = res.ipc.shape[-1]
             cells.append(res.ipc.reshape(
                 tuple(len(ax) for ax in solve_live) + (w,)))
@@ -578,10 +585,13 @@ class SweepResult(_NamedAxes):
         ``rel_pins`` and ``geomean_speedup`` (vs the un-overridden
         baseline).
 
-        ``tail=True`` -- the reference's three-objective frontier with
-        each cell's worst-workload p99 -- needs the p99 latencies of a
-        memsim-backed solve, which the port does not have yet (ROADMAP.md
-        §1, the memsim slice, item 4); it raises ``NotImplementedError``.
+        ``tail=True`` ranks by ``(cost, mean speedup, p99)`` instead: a
+        cell survives unless some other cell is at least as good on ALL
+        of (min cost, max geomean speedup, min worst-workload p99) and
+        strictly better on one.  Each point then also carries
+        ``latency_p99_ns`` (from :meth:`p99_grid`).  Requires a
+        ``queue_model="memsim"`` solve; raises otherwise (the closed
+        form's tail is NaN).
 
         Example::
 
@@ -596,17 +606,14 @@ class SweepResult(_NamedAxes):
             >>> front[-1]["design"]      # max speedup ends the frontier
             'coaxial-4x'
         """
-        if tail:
-            raise NotImplementedError(
-                "pareto(tail=True) ranks by p99 latency, which needs "
-                "queue_model='memsim'; the port does not have it yet "
-                "(ROADMAP.md §1: the memsim slice, item 4)")
         costs = self.design_cost_grid()
         if cost not in costs:
             raise ValueError(f"cost must be one of {sorted(costs)}, "
                              f"got {cost!r}")
         gm = self.speedup_grid().reshape(-1)
         flat_costs = {k: v.reshape(-1) for k, v in costs.items()}
+        if tail:
+            return self._pareto_tail(cost, flat_costs, gm)
         order = np.lexsort((-gm, flat_costs[cost]))
         frontier, best = [], -np.inf
         for cell in order:
@@ -614,6 +621,35 @@ class SweepResult(_NamedAxes):
                 continue
             best = gm[cell]
             frontier.append(self._cell_point(cell, flat_costs, gm))
+        return frontier
+
+    def _pareto_tail(self, cost, flat_costs, gm) -> list[dict]:
+        """3-objective (min cost, max speedup, min p99) non-dominated
+        filter behind ``pareto(tail=True)``."""
+        p99 = self.p99_grid().reshape(-1)
+        if np.all(np.isnan(p99)):
+            raise ValueError(
+                "pareto(tail=True) needs p99 latencies; solve the sweep "
+                "under queue_model='memsim' (the closed form has no tail "
+                "law)")
+        c = flat_costs[cost]
+        eps = 1e-12
+        frontier, seen = [], set()
+        for cell in np.lexsort((p99, -gm, c)):
+            dominated = np.any((c <= c[cell] + eps)
+                               & (gm >= gm[cell] - eps)
+                               & (p99 <= p99[cell] + eps)
+                               & ((c < c[cell] - eps)
+                                  | (gm > gm[cell] + eps)
+                                  | (p99 < p99[cell] - eps)))
+            key = (round(float(c[cell]), 12), round(float(gm[cell]), 12),
+                   round(float(p99[cell]), 9))
+            if dominated or key in seen:
+                continue
+            seen.add(key)
+            point = self._cell_point(cell, flat_costs, gm)
+            point["latency_p99_ns"] = float(p99[cell])
+            frontier.append(point)
         return frontier
 
 
@@ -638,7 +674,7 @@ def knee_point(frontier, *, cost: str = "rel_area") -> dict:
 
 def solve_spec(spec: SweepSpec, *, workloads=WORKLOADS,
                baseline: MemSystem = DDR_BASELINE,
-               queue_model: str = "closed_form",
+               queue_model: str = "closed_form", lut=None,
                device="cuda") -> SweepResult:
     """Solve a named-axis :class:`SweepSpec` in one call of the cell solver
     on ``device``.
@@ -649,8 +685,9 @@ def solve_spec(spec: SweepSpec, *, workloads=WORKLOADS,
     declares, the grid costs ONE solver pass per backend: ``queue_model``
     picks the fixed point's queue-wait backend for the whole grid, and a
     ``queue_model`` AXIS in the spec solves one pass per backend and
-    stacks them.  A ``"memsim"`` backend raises ``NotImplementedError``
-    before anything is solved.
+    stacks them.  ``lut`` is the memsim backend's :class:`QueueLUT`
+    (default: :func:`default_queue_lut`, with the harvest axis when any
+    cell harvests), resolved once per memsim pass.
     """
     axes = list(spec.axes)
     try:
@@ -680,11 +717,9 @@ def solve_spec(spec: SweepSpec, *, workloads=WORKLOADS,
                 "queue_model argument, not both")
         q = qpos[0]
         qax = axes.pop(q)
-        for qm in qax.values:
-            cpu_model.check_queue_model(qm)
         sub = SweepSpec(tuple(axes))
         subs = [solve_spec(sub, workloads=workloads, baseline=baseline,
-                           queue_model=qm, device=device)
+                           queue_model=qm, lut=lut, device=device)
                 for qm in qax.values]
         res = ModelResult(**{
             f.name: np.stack([getattr(s.results, f.name) for s in subs],
@@ -693,28 +728,36 @@ def solve_spec(spec: SweepSpec, *, workloads=WORKLOADS,
         first = subs[0]
         return dataclasses.replace(
             first, axes=first.axes[:q] + (qax,) + first.axes[q:],
-            results=res)
-    cpu_model.check_queue_model(queue_model)
+            results=res,
+            lut=next((s.lut for s in subs if s.lut is not None), None))
     spec = SweepSpec(tuple(axes))
     flat = build_flat(spec)
+    # Resolve AFTER flattening: a harvesting design (or a harvest_duty /
+    # harvest_bw_gbps design-field axis) needs the 5-D default surface.
+    lut = cpu_model.resolve_queue_lut(
+        queue_model, lut,
+        harvest=cpu_model._any_harvest(flat["sysa"],
+                                       flat["design_overrides"]),
+        device=device)
     res = cpu_model.solve_cells(
         flat["sysa"], n_active=flat["n_active"],
         iface_override_ns=flat["iface_override_ns"],
         design_overrides=flat["design_overrides"],
         workload_overrides=flat["workload_overrides"],
         baseline=baseline, workloads=workloads,
-        queue_model=queue_model, device=device)
+        queue_model=queue_model, lut=lut, device=device)
     return SweepResult(
         axes=spec.axes, names=tuple(w.name for w in workloads),
         results=res.reshape(*spec.shape), baseline_name=baseline.name,
         workloads=tuple(workloads), baseline_sys=baseline,
-        queue_model=queue_model, device=str(device))
+        queue_model=queue_model, device=str(device), lut=lut)
 
 
 def sweep(designs=None, *, iface_lat_grid=(None,),
           n_active_grid=(hw.SIM_CORES,), workloads=WORKLOADS,
           baseline: MemSystem = DDR_BASELINE,
-          queue_model: str = "closed_form", device="cuda") -> SweepResult:
+          queue_model: str = "closed_form", lut=None,
+          device="cuda") -> SweepResult:
     """Solve the historical designs x latencies x cores grid.
 
     Thin shim over :func:`solve_spec` -- the positional triple is just the
@@ -722,34 +765,47 @@ def sweep(designs=None, *, iface_lat_grid=(None,),
     legacy ``(D, L, C, n_workloads)`` layout.  ``iface_lat_grid`` entries
     override the CXL premium of CXL designs (``None`` = each design's own
     value).  ``n_active_grid`` are active core counts; calibration is
-    redone per core count, as in the paper.
+    redone per core count, as in the paper.  ``queue_model="memsim"``
+    solves the same grid through the DES-derived :class:`QueueLUT`.
     """
     spec = sweep_spec(
         design=tuple(designs) if designs is not None else all_designs(),
         iface_lat_ns=tuple(iface_lat_grid),
         n_active=tuple(n_active_grid))
     return solve_spec(spec, workloads=workloads, baseline=baseline,
-                      queue_model=queue_model, device=device)
+                      queue_model=queue_model, lut=lut, device=device)
 
 
-def default_sweep(device="cuda") -> SweepResult:
+def default_sweep(device="cuda", queue_model: str = "closed_form",
+                  lut=None) -> SweepResult:
     """The shared grid behind every figure/table: all registered designs,
     both §6.4 latency points, all §6.5 core counts, solved on ``device``
-    (cached per device, however it is spelled: ``"cuda"``, ``"cuda:0"``
-    and ``torch.device("cuda")`` share one grid; the cache is cleared when
-    a registry changes).  ``default_sweep.__wrapped__(device)`` solves
-    anew without the cache.
+    under ``queue_model`` (through ``lut``, default the
+    :func:`default_queue_lut` surface, for ``"memsim"``).  Without a
+    ``lut`` the grid is cached per device and backend, however the device
+    is spelled (``"cuda"``, ``"cuda:0"`` and ``torch.device("cuda")``
+    share one grid; the cache is cleared when a registry changes);
+    ``default_sweep.__wrapped__(device, queue_model)`` solves anew without
+    the cache, as does any call that passes a ``lut``.
     """
     device = _workloads.resolve_device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
-    return _default_sweep(str(device))
+    if lut is not None:
+        return _default_grid(str(device), queue_model, lut)
+    return _default_sweep(str(device), queue_model)
+
+
+def _default_grid(device: str, queue_model: str, lut) -> SweepResult:
+    return sweep(iface_lat_grid=(None, hw.CXL_LAT_PESSIMISTIC_NS),
+                 n_active_grid=(1, 4, 8, hw.SIM_CORES),
+                 queue_model=queue_model, lut=lut, device=device)
 
 
 @functools.lru_cache(maxsize=None)
-def _default_sweep(device: str) -> SweepResult:
-    return sweep(iface_lat_grid=(None, hw.CXL_LAT_PESSIMISTIC_NS),
-                 n_active_grid=(1, 4, 8, hw.SIM_CORES), device=device)
+def _default_sweep(device: str,
+                   queue_model: str = "closed_form") -> SweepResult:
+    return _default_grid(device, queue_model, None)
 
 
 default_sweep.cache_clear = _default_sweep.cache_clear

@@ -1,6 +1,6 @@
 """Fixed-point loaded-CPU performance model (the ChampSim stand-in).
 
-Port of ``repro/core/cpu_model.py``, its closed-form backend.  The paper
+Port of ``repro/core/cpu_model.py``, both queue backends.  The paper
 simulates a 12-core OoO CPU (Table 3) with ChampSim+DRAMsim3; the
 reproduction uses a bottleneck model that captures the effects the
 paper's argument rests on:
@@ -40,12 +40,18 @@ unrolled fixed point.  ``jnp.clip``/``jnp.minimum``/``jnp.maximum`` are
 ``queueing.clip``/``minimum``/``maximum``, which split the gradient at a
 tie as JAX does.
 
-Queue-wait backends: only ``queue_model="closed_form"`` (the calibrated
-``queueing.effective_queue_wait_ns`` / ``stdev_latency_ns`` pair) is
-ported; ``"memsim"`` (the DES-derived QueueLUT) raises
-``NotImplementedError`` until the memsim and queuelut slices land, and
-the tail outputs (``latency_p99_ns``, ``cpi_mem_p99``) are NaN, as the
-reference's closed form gives them.
+Queue-wait backends: ``queue_model="closed_form"`` (the default) uses the
+calibrated ``queueing.effective_queue_wait_ns`` / ``stdev_latency_ns``
+pair; ``queue_model="memsim"`` replaces both with a DES-derived
+:class:`repro_torch.core.queuelut.QueueLUT` (mean wait and latency stdev
+read from the mechanism's measured tables through differentiable
+multilinear interpolation), passed in as ``lut=`` or resolved to the
+default surface through the LUT store.  The solver lays the LUT out on
+its device once per solve (``QueueLUT.tables``); calibration runs under
+the same backend.  On the memsim backend the LUT also carries the
+DES-measured p99 queue wait, and the solver returns ``latency_p99_ns`` /
+``cpi_mem_p99`` at the converged operating point (they do not feed the
+fixed point); the closed form has no tail law, so they are NaN there.
 
 Every solve surface takes ``device=`` (default ``"cuda"``); with no card
 it raises rather than solve on the CPU.
@@ -80,23 +86,58 @@ STREAMING_WS_MB = 1024.0
 FP_ITERS = 120
 FP_DAMP = 0.5
 
-#: Queue-wait backends of the reference's fixed point; the port solves the
-#: first (see module docstring).
+#: Pluggable queue-wait backends of the fixed point (see module docstring).
 QUEUE_MODELS = ("closed_form", "memsim")
 
 
-def check_queue_model(queue_model: str) -> None:
-    """Raise unless ``queue_model`` is the closed form: ``"memsim"`` is a
-    backend of the reference that the port does not have yet."""
+def resolve_queue_lut(queue_model: str, lut=None, *, harvest: bool = False,
+                      device="cuda"):
+    """Map a backend name to the LUT the solver consumes.
+
+    ``closed_form`` -> ``None``; ``memsim`` -> the given
+    :class:`~repro_torch.core.queuelut.QueueLUT`, or the default surface
+    when none is passed (resolved through the LUT store: memory ->
+    ``$REPRO_LUT_CACHE/torch`` -> a build on ``device``).  ``harvest=True``
+    means the solve needs the harvest axis: the default build gains it,
+    and an explicitly passed 4-D surface is rejected rather than
+    silently dropping the mechanism.
+    """
     if queue_model not in QUEUE_MODELS:
         raise ValueError(f"unknown queue_model {queue_model!r}; "
                          f"choose from {QUEUE_MODELS}")
-    if queue_model != "closed_form":
-        raise NotImplementedError(
-            f"queue_model={queue_model!r} needs the DES-derived QueueLUT, "
-            f"which the port does not have yet (ROADMAP.md §1: the memsim "
-            f"slice, item 4, then queuelut/lutstore, item 6); only "
-            f"'closed_form' solves")
+    if queue_model == "closed_form":
+        return None
+    if lut is None:
+        from repro_torch.core import queuelut  # runtime: import cycle
+        lut = queuelut.default_queue_lut(harvest=harvest, device=device)
+    elif harvest and lut.harvest_grid is None:
+        raise ValueError(
+            "designs harvest (harvest_duty * harvest_bw_gbps > 0) but "
+            "the given QueueLUT has no harvest axis; build it with "
+            "build_queue_lut(harvest=...) or pass lut=None")
+    return lut
+
+
+def _any_harvest(sysa: "MemSystemArrays", sys_ov=None) -> bool:
+    """Host-side peek: does any cell harvest (effective ``harvest_duty``
+    AND ``harvest_bw_gbps`` > 0 with NaN-masked overrides applied)?  Used
+    only to pick the default LUT surface."""
+    ov = sys_ov or {}
+
+    def eff(f):
+        s = _host(getattr(sysa, f))
+        v = _host(ov[f]) if f in ov else np.nan
+        return np.where(np.isnan(v), s, v)
+
+    return bool(np.any((eff("harvest_duty") > 0.0)
+                       & (eff("harvest_bw_gbps") > 0.0)))
+
+
+def _host(x) -> np.ndarray:
+    """A leaf (tensor or array) as a float64 numpy array."""
+    if torch.is_tensor(x):
+        return x.detach().cpu().double().numpy()
+    return np.asarray(x, np.float64)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,8 +153,8 @@ class MemSystem:
     llc_mb_per_core: float
     rel_area: float = 1.0       # die area relative to the DDR baseline
     rel_pins: float = 1.0       # memory-interface pins relative to baseline
-    #: Idle-I/O harvesting (arXiv 2511.12349).  Only the reference's memsim
-    #: backend acts on these; the closed form ignores both.
+    #: Idle-I/O harvesting (arXiv 2511.12349).  Only the memsim backend
+    #: acts on these; the closed form ignores both.
     harvest_duty: float = 0.0
     harvest_bw_gbps: float = 0.0
 
@@ -245,33 +286,57 @@ def _mpki_eff(wl: WorkloadArrays, sysa: MemSystemArrays, n_active):
 
 
 def _latency_terms(wl, sysa: MemSystemArrays, read_gbps, write_gbps,
-                   n_active, iface_lat_ns):
-    """Mean latency components + stdev at the given traffic level, under
-    the closed form.
+                   n_active, iface_lat_ns, lut=None):
+    """Mean latency components + stdev + p99 at the given traffic level.
 
     Branch-free in the design dimension: link terms are computed with
     guarded denominators and zeroed by the ``is_cxl`` mask (a multiply, so
     a DDR design, links == 0, gets exactly the no-link values).
 
-    Returns ``(latency, queue, sigma, rho, latency_p99)``; the closed form
-    has no calibrated tail law, so ``latency_p99`` is NaN.
+    ``lut`` selects the queue-wait backend: ``None`` is the calibrated
+    closed form; a :class:`~repro_torch.core.queuelut.LutTables` (a
+    QueueLUT laid out on the solve's device) replaces the DRAM-side wait
+    with the DES-measured mean-wait table (``eta`` a grid axis) and the
+    sigma heuristic with the DES-measured latency-stdev table.  The CXL
+    link queue keeps its closed form either way.
+
+    Returns ``(latency, queue, sigma, rho, latency_p99)``; the p99 is DRAM
+    service + the DES-measured p99 queue wait + (mean) link wait +
+    interface premium, NaN under the closed form (no tail law).
     """
     eff = _bw_efficiency(wl.wb)
     ch_bw = hw.DDR5_CH_BW_GBPS * eff
     rho = (read_gbps + write_gbps) / (sysa.dram_channels * ch_bw)
     outstanding = n_active * MAX_MLP / sysa.dram_channels
-    w_dram = queueing.effective_queue_wait_ns(
-        rho, kappa=wl.kappa, eta=wl.eta,
-        outstanding_per_channel=outstanding, channel_bw_gbps=ch_bw)
+    if lut is None:
+        w_dram = queueing.effective_queue_wait_ns(
+            rho, kappa=wl.kappa, eta=wl.eta,
+            outstanding_per_channel=outstanding, channel_bw_gbps=ch_bw)
+    elif lut.harvest_grid is not None:
+        # Harvest query in table units: lent-time fraction scaled to the
+        # one-channel reference bandwidth the axis was built at.
+        harvest = (sysa.harvest_duty * sysa.harvest_bw_gbps /
+                   hw.DDR5_CH_BW_GBPS)
+        w_dram, _, w_p99, sigma_mem = lut.lookup(rho, wl.kappa, outstanding,
+                                                 wl.eta, harvest)
+    else:
+        w_dram, _, w_p99, sigma_mem = lut.lookup(rho, wl.kappa, outstanding,
+                                                 wl.eta)
     link_rd_bw = maximum(sysa.links * sysa.link_rd_gbps, 1e-9)
     rho_rx = read_gbps / link_rd_bw
     svc_rx = hw.CACHE_LINE_B / maximum(sysa.link_rd_gbps, 1e-9)
     w_link = sysa.is_cxl * queueing.link_queue_wait_ns(rho_rx, svc_rx,
                                                        wl.kappa)
     queue = w_dram + w_link
-    sigma = queueing.stdev_latency_ns(queue)
+    sigma = (queueing.stdev_latency_ns(queue) if lut is None
+             else torch.broadcast_to(sigma_mem, queue.shape))
     latency = hw.DRAM_SERVICE_NS + queue + iface_lat_ns
-    latency_p99 = torch.full_like(latency, float("nan"))
+    if lut is None:
+        latency_p99 = torch.full_like(latency, float("nan"))
+    else:
+        latency_p99 = torch.broadcast_to(
+            hw.DRAM_SERVICE_NS + w_p99 + w_link + iface_lat_ns,
+            latency.shape)
     return latency, queue, sigma, rho, latency_p99
 
 
@@ -281,8 +346,8 @@ def _cpi_mem(wl, mpki_eff, latency, sigma, mlp):
 
 
 def _cpi_mem_p99(mpki_eff, latency_p99, mlp):
-    """Memory CPI with every miss charged the p99 latency (NaN under the
-    closed form, whose p99 is NaN)."""
+    """Memory CPI with every miss charged the p99 latency -- the tail
+    counterpart of :func:`_cpi_mem` (NaN under the closed form)."""
     return (mpki_eff / 1000.0) * latency_p99 * hw.CORE_CLK_GHZ / mlp
 
 
@@ -324,12 +389,15 @@ def _rho01(rho):
     return clip(rho, 0.0, 1.0)
 
 
-def _calibrate(wl: WorkloadArrays, base: MemSystemArrays, n_active):
-    """Core of :func:`calibrate` (baseline as tensors)."""
+def _calibrate(wl: WorkloadArrays, base: MemSystemArrays, n_active,
+               lut=None):
+    """Core of :func:`calibrate` (baseline as tensors).  Calibration runs
+    under the SAME queue backend as the solve: the memsim-backed model
+    re-derives (cpi_exec, mlp_cal) against the DES waits."""
     mpki_eff = _mpki_eff(wl, base, n_active)
     read, write = _traffic(wl, wl.ipc, mpki_eff, n_active)
     latency, _, sigma, rho_base, _ = _latency_terms(
-        wl, base, read, write, n_active, base.iface_lat_ns)
+        wl, base, read, write, n_active, base.iface_lat_ns, lut)
     l_eff_cyc = (latency + wl.gamma * sigma) * hw.CORE_CLK_GHZ
     budget = (1.0 - wl.exec_frac) / wl.ipc
     mlp_raw = (mpki_eff / 1000.0) * l_eff_cyc / maximum(budget, 1e-9)
@@ -342,7 +410,7 @@ def _calibrate(wl: WorkloadArrays, base: MemSystemArrays, n_active):
 
 
 def calibrate(wl: WorkloadArrays, baseline, n_active=hw.SIM_CORES,
-              queue_model: str = "closed_form"):
+              queue_model: str = "closed_form", lut=None):
     """Per-workload (cpi_exec, mlp_cal) reproducing Table 4 on the baseline.
 
     Given exec_frac, the memory-CPI budget at the table operating point is
@@ -350,16 +418,19 @@ def calibrate(wl: WorkloadArrays, baseline, n_active=hw.SIM_CORES,
     whatever makes the latency model meet that budget, clamped to the
     architectural [1, MAX_MLP]; mlp_cal back-solves the load-adaptive form.
     ``baseline`` may be a :class:`MemSystem` (made on ``wl``'s device) or
-    a :class:`MemSystemArrays`.
+    a :class:`MemSystemArrays`.  ``queue_model`` (and ``lut``) pick the
+    wait backend the calibration is run against.
     """
-    check_queue_model(queue_model)
+    device = wl.ipc.device
+    lut = resolve_queue_lut(queue_model, lut, device=device)
     if isinstance(baseline, MemSystem):
-        baseline = baseline.as_arrays(device=wl.ipc.device)
-    return _calibrate(wl, baseline, n_active)
+        baseline = baseline.as_arrays(device=device)
+    return _calibrate(wl, baseline, n_active,
+                      None if lut is None else lut.tables(device))
 
 
 def _solve_point(wl, sysa: MemSystemArrays, base: MemSystemArrays,
-                 n_active, iface_override_ns):
+                 n_active, iface_override_ns, lut=None):
     """Calibrate + solve design points, all workloads at once (any shapes
     that broadcast: one point, or ``(N, 1)`` cells against ``(1, W)``
     workloads).
@@ -367,9 +438,11 @@ def _solve_point(wl, sysa: MemSystemArrays, base: MemSystemArrays,
     ``iface_override_ns`` replaces the CXL latency premium of CXL designs;
     ``nan`` means "use the design's own premium".  Non-CXL designs keep
     their (zero) premium, so a baseline sliced out of any latency grid is
-    identical to the baseline solved alone.
+    identical to the baseline solved alone.  ``lut`` (None = closed form;
+    else a ``LutTables`` on the solve's device) picks the queue-wait
+    backend for calibration AND the fixed point.
     """
-    cpi_exec, mlp = _calibrate(wl, base, n_active)
+    cpi_exec, mlp = _calibrate(wl, base, n_active, lut)
     premium = torch.where(
         sysa.is_cxl > 0.0,
         torch.where(torch.isnan(iface_override_ns), sysa.iface_lat_ns,
@@ -382,7 +455,7 @@ def _solve_point(wl, sysa: MemSystemArrays, base: MemSystemArrays,
     for _ in range(FP_ITERS):
         read, write = _traffic(wl, ipc, mpki_eff, n_active)
         latency, _, sigma, rho, _ = _latency_terms(
-            wl, sysa, read, write, n_active, premium)
+            wl, sysa, read, write, n_active, premium, lut)
         mlp_eff = _mlp_eff(wl, mlp, rho)
         cpi = torch.maximum(
             cpi_exec + _cpi_mem(wl, mpki_eff, latency, sigma, mlp_eff),
@@ -390,7 +463,7 @@ def _solve_point(wl, sysa: MemSystemArrays, base: MemSystemArrays,
         ipc = (1 - FP_DAMP) * ipc + FP_DAMP / cpi
     read, write = _traffic(wl, ipc, mpki_eff, n_active)
     latency, queue, sigma, rho, lat_p99 = _latency_terms(
-        wl, sysa, read, write, n_active, premium)
+        wl, sysa, read, write, n_active, premium, lut)
     iface = torch.broadcast_to(premium, ipc.shape)
     cpi_p99 = _cpi_mem_p99(mpki_eff, lat_p99, _mlp_eff(wl, mlp, rho))
     return (ipc, latency, queue, sigma, rho, read, write, iface,
@@ -409,15 +482,16 @@ def solve_trace_count() -> int:
     return _TRACE_COUNT[0]
 
 
-def _solve_cells(wl, sysa, base, n_active, iface_ov, sys_ov, wl_ov):
+def _solve_cells(wl, sysa, base, n_active, iface_ov, sys_ov, wl_ov,
+                 lut=None):
     """Solve ONE flattened axis of grid cells in one pass.
 
     Every per-cell input -- the design leaves, the core count, the CXL
     latency override and both overrides dicts -- is ``(N,)``; the
     workload parameters are ``(W,)``.  Cells become ``(N, 1)`` columns and
     workloads ``(1, W)`` rows, the overrides apply branch-free, and one
-    broadcast :func:`_solve_point` solves the grid.  Output tensors are
-    ``(N, W)``.
+    broadcast :func:`_solve_point` solves the grid (``lut`` shared by
+    every cell).  Output tensors are ``(N, W)``.
     """
     _TRACE_COUNT[0] += 1
     col = lambda x: x[:, None]
@@ -426,7 +500,7 @@ def _solve_cells(wl, sysa, base, n_active, iface_ov, sys_ov, wl_ov):
     wl = _apply_workload_overrides(wl, {f: col(v) for f, v in wl_ov.items()})
     sysa = _apply_design_overrides(sysa._map(col),
                                    {f: col(v) for f, v in sys_ov.items()})
-    return _solve_point(wl, sysa, base, col(n_active), col(iface_ov))
+    return _solve_point(wl, sysa, base, col(n_active), col(iface_ov), lut)
 
 
 def _pack_result(out, squeeze: bool) -> ModelResult:
@@ -450,6 +524,11 @@ def _grid(values) -> np.ndarray:
                        for v in values], np.float64)
 
 
+def _nan_cells(n: int, fields) -> dict:
+    nans = np.full(n, np.nan)
+    return {f: nans for f in fields}
+
+
 def _cells_to_device(arrays: dict, device) -> dict:
     """``{name: (N,) array}`` to float32 tensors on ``device``, rounded
     from float64 as the reference's ``jnp.asarray`` rounds them, in one
@@ -463,28 +542,29 @@ def solve_cells(sysa: MemSystemArrays, *, n_active, iface_override_ns=None,
                 design_overrides=None, workload_overrides=None,
                 baseline: MemSystem | None = None,
                 workloads=WORKLOADS, queue_model: str = "closed_form",
-                device="cuda") -> ModelResult:
+                lut=None, device="cuda") -> ModelResult:
     """Solve N flattened grid cells in one call of the cell solver.
 
     ``sysa`` leaves and ``n_active`` are ``(N,)`` (numpy arrays or
     tensors); ``iface_override_ns`` and every overrides entry are ``(N,)``
     with NaN meaning "keep the design's / workload's own value".  Missing
-    override fields are filled with NaN.  Solves on ``device``.
+    override fields are filled with NaN.  ``queue_model`` picks the wait
+    backend (``"memsim"`` resolves ``lut`` to the default surface when
+    none is given).  Solves on ``device``.
     """
-    check_queue_model(queue_model)
     device = resolve_device(device)
-    host = lambda x: (x.detach().cpu().double().numpy() if torch.is_tensor(x)
-                      else np.asarray(x, np.float64))
     n = int(np.shape(sysa.dram_channels)[0])
-    nans = np.full(n, np.nan)
-    cells = {f"sys.{f}": host(leaf) for f, leaf in zip(sysa._fields, sysa)}
-    cells["n_active"] = host(n_active)
-    cells["iface"] = (nans if iface_override_ns is None
-                      else host(iface_override_ns))
-    sys_ov = {f: nans for f in SWEEPABLE_DESIGN_FIELDS}
-    sys_ov.update({f: host(v) for f, v in (design_overrides or {}).items()})
-    wl_ov = {f: nans for f in SWEEPABLE_WORKLOAD_FIELDS}
-    wl_ov.update({f: host(v) for f, v in (workload_overrides or {}).items()})
+    cells = {f"sys.{f}": _host(leaf) for f, leaf in zip(sysa._fields, sysa)}
+    cells["n_active"] = _host(n_active)
+    cells["iface"] = (np.full(n, np.nan) if iface_override_ns is None
+                      else _host(iface_override_ns))
+    sys_ov = _nan_cells(n, SWEEPABLE_DESIGN_FIELDS)
+    sys_ov.update({f: _host(v) for f, v in (design_overrides or {}).items()})
+    lut = resolve_queue_lut(queue_model, lut,
+                            harvest=_any_harvest(sysa, sys_ov),
+                            device=device)
+    wl_ov = _nan_cells(n, SWEEPABLE_WORKLOAD_FIELDS)
+    wl_ov.update({f: _host(v) for f, v in (workload_overrides or {}).items()})
     cells.update({f"sys_ov.{f}": v for f, v in sys_ov.items()})
     cells.update({f"wl_ov.{f}": v for f, v in wl_ov.items()})
     t = _cells_to_device(cells, device)
@@ -495,16 +575,19 @@ def solve_cells(sysa: MemSystemArrays, *, n_active, iface_override_ns=None,
     with torch.no_grad():
         out = _solve_cells(wl, MemSystemArrays(**pick("sys")), base,
                            t["n_active"], t["iface"], pick("sys_ov"),
-                           pick("wl_ov"))
+                           pick("wl_ov"),
+                           None if lut is None else lut.tables(device))
     return _pack_result(out, squeeze=False)
 
 
 def solve(sys: MemSystem, *, baseline: MemSystem | None = None,
           n_active: int = hw.SIM_CORES, iface_lat_ns: float | None = None,
           workloads=WORKLOADS, queue_model: str = "closed_form",
-          device="cuda") -> ModelResult:
+          lut=None, device="cuda") -> ModelResult:
     """Evaluate all workloads on ``sys`` (calibrated against ``baseline``):
-    the cell solver with N=1."""
+    the cell solver with N=1.  ``queue_model="memsim"`` evaluates the fixed
+    point through the DES-derived QueueLUT (``lut``, or the default
+    surface) instead of the closed form."""
     sysa = MemSystemArrays(*(np.asarray([x]) for x in _design_row(sys)))
     if iface_lat_ns is not None:
         # Legacy solve() applied an explicit override even to non-CXL
@@ -513,14 +596,14 @@ def solve(sys: MemSystem, *, baseline: MemSystem | None = None,
     res = solve_cells(sysa, n_active=_grid([n_active]),
                       iface_override_ns=_grid([iface_lat_ns]),
                       baseline=baseline, workloads=workloads,
-                      queue_model=queue_model, device=device)
+                      queue_model=queue_model, lut=lut, device=device)
     return res[0]
 
 
 def solve_batch(designs, *, n_active_grid=(hw.SIM_CORES,),
                 iface_lat_grid=(None,), baseline: MemSystem | None = None,
                 workloads=WORKLOADS, queue_model: str = "closed_form",
-                device="cuda") -> ModelResult:
+                lut=None, device="cuda") -> ModelResult:
     """Evaluate a designs x iface-latencies x core-counts grid in ONE pass.
 
     ``iface_lat_grid`` entries override the CXL latency premium; ``None``
@@ -539,7 +622,7 @@ def solve_batch(designs, *, n_active_grid=(hw.SIM_CORES,),
     n_active = np.tile(_grid(n_active_grid), d * l)
     res = solve_cells(sysa, n_active=n_active, iface_override_ns=iface,
                       baseline=baseline, workloads=workloads,
-                      queue_model=queue_model, device=device)
+                      queue_model=queue_model, lut=lut, device=device)
     return res.reshape(d, l, c)
 
 
@@ -648,12 +731,12 @@ def geomean(x, names=None) -> float:
 GRADIENT_FIELDS = SWEEPABLE_DESIGN_FIELDS + ("iface_lat_ns",)
 
 
-def _gm_speedup(vals, sysa0, wl, basea, n_active, base_ipc):
+def _gm_speedup(vals, sysa0, wl, basea, n_active, base_ipc, lut=None):
     """Geomean speedup of ``sysa0`` with ``vals`` substituted, vs a fixed
     baseline IPC vector -- the scalar :func:`design_gradient` derives."""
     sysa = sysa0._replace(**vals)
     nan = torch.full((), float("nan"), device=base_ipc.device)
-    ipc = _solve_point(wl, sysa, basea, n_active, nan)[0]
+    ipc = _solve_point(wl, sysa, basea, n_active, nan, lut)[0]
     return torch.exp(torch.mean(torch.log(ipc / base_ipc)))
 
 
@@ -663,14 +746,17 @@ def design_gradient(sys: MemSystem | None = None,
                     baseline: MemSystem | None = None,
                     workloads=WORKLOADS,
                     queue_model: str = "closed_form",
-                    device="cuda") -> dict[str, float]:
+                    lut=None, device="cuda") -> dict[str, float]:
     """d(geomean speedup vs baseline) / d(design field) at ``sys``.
 
     Differentiates straight through the damped fixed point (autograd
     records its ``FP_ITERS`` steps).  The ``is_cxl`` topology mask is held
     at the design's own value -- gradients flow through capacities
     (channels, links, bandwidths, LLC), not through the discrete DDR/CXL
-    switch.  Returns ``{field: gradient}`` in the order requested.
+    switch.  Under ``queue_model="memsim"`` the reverse pass also flows
+    through the QueueLUT's multilinear interpolation, with the baseline
+    reference solved under the same backend.  Returns ``{field:
+    gradient}`` in the order requested.
 
     Example::
 
@@ -690,21 +776,26 @@ def design_gradient(sys: MemSystem | None = None,
     if unknown:
         raise ValueError(f"non-differentiable or unknown design fields "
                          f"{unknown}; choose from {GRADIENT_FIELDS}")
-    check_queue_model(queue_model)
     device = resolve_device(device)
     baseline = baseline or DDR_BASELINE
+    lut = resolve_queue_lut(
+        queue_model, lut,
+        harvest=(_any_harvest(MemSystemArrays(*map(np.asarray,
+                                                   _design_row(sys))))
+                 or "harvest_duty" in fields
+                 or "harvest_bw_gbps" in fields), device=device)
     wl = as_arrays(workloads, device=device)
     # The reference is constant under the differentiated fields.
     base_ipc = torch.from_numpy(
         solve(baseline, baseline=baseline, n_active=n_active,
-              workloads=workloads, device=device).ipc.astype(np.float32)
-    ).to(device)
+              workloads=workloads, queue_model=queue_model, lut=lut,
+              device=device).ipc.astype(np.float32)).to(device)
     sysa0 = sys.as_arrays(device=device)
     vals = {f: getattr(sysa0, f).clone().requires_grad_(True)
             for f in fields}
     n = torch.full((), float(n_active), device=device)
     gm = _gm_speedup(vals, sysa0, wl, baseline.as_arrays(device=device), n,
-                     base_ipc)
+                     base_ipc, None if lut is None else lut.tables(device))
     grads = torch.autograd.grad(gm, list(vals.values()), allow_unused=True)
     return {f: 0.0 if g is None else float(g)
             for f, g in zip(fields, grads)}

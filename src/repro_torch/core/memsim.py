@@ -42,11 +42,13 @@ Each engine runs in two stages per chunk of steps (or requests):
 The reference counts JAX traces of its chunk kernels (``sim_trace_count``);
 PyTorch does not trace, and the scan kernels' launch counters
 (``kernels.memsim_scan.KERNELS``) take that count's place: one launch per
-chunk.  Every entry point takes ``device=`` (default ``"cuda"``; with no
-card it raises); ``devices`` (the reference's lane sharding over host
-devices) accepts ``None`` or 1 and raises ``NotImplementedError`` for more
-until the port's shardsim lands.  Results are exactly reproducible per
-``(engine, seed, budget, N, device)``.
+chunk; :func:`sim_call_count` counts the calls of :func:`simulate_cells`
+(every DES run goes through it), on any device.  Every entry point takes
+``device=`` (default ``"cuda"``; with no card it raises); ``devices`` (the
+reference's lane sharding over host devices) accepts ``None`` or 1 and
+raises ``NotImplementedError`` for more until the port's shardsim lands.
+Results are exactly reproducible per ``(engine, seed, budget, N,
+device)``.
 """
 
 from __future__ import annotations
@@ -724,6 +726,17 @@ def merge_reps(stats: LatencyStats) -> LatencyStats:
 # Entry points.
 # ---------------------------------------------------------------------------
 
+#: Calls of :func:`simulate_cells` so far (see :func:`sim_call_count`).
+_SIM_CALLS = [0]
+
+
+def sim_call_count() -> int:
+    """Calls of :func:`simulate_cells` so far, on any device: what a warm
+    QueueLUT store read must leave flat (the reference counts its chunk
+    kernels' traces for the same purpose)."""
+    return _SIM_CALLS[0]
+
+
 def simulate_cells(cha: ChannelArrays, *, overrides=None,
                    steps: int = 200_000, seed: int = 0,
                    warmup: int | None = None, reps: int = 1,
@@ -760,6 +773,7 @@ def simulate_cells(cha: ChannelArrays, *, overrides=None,
                          "for the timestep engine")
     _check_devices(devices)
     device = resolve_device(device)
+    _SIM_CALLS[0] += 1
 
     def tile(v):
         return np.tile(_host(v).astype(np.float32), reps)

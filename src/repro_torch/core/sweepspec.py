@@ -14,8 +14,8 @@ axis can bind
   * any workload behavioral parameter (``kappa``, ``eta``, ``mpki``, ...)
     -- the axis value overrides that parameter for EVERY workload, and
     calibration runs against the overridden workload,
-  * ``queue_model`` -- the solver backend; the port solves only
-    ``"closed_form"`` and raises ``NotImplementedError`` for ``"memsim"``.
+  * ``queue_model`` -- the solver backend (``"closed_form"`` /
+    ``"memsim"``), solved one pass per backend by ``coaxial.solve_spec``.
 
 The DES is a sweep target too: :func:`distribution_spec` builds a spec
 whose axes bind :class:`memsim.ChannelConfig` fields (``rho``, ``kappa``,
@@ -229,7 +229,7 @@ def sweep_spec(design=None, **axes) -> SweepSpec:
     promoted to length-1 axes.  ``queue_model`` is an axis too -- the
     solver backend (``"closed_form"`` / ``"memsim"``) sweeps like any
     other coordinate (``coaxial.solve_spec`` runs one pass per backend
-    and stacks them; ``"memsim"`` raises there until the port has it).
+    and stacks them).
 
     Example::
 

@@ -207,8 +207,11 @@ def test_pareto_and_knee_match_reference():
     sub = sw.sel(llc_mb_per_core=4.0).pareto()
     assert [p["design"] for p in sub] == \
         [p["design"] for p in ref.sel(llc_mb_per_core=4.0).pareto()]
-    with pytest.raises(NotImplementedError, match="memsim"):
+    with pytest.raises(ValueError, match="memsim") as e_port:
         sw.pareto(tail=True)
+    with pytest.raises(ValueError) as e_ref:
+        ref.pareto(tail=True)
+    assert str(e_port.value) == str(e_ref.value)
     assert np.isnan(sw.p99_grid()).all()
 
 
@@ -305,6 +308,14 @@ def test_spec_errors_match_reference():
             design=(coaxial.COAXIAL_4X, dup)), device="cpu")
 
 
+def _flat_lut(wait):
+    """A 2-point-per-axis QueueLUT whose every table is ``wait`` ns."""
+    t = torch.full((2, 2, 2, 2), float(wait))
+    g = lambda a, b: torch.tensor([a, b])
+    return coaxial.QueueLUT(g(0.0, 1.0), g(1.0, 4.0), g(1.0, 256.0),
+                            g(0.0, 1.0), t, t, t, t)
+
+
 def test_spec_solve_and_queue_model_axis():
     spec = coaxial.sweep_spec(design=(coaxial.COAXIAL_4X,),
                               queue_model="closed_form")
@@ -313,16 +324,24 @@ def test_spec_solve_and_queue_model_axis():
     assert sw.shape == (2, 1)                     # the baseline prepended
     assert_results_close(sw.sel(queue_model="closed_form").results,
                          jc.sweep((jc.COAXIAL_4X,)).results[:, 0, 0])
+    # Both backends: one solver pass each, through the given QueueLUT (a
+    # hand-made surface; the memsim solves are held to the reference in
+    # tests/test_torch_queuelut.py).
+    lut = _flat_lut(wait=30.0)
     calls = cpu_model.solve_trace_count()
-    for call in (
-            lambda: coaxial.sweep_spec(
-                design=(coaxial.COAXIAL_4X,),
-                queue_model=("closed_form", "memsim")).solve(device="cpu"),
-            lambda: coaxial.sweep((coaxial.COAXIAL_4X,), queue_model="memsim",
-                                  device="cpu")):
-        with pytest.raises(NotImplementedError, match="memsim"):
-            call()
-    assert cpu_model.solve_trace_count() == calls   # nothing was solved
+    both = coaxial.sweep_spec(
+        design=(coaxial.COAXIAL_4X,),
+        queue_model=("closed_form", "memsim")).solve(lut=lut, device="cpu")
+    memsim = coaxial.sweep((coaxial.COAXIAL_4X,), queue_model="memsim",
+                           lut=lut, device="cpu")
+    assert cpu_model.solve_trace_count() == calls + 3
+    assert both.shape == (2, 2) and both.lut is lut and memsim.lut is lut
+    assert_results_close(both.sel(queue_model="closed_form").results,
+                         sw.sel(queue_model="closed_form").results)
+    assert_results_close(both.sel(queue_model="memsim").results,
+                         memsim.results[:, 0, 0])
+    assert np.isfinite(memsim.p99_grid()).all()
+    assert np.isnan(both.sel(queue_model="closed_form").p99_grid()).all()
 
 
 # --- registry ------------------------------------------------------------------

@@ -1,5 +1,5 @@
 """The port's ``core/cpu_model`` (closed-form backend) against the JAX
-reference, on the CPU.
+reference, on the CPU (the memsim backend: ``tests/test_torch_queuelut.py``).
 
 Both compute the same float32 operations in the same order (the reference
 runs without x64); only the libraries' ``pow``/``exp``/``log``/``sqrt`` may
@@ -201,10 +201,25 @@ def test_geomean_matches_reference_and_raises_on_non_positive():
     lambda qm: cpu_model.calibrate(workloads.as_arrays(device="cpu"),
                                    cpu_model.DDR_BASELINE, queue_model=qm),
 ], ids=["solve", "solve_batch", "design_gradient", "calibrate"])
-def test_memsim_backend_raises_rather_than_solving(call):
+def test_memsim_backend_raises_rather_than_solving(call, monkeypatch):
+    """With no ``lut``, the memsim backend resolves the default surface
+    (``queuelut.default_queue_lut``; stubbed here to raise, as building it
+    is a full-size DES run) before anything is solved; an unknown backend
+    raises.  The memsim solves themselves are held to the reference in
+    ``tests/test_torch_queuelut.py``."""
+    from repro_torch.core import queuelut
+
+    class Resolved(Exception):
+        pass
+
+    def default_surface(**kw):
+        raise Resolved(kw)
+
+    monkeypatch.setattr(queuelut, "default_queue_lut", default_surface)
     calls = cpu_model.solve_trace_count()
-    with pytest.raises(NotImplementedError, match="memsim"):
+    with pytest.raises(Resolved) as e:
         call("memsim")
+    assert e.value.args[0]["device"] in ("cpu", torch.device("cpu"))
     with pytest.raises(ValueError, match="unknown queue_model"):
         call("lindley")
     assert cpu_model.solve_trace_count() == calls

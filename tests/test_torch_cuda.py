@@ -530,3 +530,121 @@ def test_memsim_scan_wrappers_refuse_bad_inputs():
         ms.event_scan(terms, w, gaps.t().contiguous().t(), gaps, rec, hist)
     with pytest.raises(ValueError):
         ms.event_scan(terms, w.cpu(), gaps, gaps, rec, hist)
+
+
+# --- the QueueLUT and the memsim backend (core/queuelut, core/cpu_model) -------
+
+LUT_GRID = dict(rho=(0.2, 0.5, 0.8), kappa=(1.0, 2.0),
+                outstanding=(8.0, 64.0), eta=(0.3, 1.0))
+
+
+@pytest.mark.parametrize("engine", ["event", "timestep"])
+@pytest.mark.parametrize("harvest", [None, (0.0, 0.5)],
+                         ids=["4d", "harvest"])
+def test_queuelut_subgrid_build_card_equals_cpu(engine, harvest):
+    """A QueueLUT built on the card equals the same build on the CPU bit
+    for bit (its scans are K4/K5 there, the plain versions here)."""
+    _need_card()
+    from repro_torch.core import queuelut
+    kw = dict(**LUT_GRID, steps=6_000, reps=2, engine=engine,
+              harvest=harvest)
+    card = queuelut.build_queue_lut(**kw, device="cuda")
+    cpu = queuelut.build_queue_lut(**kw, device="cpu")
+    for a, b in zip(card, cpu):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert a.device.type == "cpu" and torch.equal(a, b)
+
+
+def _random_lut(harvest: bool, seed=0):
+    import numpy as np
+
+    from repro_torch.core import queuelut
+    grids = [queuelut.DEFAULT_RHO_GRID, queuelut.DEFAULT_KAPPA_GRID,
+             queuelut.DEFAULT_OUTSTANDING_GRID, queuelut.DEFAULT_ETA_GRID]
+    if harvest:
+        grids.append(queuelut.DEFAULT_HARVEST_GRID)
+    rng = np.random.default_rng(seed)
+    shape = tuple(len(g) for g in grids)
+    tabs = [torch.from_numpy(rng.uniform(0, 400, shape).astype(np.float32))
+            for _ in range(4)]
+    g = [torch.tensor(x, dtype=torch.float32) for x in grids]
+    return queuelut.QueueLUT(*g[:4], *tabs,
+                             harvest_grid=g[4] if harvest else None)
+
+
+def _two_point_lut():
+    """The docstring's two-point surface (no interior grid nodes)."""
+    from repro_torch.core.queuelut import QueueLUT
+    z = torch.zeros((2, 2, 2, 2))
+    w = z.clone()
+    w[1] = 80.0
+    g = lambda a, b: torch.tensor([a, b])
+    return QueueLUT(g(0.0, 1.0), g(1.0, 2.0), g(1.0, 100.0), g(0.0, 1.0),
+                    w, z, z, z)
+
+
+@pytest.mark.parametrize("harvest", [False, True], ids=["4d", "harvest"])
+def test_queuelut_lookup_on_card_equals_cpu(harvest):
+    """Lookup and its gradients on CUDA tensors against the CPU: the same
+    gathers and weights; only the order of the corner sum and the last bit
+    of ``log`` may differ (1e-6 relative, or 4 float32 roundings of the
+    largest table value)."""
+    _need_card()
+    lut = _random_lut(harvest)
+    gen = torch.Generator().manual_seed(1)
+    q = [torch.rand(500, generator=gen) * s + o for s, o in
+         ((1.0, 0.0), (3.0, 0.8), (250.0, 1.0), (1.2, 0.0), (0.9, 0.0))]
+    q = q[:5 if harvest else 4]
+    xs = {d: [x.clone().to(d).requires_grad_(True) for x in q]
+          for d in ("cpu", "cuda")}
+    # QueueLUT.lookup itself, its tables on the CPU: it looks up where
+    # the queries lie.
+    outs = {d: lut.lookup(*xs[d]) for d in xs}
+    atol = 4 * 2.0 ** -24 * 400.0
+    for a, b, c in zip(outs["cuda"], outs["cpu"],
+                       lut.tables("cuda").lookup(*xs["cuda"])):
+        assert a.device.type == "cuda"
+        torch.testing.assert_close(a.cpu(), b.detach(), rtol=1e-6, atol=atol)
+        assert torch.equal(a, c)
+    small = _two_point_lut()
+    assert torch.equal(
+        small.tables("cuda").lookup(0.5, 1.0, 10.0, 1.0)[0].cpu(),
+        small.wait(0.5, 1.0, 10.0, 1.0))
+    for d in xs:
+        sum(o.sum() for o in outs[d]).backward()
+    for a, b in zip(xs["cuda"], xs["cpu"]):
+        # 4 float32 roundings of the largest |table| x dt/dx (1 / 0.02 on
+        # the rho grid's finest interval).
+        torch.testing.assert_close(a.grad.cpu(), b.grad, rtol=1e-5,
+                                   atol=4 * 2.0 ** -24 * 400.0 * 50.0)
+
+
+def test_memsim_solve_card_within_1e_5_of_cpu():
+    """A memsim-backed solve on the card against the CPU, the same code in
+    float32: settled elements within 1e-5 (phase 6's gate), an element
+    still moving after the fixed point's last step within that step."""
+    _need_card()
+    import numpy as np
+
+    from repro_torch.core import cpu_model
+    lut = _random_lut(False)
+    lut = lut._replace(**{f: getattr(lut, f).sort(dim=0).values * 0.2
+                          for f in ("wait_ns", "p90_wait_ns",
+                                    "p99_wait_ns", "sigma_ns")})
+    solve = lambda device: cpu_model.solve_batch(
+        cpu_model.DESIGNS, n_active_grid=(4, 12), queue_model="memsim",
+        lut=lut, device=device)
+    card, cpu = solve("cuda"), solve("cpu")
+    cpu_model.FP_ITERS += 1
+    try:
+        nxt = solve("cuda")
+    finally:
+        cpu_model.FP_ITERS -= 1
+    moving = np.abs(nxt.ipc - card.ipc) > 1e-5 * np.abs(card.ipc)
+    for f in ("ipc", "latency_ns", "sigma_ns", "latency_p99_ns",
+              "cpi_mem_p99"):
+        a, b = getattr(card, f), getattr(cpu, f)
+        step = np.where(moving, np.abs(getattr(nxt, f) - a), 0.0)
+        assert np.isfinite(a).all(), f
+        assert (np.abs(a - b) <= 1e-5 * np.abs(b) + step).all(), f
