@@ -70,7 +70,30 @@ Phases; any failure exits non-zero and no phase swallows one:
      ``crosscheck_engines``, and the default QueueLUT grid as one event
      engine sweep; the two scan kernels timed at the study's shapes.  To
      run only this phase: ``python3 -c "import chip_smoke;
-     chip_smoke.memsim_phase()"``.
+     chip_smoke.memsim_phase()"``;
+  8. the QueueLUT and the fixed point's memsim backend (``lut_phase``):
+     the default and the harvest surface built cold through ``python -m
+     repro_torch.lut prebuild`` (42 memsim_event_scan launches each) and
+     alone, timed, then read warm from the store (no launch); sub-grids
+     built on the CPU equal to the card's cells bit for bit; the memsim
+     ``default_sweep``, its tail frontier and ``design_gradient`` held to
+     the CPU;
+  9. the designer and the capacity planner (``serving_phase``):
+     ``repro_torch.designer.main`` at the reference's defaults (area 1.2,
+     SLO 500 ms, stablelm-1.6b, 40 iterations, the 120,000-step default
+     surface read warm), its memsim_event_scan launches exactly those of
+     the one verification run (1 lane, 3 chunks); ``optimize_design`` on
+     the CPU with the same tables: the same start, iterations and
+     ``converged``, the fields within ``DESIGN_RTOL``; value-and-grad at
+     the knee and at the optimum, and the verification DES, held to the
+     CPU; ``repro_torch.serving.plan.main`` at its documented example
+     (mistral-large-123b, SLO 60 ms, the diurnal trace): every one of the
+     plan's DES cells, and a 54-cell sample run alone, bit for bit to the
+     CPU, the launches of its one DES run exact, the verdicts of the
+     ``des`` and the ``lut`` source held to the CPU's; then
+     ``queuelut.headline_metrics``; the optimize, one value-and-grad
+     (launches, busy share), the verification run and both plans timed.
+     Alone: ``python3 -c "import chip_smoke; chip_smoke.serving_phase()"``.
 
 The card's nvidia-smi line is printed again just before the JSON object
 ``{"kernels": [...]}``, the line before the last; the last line is
@@ -174,6 +197,30 @@ LUT_CPU_HARVEST = (0.0, 0.5)
 LUT_WARM_READS = 5
 # Cold builds of each surface alone, timed after the counted one.
 LUT_COLD_REPEATS = 3
+# Phase 9: the designer CLI at the reference's defaults (full width: the
+# Table-4 mix plus stablelm-1.6b's decode workload, the 8-channel x 4-LLC
+# frontier, 40 iterations, the 120,000-step default surface, the event
+# engine) and the capacity planner CLI at its documented example (8
+# diurnal epochs, every registry, generated and measured design, pure and
+# 50/50 tiered, 60,000 DES steps a cell).
+DESIGN_ARGV = ["--area-budget", "1.2", "--slo-ms", "500", "--arch",
+               "stablelm-1.6b", "--batch", "32", "--context", "2048",
+               "--iters", "40", "--steps", "120000", "--engine", "event"]
+PLAN_ARGV = ["--arch", "mistral-large-123b", "--slo-p99-ms", "60",
+             "--trace", "synthetic-diurnal"]
+# Card against CPU, the same port code in float32.  A value-and-grad at a
+# fixed point: phase 6's engine tolerance (the solves differ only in the
+# libraries' last bits).  The ascent's end: each step moves the fields by
+# lr * g * width**2 (~15 x g for the channels), so a gradient 5e-6 apart
+# moves an iterate by ~1e-5 of its value, and the bisection onto the
+# budget surface carries that; the fields, gm and token p99 are held at
+# 1e-4.  The DES runs are bit for bit (phase 7).
+DESIGN_RTOL = 1e-4
+# Every third-and-a-bit cell of the plan's DES batch run again alone on
+# both devices: 54 lanes, not a multiple of the kernels' 32-lane blocks.
+PLAN_SAMPLE_STRIDE = 6
+# Warm timed repeats of the optimize and of each plan.
+SERVING_REPEATS = 2
 
 
 def fail(msg: str):
@@ -1145,6 +1192,9 @@ def lut_phase():
                 f"harvest {', '.join(f'{t:.3f}' for t in warm[True])} ms; "
                 f"0 scan launches, 0 DES runs, tables equal to the cold "
                 f"builds (torch.equal)")
+            # Leave the default surface in the in-process layer too (a warm
+            # read): phase 9's designer starts from it.
+            queuelut.default_queue_lut(device="cuda")
         finally:
             if saved is None:
                 os.environ.pop(lutstore.ENV_VAR, None)
@@ -1259,6 +1309,335 @@ def lut_phase():
         f"(median); memsim default_sweep {solve_ms:.3f} ms a solve, "
         f"{launches} launches a solve ({launches / cf_launches:.2f} x) "
         f"against the closed form's {cf_launches}")
+
+
+def run_cli(main, argv):
+    """``main(argv)`` with its standard output captured and echoed;
+    returns the exit code and the text."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    text = buf.getvalue()
+    for line in text.splitlines():
+        log(f"  | {line}")
+    return rc, text
+
+
+def host_ms(fn):
+    """Host-clock ms of one call of ``fn`` ending in a synchronise, and
+    its result."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def scan_launches(kernels):
+    return {k: v.launches for k, v in kernels.items()}
+
+
+def zero_launches(kernels):
+    for kern in kernels.values():
+        kern.launches = 0
+
+
+def event_chunks(memsim, steps, lanes, chunk=None):
+    """K5 launches of one event-engine run: one a chunk of the request
+    budget, the chunk the engine's rule for ``lanes`` (or ``chunk``)."""
+    chunk = memsim._event_chunk_len(lanes) if chunk is None else chunk
+    return -(-memsim.events_for_steps(steps) // chunk)
+
+
+def vg_close(what, card, cpu):
+    """Phase 9: a value-and-grad ``((value, aux), grad)`` of the card held
+    to the CPU's at ENGINE_RTOL (gradients also at ENGINE_GRAD_ATOL)."""
+    (cv, ca), cg = card
+    (pv, pa), pg = cpu
+    worst = engine_close(f"{what} value", float(cv), float(pv))
+    for k in pa:
+        worst = max(worst, engine_close(f"{what} {k}", float(ca[k]),
+                                        float(pa[k])))
+    for k in pg:
+        worst = max(worst, engine_close(f"{what} d/d{k}", float(cg[k]),
+                                        float(pg[k]),
+                                        atol=ENGINE_GRAD_ATOL))
+    return worst
+
+
+def serving_phase():
+    """Phase 9: the gradient designer (``core/designer`` through
+    ``python -m repro_torch.designer``) and the serving capacity planner
+    (``serving`` through ``python -m repro_torch.serving.plan``) on the
+    card, against the CPU; then ``queuelut.headline_metrics``."""
+    import dataclasses as dc
+
+    import numpy as np
+
+    from repro_torch import designer as design_cli
+    from repro_torch.core import designer, memsim, queuelut
+    from repro_torch.core.workloads import WORKLOADS
+    from repro_torch.kernels import build
+    from repro_torch.kernels import memsim_scan as ms
+    from repro_torch.serving import capacity, plan as plan_cli, traffic
+    from repro_torch.serving.demand import llm_workload
+
+    t_phase = time.perf_counter()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    log(f"phase 9 on {smi}")
+    kernels = ms.KERNELS
+    build.load_all([ms.LIBRARY])
+
+    # (a) the designer.  The default surface: phase 8 leaves it in the
+    # in-process store (a warm read); alone, this phase builds it here.
+    steps = int(DESIGN_ARGV[DESIGN_ARGV.index("--steps") + 1])
+    zero_launches(kernels)
+    lut = queuelut.default_queue_lut(steps=steps, device="cuda")
+    log(f"designer: default surface read with scan launches "
+        f"{scan_launches(kernels)} "
+        f"({'warm' if not any(scan_launches(kernels).values()) else 'built'})")
+    verify_k5 = event_chunks(memsim, steps, 1)
+    expected = {"memsim_ts_scan": 0, "memsim_event_scan": verify_k5}
+    zero_launches(kernels)
+    cli_ms, (rc, text) = host_ms(lambda: run_cli(
+        design_cli.main, DESIGN_ARGV + ["--device", "cuda"]))
+    counts = scan_launches(kernels)
+    if counts != expected:
+        fail(f"designer: scan launches {counts} != {expected} (the warm "
+             f"surface, then one verification run of 1 lane x {steps} "
+             f"steps)")
+    line = [ln for ln in text.splitlines() if ln.startswith("DESIGN ")]
+    if len(line) != 1 or rc != (0 if line[0].startswith("DESIGN OK")
+                                else 1):
+        fail(f"designer CLI: exit {rc} with {line}")
+    kw = dict(area_budget=1.2, slo_ms=500.0, arch="stablelm-1.6b",
+              batch=32, context=2048, iters=40, steps=steps,
+              engine="event", lut=lut)
+    opt_ms = []
+    for _ in range(SERVING_REPEATS):
+        t, card = host_ms(lambda: designer.optimize_design(**kw,
+                                                           device="cuda"))
+        opt_ms.append(t)
+    if card.summary() not in text:
+        fail("designer: optimize_design on the card differs from its CLI run")
+    t0 = time.perf_counter()
+    cpu = designer.optimize_design(**kw, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    if (dc.asdict(card.start), card.iters, card.converged) != (
+            dc.asdict(cpu.start), cpu.iters, cpu.converged):
+        fail(f"designer: card start/iters/converged "
+             f"{card.start.name} {card.iters} {card.converged} != CPU "
+             f"{cpu.start.name} {cpu.iters} {cpu.converged}")
+    if [p["design"] for p in card.frontier] != \
+            [p["design"] for p in cpu.frontier]:
+        fail("designer: the tail frontier differs between card and CPU")
+    worst_field = 0.0
+    for f, a, b in [(f, float(getattr(card.design, f)),
+                     float(getattr(cpu.design, f)))
+                    for f in ("dram_channels", "links", "llc_mb_per_core",
+                              "rel_area", "rel_pins")] + [
+            (f, getattr(card, f), getattr(cpu, f))
+            for f in ("gm_speedup", "token_p99_ms", "latency_p99_ns")]:
+        rel = abs(a - b) / abs(b)
+        worst_field = max(worst_field, rel)
+        if rel > DESIGN_RTOL:
+            fail(f"designer: {f} card {a!r} vs CPU {b!r} (rel {rel:.3e} > "
+                 f"{DESIGN_RTOL})")
+    if (card.meets_budget, card.meets_slo, card.verify["ok"]) != (
+            cpu.meets_budget, cpu.meets_slo, cpu.verify["ok"]):
+        fail("designer: the verdicts differ between card and CPU")
+    # The objective at fixed points: the knee and the card's optimum.
+    wls = tuple(WORKLOADS) + (llm_workload("stablelm-1.6b", batch=32,
+                                           context=2048),)
+    obj = {dev: designer.ascent_objective(
+        card.start, wls, lut, arch="stablelm-1.6b", batch=32, context=2048,
+        slo_ms=500.0, device=dev) for dev in ("cuda", "cpu")}
+    knee = {"dram_channels": float(card.start.dram_channels),
+            "llc_mb_per_core": float(card.start.llc_mb_per_core)}
+    opt = {"dram_channels": float(card.design.dram_channels),
+           "llc_mb_per_core": float(card.design.llc_mb_per_core)}
+    worst_vg = max(vg_close(f"value_and_grad at the {label}",
+                            obj["cuda"](x), obj["cpu"](x))
+                   for label, x in (("knee", knee), ("optimum", opt)))
+    vg_ms = [host_ms(lambda: obj["cuda"](knee))[0] for _ in range(3)]
+    vg_dev, rows = profile(lambda: obj["cuda"](knee))
+    vg_launches, vg_copies = launch_counts(rows)
+    vg_wall = sorted(vg_ms)[1]
+    vg_busy = "not measured" if vg_dev is None else \
+        f"{vg_dev:.3f} ms -> busy share {vg_dev / vg_wall:.3f}"
+    # The verification DES at the card's operating point: the CPU's equal.
+    v = card.verify
+    vargs = dict(rho=v["rho"], kappa=v["kappa"], eta=v["eta"],
+                 outstanding=v["outstanding"], premium_ns=v["premium_ns"],
+                 model_p99_ns=v["model_p99_ns"], steps=v["steps"], seed=0,
+                 harvest_duty=v["harvest_duty"],
+                 harvest_bw_gbps=v["harvest_bw_gbps"])
+    zero_launches(kernels)
+    ver_ms, ver_card = host_ms(lambda: designer._verify_optimum(
+        **vargs, device="cuda"))
+    if scan_launches(kernels) != expected:
+        fail(f"designer: the verification run launched "
+             f"{scan_launches(kernels)} != {expected}")
+    ver_cpu = designer._verify_optimum(**vargs, device="cpu")
+    if not (ver_card == v == ver_cpu):
+        fail(f"designer: verification DES card {ver_card['des_p99_ns']} / "
+             f"optimize {v['des_p99_ns']} / CPU {ver_cpu['des_p99_ns']} "
+             f"differ")
+    if abs(card.verify["des_p99_ns"] - cpu.verify["des_p99_ns"]) > 4.0:
+        fail("designer: the two runs' verification p99s are more than one "
+             "4-ns bin apart")
+    log(f"designer on the card equals the CPU: start {card.start.name} "
+        f"(ch {card.start.dram_channels:g}, llc "
+        f"{card.start.llc_mb_per_core:g} MB), {card.iters} iterations, "
+        f"converged {card.converged}; fields, gm and token p99 within "
+        f"{worst_field:.3e} (rtol {DESIGN_RTOL}); value_and_grad at the knee "
+        f"and the optimum within {worst_vg:.3e} (rtol {ENGINE_RTOL}); "
+        f"verification DES p99 {ver_card['des_p99_ns']:g} ns on both "
+        f"(card run {card.verify['des_p99_ns']:g}, CPU run "
+        f"{cpu.verify['des_p99_ns']:g}); CPU optimize {cpu_s:.1f} s")
+    log(f"designer timing on {smi}: CLI run (counted) {cli_ms:.1f} ms; "
+        f"optimize warm {', '.join(f'{t:.1f}' for t in opt_ms)} ms "
+        f"({card.iters} value-and-grads); one value-and-grad "
+        f"{', '.join(f'{t:.1f}' for t in vg_ms)} ms host, {vg_launches} "
+        f"kernel launches and {vg_copies} copies, device time {vg_busy}; "
+        f"verification run {ver_ms:.1f} ms host, {verify_k5} "
+        f"memsim_event_scan launches (1 lane x {steps} steps)")
+    for dms, key, count in rows[:4]:
+        log(f"  {dms:9.3f} ms  x{count:<5d} {key[:80]}")
+
+    # (b) the capacity planner.  Every DES run is captured (configs and
+    # stats) to hold the card's cells to the CPU's.
+    args = plan_cli.build_parser().parse_args(PLAN_ARGV)
+    trace = traffic.get_trace(args.trace)
+    designs = capacity.candidate_designs(
+        channels=tuple(args.channels), llc_mb=tuple(args.llc_mb),
+        premium_ns=tuple(args.premium_ns))
+    cells = len(trace.epochs) * sum(
+        len(v.lanes) for v in capacity._variants(designs,
+                                                 tuple(args.tier_splits)))
+    psteps = capacity.default_steps()
+    plan_k5 = event_chunks(memsim, psteps, cells)
+    expected = {"memsim_ts_scan": 0, "memsim_event_scan": plan_k5}
+    runs = []
+    simulate = memsim.simulate
+
+    def captured(configs, *a, **k):
+        stats = simulate(configs, *a, **k)
+        runs.append((list(configs), stats))
+        return stats
+
+    memsim.simulate = captured
+    try:
+        zero_launches(kernels)
+        plan_ms, (rc, text) = host_ms(lambda: run_cli(
+            plan_cli.main, PLAN_ARGV + ["--device", "cuda"]))
+        if scan_launches(kernels) != expected:
+            fail(f"plan: scan launches {scan_launches(kernels)} != "
+                 f"{expected} ({cells} cells x {psteps} steps)")
+        rc_cpu, text_cpu = run_cli(plan_cli.main,
+                                   PLAN_ARGV + ["--device", "cpu"])
+    finally:
+        memsim.simulate = simulate
+    (cfg, card_stats), (cfg_cpu, cpu_stats) = runs
+    if len(cfg) != cells or cfg != cfg_cpu:
+        fail(f"plan: {len(cfg)} DES cells, expected {cells}, or the CPU "
+             f"ran others")
+    for f in ("hist", "mean_ns", "p90_ns", "p99_ns", "stdev_ns"):
+        if not np.array_equal(getattr(card_stats, f), getattr(cpu_stats, f)):
+            fail(f"plan: the card's DES {f} differs from the CPU's")
+    if rc != rc_cpu:
+        fail(f"plan CLI: exit {rc} on the card, {rc_cpu} on the CPU")
+    sample = cfg[::PLAN_SAMPLE_STRIDE]
+    s_card = memsim.simulate(sample, steps=psteps, engine="event",
+                             device="cuda")
+    s_cpu = memsim.simulate(sample, steps=psteps, engine="event",
+                            device="cpu")
+    if not np.array_equal(s_card.hist, s_cpu.hist):
+        fail(f"plan: the {len(sample)}-cell sample's histograms differ")
+    kwargs = dict(slo_p99_ms=args.slo_p99_ms, batch=args.batch,
+                  context=args.context, tokens_per_req=args.tokens_per_req,
+                  channels=tuple(args.channels), llc_mb=tuple(args.llc_mb),
+                  premium_ns=tuple(args.premium_ns),
+                  tier_splits=tuple(args.tier_splits),
+                  peak_util=args.peak_util, steps=psteps, engine="event")
+
+    def plans(source, lut=None):
+        """The plan on the card (SERVING_REPEATS timed runs) and on the
+        CPU, held together: the same verdicts and pick, access p99 bit
+        for bit (des) or within ENGINE_RTOL (lut), token p99s within
+        ENGINE_RTOL."""
+        archs = tuple(args.arch)
+        t = []
+        for _ in range(SERVING_REPEATS):
+            ms_, got = host_ms(lambda: capacity.plan_capacity(
+                archs, trace, **kwargs, p99_source=source, lut=lut,
+                device="cuda"))
+            t.append(ms_)
+        want = capacity.plan_capacity(archs, trace, **kwargs,
+                                      p99_source=source, lut=lut,
+                                      device="cpu")
+        key = lambda p: [(v.name, v.rel_area, v.rel_pins, v.peak_rho,
+                          v.meets_slo) for v in p.verdicts]
+        if key(got) != key(want):
+            fail(f"plan {source}: the verdicts differ between card and CPU")
+        pick = lambda p: (None if p.best is None else p.best.name,
+                          p.closest.name)
+        if pick(got) != pick(want):
+            fail(f"plan {source}: pick {pick(got)} != CPU {pick(want)}")
+        acc = [v.access_p99_ns for v in got.verdicts]
+        acc_cpu = [v.access_p99_ns for v in want.verdicts]
+        if source == "des" and acc != acc_cpu:
+            fail("plan des: access p99s differ between card and CPU")
+        worst = max(engine_close(f"plan {source} access p99", acc, acc_cpu),
+                    engine_close(f"plan {source} token p99",
+                                 [v.token_p99_ms for v in got.verdicts],
+                                 [v.token_p99_ms for v in want.verdicts]))
+        return got, t, worst, pick(got)
+
+    des, des_ms, des_worst, des_pick = plans("des")
+    # The LUT source reads the default surface at the plan's budget: built
+    # here on first use, one memsim_event_scan launch a canonical chunk.
+    zero_launches(kernels)
+    plut = queuelut.default_queue_lut(steps=psteps, device="cuda")
+    lut_k5 = 0 if psteps == steps else event_chunks(
+        memsim, psteps, 0, chunk=memsim.canonical_chunk("event"))
+    if scan_launches(kernels) != {"memsim_ts_scan": 0,
+                                  "memsim_event_scan": lut_k5}:
+        fail(f"plan lut: the {psteps}-step surface made "
+             f"{scan_launches(kernels)} launches, not {lut_k5} K5")
+    zero_launches(kernels)
+    lut_cli_ms, (rc_lut, _) = host_ms(lambda: run_cli(
+        plan_cli.main, PLAN_ARGV + ["--p99-source", "lut", "--device",
+                                    "cuda"]))
+    if any(scan_launches(kernels).values()):
+        fail("plan lut: the LUT plan ran the DES")
+    lut_plan, lut_ms, lut_worst, lut_pick = plans("lut", plut)
+    log(f"plan on the card equals the CPU: {cells} DES cells "
+        f"({len(trace.epochs)} epochs) bit for bit, and a {len(sample)}-cell "
+        f"sample alone; exit {rc} on both; des pick/closest {des_pick} "
+        f"(access and token p99 within {des_worst:.3e}); lut pick/closest "
+        f"{lut_pick} (within {lut_worst:.3e}), CLI exit {rc_lut}")
+    log(f"plan timing on {smi}: des CLI run (counted) {plan_ms:.1f} ms, "
+        f"{plan_k5} memsim_event_scan launches ({cells} lanes x {psteps} "
+        f"steps); des plan warm {', '.join(f'{t:.1f}' for t in des_ms)} ms; "
+        f"lut CLI run {lut_cli_ms:.1f} ms; lut plan warm "
+        f"{', '.join(f'{t:.1f}' for t in lut_ms)} ms")
+
+    # (c) the QueueLUT's headline metrics on the default surface.
+    hm_ms, hm = host_ms(lambda: queuelut.headline_metrics(lut,
+                                                          device="cuda"))
+    hm_cpu = queuelut.headline_metrics(lut, device="cpu")
+    worst = max(engine_close(f"headline_metrics {k}", hm[k], hm_cpu[k])
+                for k in hm_cpu)
+    log(f"headline_metrics on the card ({hm_ms:.1f} ms) equal the CPU's "
+        f"within {worst:.3e}: "
+        + ", ".join(f"{k}={v:.6g}" for k, v in hm.items()))
+    log(f"phase 9 took {time.perf_counter() - t_phase:.1f} s (host clock)")
 
 
 def serve_path(serve, kernels, arch, expected):
@@ -1727,6 +2106,9 @@ def main():
 
     # -- phase 8: the QueueLUT and the memsim backend ---------------------------
     lut_phase()
+
+    # -- phase 9: the designer and the capacity planner ---------------------
+    serving_phase()
 
     # The card's line again, so that it stands in the output's tail.
     print(smi, flush=True)

@@ -530,17 +530,36 @@ PROBE_ANCHOR = dict(rho=0.74, kappa=1.6, outstanding=24.0, eta=0.60,
 REFINE_ERR_FLOOR = 0.02
 
 
-def headline_metrics(lut: QueueLUT) -> dict:
-    """The reference's two convergence metrics of
-    :func:`refine_queue_lut`: the fig7 geomean speedup and the capacity
-    planner's wave-model token p99 for :data:`REFINE_ARCH`.  The second
-    needs ``designer._wave_geometry`` and ``serving.demand``, which the
-    port does not have yet, so this raises; pass ``metrics=`` instead."""
-    raise NotImplementedError(
-        "headline_metrics needs designer._wave_geometry and "
-        "serving.demand (ROADMAP.md §1, items 7-8), which the port does "
-        "not have yet; pass refine_queue_lut(metrics=...) a function "
-        "returning geomean_speedup and token_p99_ms")
+def headline_metrics(lut: QueueLUT, device="cuda") -> dict:
+    """The two convergence metrics of :func:`refine_queue_lut`.
+
+    ``geomean_speedup``: CoaXiaL-4x over the DDR baseline, geomean over
+    the Table-4 suite, both solved on the MEMSIM backend through ``lut``
+    (the fig7 headline).  ``token_p99_ms``: the capacity planner's
+    wave-model token p99 for :data:`REFINE_ARCH` on CoaXiaL-4x, composed
+    from the solved ``latency_p99_ns``/``ipc`` exactly as the designer's
+    in-loop SLO does.  Both are pure LUT-backed fixed-point solves on
+    ``device`` -- no DES runs, so a refinement round costs two solves
+    plus the probe batch.
+    """
+    from repro_torch.core import cpu_model  # runtime: import cycle
+    from repro_torch.core.designer import _wave_geometry
+    from repro_torch.serving.demand import (DEFAULT_BATCH, DEFAULT_CONTEXT,
+                                            llm_workload)
+    wls = tuple(cpu_model.WORKLOADS) + (llm_workload(REFINE_ARCH),)
+    res = cpu_model.solve(cpu_model.COAXIAL_4X, queue_model="memsim",
+                          lut=lut, workloads=wls, device=device)
+    ref = cpu_model.solve(cpu_model.DDR_BASELINE, queue_model="memsim",
+                          lut=lut, workloads=wls, device=device)
+    n_suite = len(cpu_model.WORKLOADS)
+    sp = (np.asarray(res.ipc, np.float64)[:n_suite]
+          / np.asarray(ref.ipc, np.float64)[:n_suite])
+    waves, model_coef = _wave_geometry(REFINE_ARCH, DEFAULT_BATCH,
+                                       DEFAULT_CONTEXT)
+    tok99_s = max(waves * float(res.latency_p99_ns[-1]) * 1e-9,
+                  model_coef / float(res.ipc[-1]))
+    return dict(geomean_speedup=float(np.exp(np.mean(np.log(sp)))),
+                token_p99_ms=tok99_s * 1e3)
 
 
 def _midpoint(axis: str, lo: float, hi: float) -> float:
@@ -558,24 +577,26 @@ def refine_queue_lut(*, rho=None, kappa=None, outstanding=None,
                      reps: int = DEFAULT_REPS,
                      engine: str = DEFAULT_ENGINE, devices=None,
                      tol: float = 0.01, max_rounds: int = 4,
-                     metrics=headline_metrics, device="cuda"):
+                     metrics=None, device="cuda"):
     """Adaptively refine the LUT grid until the metrics stop moving.
 
     Starting from the given grids (default: every-other-point
     coarsenings of the default grids), each round (1) resolves the
     current grid through the store, growing the previous round's surface
     incrementally; (2) evaluates ``metrics(lut)`` (a dict with
-    ``geomean_speedup`` and ``token_p99_ms``) and stops when both moved
+    ``geomean_speedup`` and ``token_p99_ms``; default
+    :func:`headline_metrics` on ``device``) and stops when both moved
     less than ``tol`` (relative) against the previous round; (3) else
     probes every interval midpoint per axis (off-axis coordinates at
     :data:`PROBE_ANCHOR`) against ONE batched DES run on ``device`` and
     bisects the worst-error interval of each axis whose error clears
     :data:`REFINE_ERR_FLOOR`.  Returns ``(lut, history)``, one dict per
     round (shape, cells, metrics, deltas, worst probe error, seconds,
-    ``converged``).  The default ``metrics`` raises until the port has
-    the designer and serving modules (:func:`headline_metrics`).
+    ``converged``).
     """
     from repro_torch.core import memsim  # runtime: import cycle
+    if metrics is None:
+        metrics = lambda lut: headline_metrics(lut, device=device)
     grids = dict(
         rho=tuple(rho) if rho is not None else DEFAULT_RHO_GRID[::2],
         kappa=(tuple(kappa) if kappa is not None

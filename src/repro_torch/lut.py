@@ -2,7 +2,8 @@
 
 Port of ``repro/lut.py``.  Subcommands::
 
-    python -m repro_torch.lut prebuild [--harvest] [--engine event] [--device cuda]
+    python -m repro_torch.lut prebuild [--harvest] [--engine event] [--refine]
+                                       [--device cuda]
     python -m repro_torch.lut inspect
     python -m repro_torch.lut gc [--older-than-days N | --all]
 
@@ -12,9 +13,9 @@ building on ``--device`` (default the card) on a miss, and prints per
 surface the resolution wall-clock, the DES runs it made
 (``memsim.sim_call_count``) and the scan kernels' launches on the card
 (``kernels.memsim_scan.KERNELS``); a warm read prints ``sim_calls=0``.
-``--refine`` (the reference's adaptive refinement loop) raises: its
-convergence metrics need modules the port does not have yet
-(``queuelut.headline_metrics``).
+``--refine`` runs :func:`repro_torch.core.queuelut.refine_queue_lut`
+instead, printing the round-by-round convergence trajectory (each
+round's grown grid is itself stored, so refinement also seeds the store).
 
 ``inspect`` lists every stored surface with its build meta; ``gc`` drops
 quarantined artifacts plus entries that are stale (fingerprint mismatch)
@@ -46,11 +47,13 @@ def build_parser() -> argparse.ArgumentParser:
     pb.add_argument("--harvest", action="store_true",
                     help="also build the 5-axis harvesting surface")
     pb.add_argument("--refine", action="store_true",
-                    help="run the adaptive refinement loop (not in the "
-                         "port yet: raises)")
+                    help="run the adaptive refinement loop instead of "
+                         "the fixed default grid")
+    pb.add_argument("--tol", type=float, default=0.01,
+                    help="refinement convergence tolerance (rel.)")
     pb.add_argument("--device", default="cuda",
-                    help="device a missing surface is built on "
-                         "(default: cuda)")
+                    help="device a missing surface is built (and a "
+                         "refinement solved) on (default: cuda)")
 
     sub.add_parser("inspect", help="list stored surfaces")
 
@@ -70,13 +73,30 @@ def _launches() -> dict:
 
 
 def _prebuild(args) -> int:
-    if args.refine:
-        queuelut.headline_metrics(None)       # raises: the port's gap
     if lutstore.cache_dir() is None:
         print(f"WARNING: ${lutstore.ENV_VAR} is unset -- surfaces are "
               "built but not persisted")
     engines = tuple(dict.fromkeys(args.engine or ["event"]))
     harvests = (False, True) if args.harvest else (False,)
+    if args.refine:
+        for engine in engines:
+            _, hist = queuelut.refine_queue_lut(
+                steps=args.steps, seed=args.seed, reps=args.reps,
+                engine=engine, tol=args.tol, device=args.device)
+            for r in hist:
+                extra = ("" if "d_geomean" not in r else
+                         f" d_gm={r['d_geomean']:.4f} "
+                         f"d_p99={r['d_token_p99']:.4f}")
+                print(f"refine[{engine}] round {r['round']}: "
+                      f"shape={r['shape']} cells={r['cells']} "
+                      f"gm={r['geomean_speedup']:.4f} "
+                      f"tok99={r['token_p99_ms']:.1f}ms "
+                      f"worst_err={r['worst_err']:.3f} "
+                      f"{r['seconds']:.1f}s{extra}")
+            print(f"refine[{engine}]: "
+                  + ("converged" if hist[-1]["converged"]
+                     else "round budget exhausted"))
+        return 0
     for engine in engines:
         for harvest in harvests:
             t0, n0, k0 = time.perf_counter(), memsim.sim_call_count(), \

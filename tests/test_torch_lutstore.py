@@ -309,10 +309,14 @@ def test_lut_cli_prebuild_inspect_gc(store, capsys):
     out = capsys.readouterr().out
     assert "1 surface(s)" in out and "engine=event" in out
     assert "[STALE]" not in out
-    with pytest.raises(NotImplementedError, match="items 7-8"):
-        cli.main(["prebuild", "--refine", "--device", "cpu"])
+    # Refinement stores every round's grown grid beside the surface.
+    assert cli.main(["prebuild", "--refine", "--device", "cpu", "--steps",
+                     str(STEPS), "--reps", "1"]) == 0
+    assert "refine[event]: " in capsys.readouterr().out
+    n = len(lutstore.entries())
+    assert n > 1
     assert cli.main(["gc", "--all"]) == 0
-    assert "removed 1 file(s)" in capsys.readouterr().out
+    assert f"removed {n} file(s)" in capsys.readouterr().out
     assert lutstore.entries() == []
 
 

@@ -22,7 +22,9 @@ harvest axis is made from random tables in both packages.
   JAX, as the closed-form tests hold them; an element whose fixed point
   has not settled in 120 steps is held within its own last step.
 * **Refinement**: ``refine_queue_lut`` with an explicit ``metrics=`` in
-  each package gives the reference's history and tables.
+  each package gives the reference's history and tables; its default
+  metrics, ``headline_metrics``, equal the reference's within 1e-5, and
+  ``python -m repro_torch.lut prebuild --refine`` runs the loop.
 """
 
 import dataclasses
@@ -469,8 +471,9 @@ REFINE = dict(rho=(0.2, 0.6, 0.9), kappa=(1.0, 2.2), outstanding=(4.0, 64.0),
 def _metrics(cm, to_np):
     """Geomean speedup of coaxial-4x over DDR on memsim through the LUT,
     and (as the second convergence metric) coaxial-4x's worst-workload p99
-    latency in ms: the port has no serving model for the reference's
-    token p99 yet."""
+    latency in ms: two solves of one small grid, cheaper in the reference
+    than :func:`headline_metrics`' two solves of the mix with an LLM
+    workload."""
     def metrics(lut):
         res = cm.solve_batch((cm.DDR_BASELINE, cm.COAXIAL_4X),
                              queue_model="memsim", lut=lut, **to_np)
@@ -504,6 +507,25 @@ def test_refine_matches_reference(monkeypatch):
     jstore.clear_lut_cache()
 
 
-def test_refine_default_metrics_name_the_missing_modules():
-    with pytest.raises(NotImplementedError, match="items 7-8"):
-        queuelut.headline_metrics(None)
+def test_headline_metrics_equal_reference(lut, ref_lut):
+    got = queuelut.headline_metrics(lut, device="cpu")
+    want = jq.headline_metrics(ref_lut)
+    assert got.keys() == want.keys() == {"geomean_speedup", "token_p99_ms"}
+    for k in want:
+        assert got[k] == pytest.approx(want[k], rel=RTOL), k
+
+
+def test_lut_cli_prebuild_refine(monkeypatch, capsys):
+    from repro_torch import lut as lut_cli
+    monkeypatch.delenv(lutstore.ENV_VAR, raising=False)
+    lutstore.clear_lut_cache()
+    rc = lut_cli.main(["prebuild", "--refine", "--steps", "2000",
+                       "--reps", "1", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert rc == 0
+    rounds = [ln for ln in out.splitlines()
+              if ln.startswith("refine[event] round ")]
+    assert rounds and "gm=" in rounds[0] and "tok99=" in rounds[0]
+    assert out.splitlines()[-1] in ("refine[event]: converged",
+                                    "refine[event]: round budget exhausted")
+    lutstore.clear_lut_cache()
