@@ -9,7 +9,10 @@ Phases; any failure exits non-zero and no phase swallows one:
      source, all started together);
   2. hold each kernel against its plain PyTorch version on the card, at the
      shapes the paths give it and beyond, in bf16 and f32: decode_attn at
-     lengths that are not tile multiples and with poisoned cache tails;
+     lengths that are not tile multiples and with poisoned cache tails, at
+     stablelm-1.6b's and olmoe-1b-7b's decode shapes (D 64 and D 128, G 1),
+     starcoder2-3b's (G 12 over Hk 2) and one mistral-large-123b layer at
+     32k context (D 128, G 12, the decode plan's shape);
      wkv at ragged lengths and at the edges of its chunk of steps, both
      decay ranges, and chained bit-exactly, cut inside a chunk and at its
      edge;
@@ -18,22 +21,28 @@ Phases; any failure exits non-zero and no phase swallows one:
   3. drive each path once through its entry point, with every kernel's
      launch count set to 0 just before and read just after; each count
      must be exactly what the path implies:
-       stablelm-1.6b, rwkv6-1.6b: ``repro_torch.launch.serve.main`` at
-         full width, bf16, batch 8, prompt 1024, 32 new tokens, random
-         weights from a seed; decode_attn gen x n_layers for stablelm;
+       stablelm-1.6b, rwkv6-1.6b, olmoe-1b-7b:
+         ``repro_torch.launch.serve.main`` at full width, bf16, batch 8,
+         prompt 1024, 32 new tokens, random weights from a seed;
+         decode_attn gen x n_layers for stablelm (768) and olmoe (512);
          wkv (gen + 2) x n_layers for rwkv6 (serve's timed prefill,
-         greedy_generate's prefill and gen steps); no other kernel;
+         greedy_generate's prefill and gen steps); no other kernel (the
+         JSON line's decode_attn launches are stablelm's and olmoe's);
        the STREAM probe: ``repro_torch.launch.stream.main`` at 2**26
          float32 elements an array; each stream kernel 2 x (warm-up +
          iters) (the probe's size, then the reference's L2-resident
          shape); no other kernel;
   4. per serving path: prefill and first-decode-step logits through the
      kernels and through their plain versions must agree (stablelm in
-     bf16, rwkv6 in float32); time decode steps on both paths in bf16 and
+     bf16, rwkv6 and olmoe in float32; for olmoe the routing decisions of
+     both paths are counted and the gate holds on the rows whose routes
+     agree); time prefills and decode steps on both paths in bf16 and
      profile the device's busy share and the kernel's time a launch;
   5. time each kernel at the paths' shapes beside its bound, its plain
      version and the PyTorch library call that computes the same function
-     (none for wkv); wkv's lines give the launch it made (blocks x
+     (none for wkv); decode_attn also at olmoe's decode shape and at the
+     planner's mistral-large layer (SDPA with enable_gqa); wkv's lines give
+     the launch it made (blocks x
      threads, steps a chunk, the tile of key groups x columns, shared
      bytes) and the profiler's share of the bound at the prefill and the
      decode shape;
@@ -49,7 +58,10 @@ Phases; any failure exits non-zero and no phase swallows one:
      not settled, within the span of the card's orbit over steps 118 to
      122; such elements are counted), and
      ``design_gradient`` at coaxial-4x over every field held to its CPU
-     run;
+     run; the study's H100 decode-plan line (``core/planner``, the card's
+     part) held to the CPU run with the same spec, and the planner's
+     per-layer memory term for mistral-large at 32k printed beside K2's
+     time at that layer's shape (phase 5) and their ratio;
   7. the memory-system DES (``repro_torch.core.memsim``, its scans the
      hand kernels memsim_ts_scan and memsim_event_scan, which phase 2
      holds bit for bit to their plain versions at the default LUT grid's
@@ -101,6 +113,7 @@ The card's nvidia-smi line is printed again just before the JSON object
 of JAX.
 """
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -114,7 +127,7 @@ import torch.nn.functional as F
 HERE = Path(__file__).resolve().parent
 sys.path.insert(0, str(HERE / "src"))
 
-DENSE_ARCH, SSM_ARCH = "stablelm-1.6b", "rwkv6-1.6b"
+DENSE_ARCH, SSM_ARCH, MOE_ARCH = "stablelm-1.6b", "rwkv6-1.6b", "olmoe-1b-7b"
 BATCH, PROMPT, GEN, SEED = 8, 1024, 32, 0
 # float32: the reference's own kernel-test tolerance.  bfloat16: kernel and
 # plain version both compute in fp32 and round once to bf16, so they may
@@ -142,8 +155,21 @@ WKV_TOL = dict(atol=1e-4, rtol=1e-4)
 #    kernel that kept its state in bf16 (2**-9 relative a step, carried
 #    over the ~20-step memory of the model's decay) would move them by
 #    ~1e-1.  The gate sits between the two.
+#  * olmoe-1b-7b, float32: in bf16 the paths' one-bf16-step difference in
+#    the decode attention can flip a router decision (64 experts, gates a
+#    bf16 step apart are common), and a flipped expert moves the logits
+#    more than a faulty kernel would.  In float32 the attention differs by
+#    ~1e-6 relative a layer; through 16 layers logits of |logit| <= 5 move
+#    by ~1e-4, while a kernel that dropped or repeated one key of ~1,000
+#    moves them by ~1e-2 or more.  The routing decisions of both paths are
+#    counted; the gate holds on the batch rows whose routes all agree.
 PATH_CHECK = {DENSE_ARCH: (torch.bfloat16, 0.125),
-              SSM_ARCH: (torch.float32, 1e-2)}
+              SSM_ARCH: (torch.float32, 1e-2),
+              MOE_ARCH: (torch.float32, 1e-2)}
+# K2 at the planner's shape (phases 2, 5, 6): one mistral-large-123b layer
+# decoding at 32k context, batch 8, 96 query heads over 8 KV heads of 128
+# (G 12), the study's decode plan (launch/coaxial_study.DECODE_PLAN).
+PLAN_LAYER_SHAPE = (8, 96, 8, 128, 32768)
 # STREAM: the probe's elements an array (268 MB in float32, more than 4x
 # the 50 MB L2), its timed launches, and a scalar that bf16 cannot hold
 # exactly, so that the kernels must round it as the plain versions do.
@@ -481,16 +507,19 @@ def engine_grid(label, solve, cells, cpu_model):
     return res, launches, wall
 
 
-def engine_phase():
-    """Phase 6: the design-space engine on the card, against the CPU."""
+def engine_phase(plan_k2_ms=None):
+    """Phase 6: the design-space engine on the card, against the CPU, and
+    the decode plan's per-layer memory term beside K2's time at that
+    layer's shape (``plan_k2_ms``, phase 5's; "not measured" alone)."""
     import numpy as np
 
-    from repro_torch.core import coaxial, cpu_model, hw
+    from repro_torch.core import coaxial, cpu_model, hw, planner
     from repro_torch.core.sweepspec import build_flat
     from repro_torch.launch import coaxial_study
 
+    spec = hw.spec_for(torch.cuda.get_device_name(0))
     card = coaxial_study.main([])
-    cpu = coaxial_study.main(["--device", "cpu"])
+    cpu = coaxial_study.main(["--device", "cpu"], spec=spec)
     worst = 0.0
     for key, want in cpu.items():
         if isinstance(want, str) or isinstance(want, int):
@@ -501,6 +530,21 @@ def engine_phase():
             worst = max(worst, engine_close(f"study {key}", card[key], want))
     log(f"engine: coaxial_study on the card equals its CPU run: {len(cpu)} "
         f"numbers, max rel diff {worst:.3e} (rtol {ENGINE_RTOL})")
+    layer_s = planner.effective_hbm_time(
+        coaxial_study.DECODE_PLAN["kv_bytes"] / coaxial_study.DECODE_LAYERS,
+        spec)
+    log(f"engine: decode plan on H100 {card['plan_part']}: "
+        f"{card['plan_n_channels']} KV channels -> "
+        f"{card['plan_speedup']:.4f}x (step "
+        f"{card['plan_step_s'] * 1e3:.4f} ms, one card "
+        f"{card['plan_baseline_s'] * 1e3:.4f} ms, {card['plan_dominant']}"
+        f"-bound); equal on the card and the CPU")
+    log("engine: planner memory term a mistral-large layer at 32k "
+        f"(effective_hbm_time(kv_bytes / {coaxial_study.DECODE_LAYERS})): "
+        f"{layer_s * 1e3:.5f} ms; K2 at that layer's shape "
+        + ("not measured" if plan_k2_ms is None else
+           f"{plan_k2_ms:.5f} ms -> planner / K2 "
+           f"{layer_s * 1e3 / plan_k2_ms:.4f}"))
 
     # benchmarks/sweep_grid.py's grid: the baseline + 10 CXL channel counts
     # x 10 premiums; the dense grid crosses it with three more axes.
@@ -1640,6 +1684,47 @@ def serving_phase():
     log(f"phase 9 took {time.perf_counter() - t_phase:.1f} s (host clock)")
 
 
+def decode_attn_timing(da, ref, shape, length, seed, spec):
+    """Phase 5 for K2 at one shape (B, Hq, Hk, D, S) in bf16, attending
+    ``length`` keys: the kernel, its plain version and SDPA (with
+    ``enable_gqa``, on (B, Hk, L, D) views of the same cache) in turns,
+    and the bound.  Returns the JSON line's time fields."""
+    b, hq, hk, d, s = shape
+    q, k, v = rand_qkv(b, hq, hk, d, s, torch.bfloat16, seed=seed)
+    item = q.element_size()
+    io_bytes = 2 * b * length * hk * d * item + 2 * b * hq * d * item
+    flops = 4 * b * hq * length * d
+    t_bytes, t_ops = io_bytes / spec.hbm_bw, flops / spec.peak_bf16_flops
+    bound_ms = max(t_bytes, t_ops) * 1e3
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    sq, sk, sv = q[:, :, None, :], k[:, :length].transpose(1, 2), \
+        v[:, :length].transpose(1, 2)
+    library = lambda: F.scaled_dot_product_attention(sq, sk, sv,
+                                                     enable_gqa=True)
+    lib_err = (library()[:, :, 0].float() - ref.decode_attn_ref(
+        q, k, v, length).float()).abs().max().item()
+    times = {}
+    for key, fn in (
+            ("plain", lambda: ref.decode_attn_ref(q, k, v, length)),
+            ("kernel", lambda: da.decode_attn(q, k, v, length)),
+            ("library", library),
+            ("kernel", lambda: da.decode_attn(q, k, v, length)),
+            ("plain", lambda: ref.decode_attn_ref(q, k, v, length))):
+        times.setdefault(key, []).append(time_ms(fn))
+    ms = min(times["kernel"])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    log(f"decode_attn bf16 B{b} Hq{hq} Hk{hk} D{d} G{hq // hk} S{s} length "
+        f"{length}: kernel {times['kernel']} ms, plain {times['plain']} ms, "
+        f"SDPA {times['library']} ms (SDPA vs plain max|err| {lib_err:.3e}); "
+        f"bound {bound_ms:.5f} ms by {bound_by} ({io_bytes} B, {flops} "
+        f"FLOP) -> {bound_ms / ms:.3f} of roofline, "
+        f"{io_bytes / ms / 1e6:.1f} GB/s; {b * hk} blocks on {sms} SMs")
+    del q, k, v, sk, sv
+    torch.cuda.empty_cache()
+    return {"ms": ms, "plain_ms": min(times["plain"]), "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": min(times["library"])}
+
+
 def serve_path(serve, kernels, arch, expected):
     """Phase 3 for one path: counts to 0, serve once, read the counts."""
     for kern in kernels.values():
@@ -1672,10 +1757,54 @@ def step_of(tok, cache):
         (BATCH, 1), cache["len"], dtype=torch.int32, device="cuda"))
 
 
-def path_check(Model, SyntheticDataset, cfg, s_max, tol):
+class RouteLog:
+    """Records the top-k experts of every moe layer a pass routes
+    (``models.moe.route``), by label: ``with log.collect("prefill kernel"):
+    ...``.  A no-op for families without experts."""
+
+    def __init__(self, moe=None):
+        self.moe, self.calls = moe, {}
+
+    @contextlib.contextmanager
+    def collect(self, label):
+        if self.moe is None:
+            yield
+            return
+        orig, calls = self.moe.route, self.calls.setdefault(label, [])
+
+        def route(*args):
+            out = orig(*args)
+            calls.append(out[3].clone())
+            return out
+        self.moe.route = route
+        try:
+            yield
+        finally:
+            self.moe.route = orig
+
+    def differing_rows(self, what, tokens_a_row):
+        """(differing (layer, token) decisions, decisions, batch rows with
+        a differing decision) between the kernel and the plain path."""
+        a, b = self.calls[f"{what} kernel"], self.calls[f"{what} plain"]
+        if len(a) != len(b):
+            fail(f"route log: {len(a)} moe layers on the kernel path, "
+                 f"{len(b)} on the plain path ({what})")
+        n_diff, n_all, rows = 0, 0, set()
+        for x, y in zip(a, b):
+            diff = (x != y).any(-1)
+            n_diff += int(diff.sum())
+            n_all += diff.numel()
+            rows.update((diff.nonzero()[:, 0] // tokens_a_row).tolist())
+        return n_diff, n_all, rows
+
+
+def path_check(Model, SyntheticDataset, cfg, s_max, tol, moe=None):
     """Phase 4's check for one path, at ``cfg``'s dtype: prefill and
-    first-step logits, kernels against their plain versions."""
+    first-step logits, kernels against their plain versions.  With
+    ``moe`` (the module), the routing decisions of both paths are
+    counted and the gate holds on the rows whose routes agree."""
     arch = cfg.name
+    routes = RouteLog(moe)
     with torch.inference_mode():
         model = Model(cfg)
         params = model.init(SEED)
@@ -1684,9 +1813,10 @@ def path_check(Model, SyntheticDataset, cfg, s_max, tol):
         for path in ("kernel", "plain"):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            prefill[path], caches[path] = model.prefill(
-                params, prompt, model.make_cache(BATCH, s_max),
-                plain_kernels=path != "kernel")
+            with routes.collect(f"prefill {path}"):
+                prefill[path], caches[path] = model.prefill(
+                    params, prompt, model.make_cache(BATCH, s_max),
+                    plain_kernels=path != "kernel")
             torch.cuda.synchronize()
             log(f"{arch} {cfg.dtype}: prefill {BATCH}x{PROMPT} tokens "
                 f"({path} path, warm): "
@@ -1694,24 +1824,39 @@ def path_check(Model, SyntheticDataset, cfg, s_max, tol):
         # Both steps from the kernel path's prefill; each from its copy.
         cache = caches.pop("kernel")
         tok = prefill["kernel"].argmax(-1).to(torch.int32)
-        step = {path: model.decode_step(
-            params, step_of(tok, cache), clone_cache(cache),
-            plain_kernels=path != "kernel")[0] for path in ("kernel", "plain")}
+        step = {}
+        for path in ("kernel", "plain"):
+            with routes.collect(f"step {path}"):
+                step[path] = model.decode_step(
+                    params, step_of(tok, cache), clone_cache(cache),
+                    plain_kernels=path != "kernel")[0]
         torch.cuda.synchronize()
         worst = 0.0
-        for what, lg in (("prefill", prefill), ("first decode step", step)):
+        for what, lg, key, per_row in (("prefill", prefill, "prefill", PROMPT),
+                                       ("first decode step", step, "step", 1)):
             for path, x in lg.items():
                 if not torch.isfinite(x).all():
                     fail(f"{arch}: non-finite logits on the {what} ({path})")
                 if x.shape != (BATCH, cfg.vocab):
                     fail(f"{arch}: logits shape {tuple(x.shape)}")
-            dlogit = (lg["kernel"] - lg["plain"]).abs().max().item()
-            agree = (lg["kernel"].argmax(-1) == lg["plain"].argmax(-1)
-                     ).float().mean().item()
+            rows = list(range(BATCH))
+            if moe is not None:
+                n_diff, n_all, bad = routes.differing_rows(key, per_row)
+                rows = [r for r in rows if r not in bad]
+                log(f"{arch} {cfg.dtype}: {what}: {n_diff} of {n_all} "
+                    f"(layer, token) routing decisions differ kernel vs "
+                    f"plain, in batch rows {sorted(bad)}; the gate holds on "
+                    f"the other {len(rows)} rows")
+                if not rows:
+                    fail(f"{arch}: every batch row routes differently on "
+                         f"the kernel and the plain path ({what})")
+            kl, pl = lg["kernel"][rows], lg["plain"][rows]
+            dlogit = (kl - pl).abs().max().item()
+            agree = (kl.argmax(-1) == pl.argmax(-1)).float().mean().item()
             log(f"{arch} {cfg.dtype}: path check, {what}: max|logit| "
-                f"{lg['kernel'].abs().max().item():.3f}, max|dlogit| kernel "
+                f"{kl.abs().max().item():.3f}, max|dlogit| kernel "
                 f"vs plain {dlogit:.4e} (tol {tol:.4e}); greedy-token "
-                f"agreement {agree * 100:.1f}% of {BATCH}")
+                f"agreement {agree * 100:.1f}% of {len(rows)}")
             if dlogit > tol:
                 fail(f"{arch}: kernel path logits differ from plain path by "
                      f"{dlogit} on the {what} (tol {tol})")
@@ -1729,8 +1874,25 @@ def decode_timing(Model, SyntheticDataset, cfg, s_max, symbol):
     with torch.inference_mode():
         model = Model(cfg)
         params = model.init(SEED)
-        logits, cache = model.prefill(params, prompt_of(SyntheticDataset, cfg),
-                                      model.make_cache(BATCH, s_max))
+        prompt = prompt_of(SyntheticDataset, cfg)
+        pre_ms = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = model.prefill(params, prompt,
+                                          model.make_cache(BATCH, s_max))
+            torch.cuda.synchronize()
+            pre_ms.append((time.perf_counter() - t0) * 1e3)
+        log(f"{arch} {cfg.dtype}: prefill {BATCH}x{PROMPT} tokens (kernel "
+            f"path): {', '.join(f'{v:.3f}' for v in pre_ms)} ms")
+        dev_ms, top = profile(lambda: model.prefill(
+            params, prompt, model.make_cache(BATCH, s_max)))
+        if dev_ms is not None:
+            log(f"{arch}: device kernel time of a prefill: {dev_ms:.3f} ms "
+                f"of {min(pre_ms):.3f} ms unprofiled wall -> busy share "
+                f"{dev_ms / min(pre_ms):.3f}")
+            for ms, key, count in top[:8]:
+                log(f"  {ms:9.3f} ms  x{count:<5d} {key[:90]}")
         tok = logits.argmax(-1).to(torch.int32)
         n_steps = 8
 
@@ -1765,9 +1927,12 @@ def decode_timing(Model, SyntheticDataset, cfg, s_max, symbol):
                 f"device time)")
         else:
             wall = min(step_ms["kernel"]) * n_steps
+            n_launch, n_copy = launch_counts(top)
             log(f"{arch}: device kernel time over {n_steps} kernel-path "
                 f"decode steps: {dev_ms:.3f} ms of {wall:.3f} ms unprofiled "
-                f"wall -> busy share {dev_ms / wall:.3f}")
+                f"wall -> busy share {dev_ms / wall:.3f}; "
+                f"{n_launch / n_steps:.0f} kernel launches and "
+                f"{n_copy / n_steps:.0f} copies a step")
             for ms, key, count in top[:8]:
                 log(f"  {ms:9.3f} ms  x{count:<5d} {key[:90]}")
             mine = [(ms, n) for ms, key, n in top if symbol in key]
@@ -1795,6 +1960,7 @@ def main():
     from repro_torch.kernels import stream as ks
     from repro_torch.launch import serve
     from repro_torch.launch import stream as probe
+    from repro_torch.models import moe
     from repro_torch.models.model import Model
 
     # -- phase 1: the card and the build --------------------------------
@@ -1828,19 +1994,26 @@ def main():
     # -- phase 2: each kernel against its plain version -------------------
     dense = get_config(DENSE_ARCH)
     ssm = get_config(SSM_ARCH)
+    moe_cfg = get_config(MOE_ARCH)
     d = dense.resolved_head_dim
     s_max = PROMPT + GEN
     slice_shape = (BATCH, dense.n_heads, dense.n_kv_heads, d, s_max)
+    moe_shape = (BATCH, moe_cfg.n_heads, moe_cfg.n_kv_heads,
+                 moe_cfg.resolved_head_dim, s_max)
     gqa_shape = (8, 24, 2, 128, 4096)       # starcoder2-3b's attention
-    path_err = {}
+    plan_s = PLAN_LAYER_SHAPE[-1]
+    path_err = {"decode_attn": 0.0}
     for dtype in (torch.bfloat16, torch.float32):
-        err = check_decode_attn(da, ref, slice_shape, dtype,
-                                [1, 333, PROMPT + 1, PROMPT + 17, s_max],
-                                seed=1)
-        if dtype == torch.bfloat16:
-            path_err["decode_attn"] = err
+        for shape, seed in ((slice_shape, 1), (moe_shape, 6)):
+            err = check_decode_attn(
+                da, ref, shape, dtype,
+                [1, 333, PROMPT + 1, PROMPT + 17, s_max], seed=seed)
+            if dtype == torch.bfloat16:
+                path_err["decode_attn"] = max(path_err["decode_attn"], err)
         check_decode_attn(da, ref, gqa_shape, dtype, [1, 1000, 4095, 4096],
                           seed=2)
+        check_decode_attn(da, ref, PLAN_LAYER_SHAPE, dtype,
+                          [1, 4097, plan_s - 1001, plan_s], seed=7)
     h, hd = ssm.rwkv_heads, ssm.rwkv_head_dim
     path_err["wkv"] = 0.0
     seed = 10
@@ -1872,15 +2045,19 @@ def main():
     path_err["memsim"] = check_memsim_scans(ms, ref, memsim, threefry, seed)
 
     # -- phase 3: each path through its entry point --------------------------
+    # decode_attn's launches in the JSON line are those of both serving
+    # paths that run it (stablelm-1.6b and olmoe-1b-7b).
     launches = {}
     none = dict.fromkeys(kernels, 0)
     for arch, cfg, kname, expected in (
             (DENSE_ARCH, dense, "decode_attn",
              {**none, "decode_attn": GEN * dense.n_layers}),
             (SSM_ARCH, ssm, "wkv",
-             {**none, "wkv": (GEN + 2) * ssm.n_layers})):
+             {**none, "wkv": (GEN + 2) * ssm.n_layers}),
+            (MOE_ARCH, moe_cfg, "decode_attn",
+             {**none, "decode_attn": GEN * moe_cfg.n_layers})):
         toks, counts = serve_path(serve, kernels, arch, expected)
-        launches[kname] = counts[kname]
+        launches[kname] = launches.get(kname, 0) + counts[kname]
         if toks.shape != (BATCH, GEN) or toks.min() < 0 or \
                 toks.max() >= cfg.vocab:
             fail(f"{arch}: bad generated tokens: shape {toks.shape}, "
@@ -1910,48 +2087,19 @@ def main():
 
     # -- phase 4: path checks and decode-step timing ------------------------
     step_launch_ms = {}
-    for cfg, kname, symbol in ((dense, "decode_attn", "decode_attn_kernel"),
-                               (ssm, "wkv", "wkv_kernel")):
+    for cfg, symbol in ((dense, "decode_attn_kernel"), (ssm, "wkv_kernel"),
+                        (moe_cfg, "decode_attn_kernel")):
         dtype, tol = PATH_CHECK[cfg.name]
         path_check(Model, SyntheticDataset, dataclasses.replace(
-            cfg, dtype=str(dtype).removeprefix("torch.")), s_max, tol)
-        step_launch_ms[kname] = decode_timing(Model, SyntheticDataset, cfg,
-                                              s_max, symbol)
+            cfg, dtype=str(dtype).removeprefix("torch.")), s_max, tol,
+            moe=moe if cfg.family == "moe" else None)
+        step_launch_ms[cfg.name] = decode_timing(Model, SyntheticDataset,
+                                                 cfg, s_max, symbol)
 
     # -- phase 5: kernel time, bound, plain and library ----------------------
-    b, hq, hk, d, s = slice_shape
-    length = PROMPT + GEN // 2
-    q, k, v = rand_qkv(b, hq, hk, d, s, torch.bfloat16, seed=3)
-    item = q.element_size()
-    kv_bytes = 2 * b * length * hk * d * item
-    io_bytes = kv_bytes + 2 * b * hq * d * item
-    flops = 4 * b * hq * length * d
-    bound_ms = max(io_bytes / peak_bw, flops / peak_bf16) * 1e3
-    bound_by = "bytes" if io_bytes / peak_bw >= flops / peak_bf16 \
-        else "operations"
-    # The library call reads the same cache through (B, Hk, L, D) views.
-    sq, sk, sv = q[:, :, None, :], k[:, :length].transpose(1, 2), \
-        v[:, :length].transpose(1, 2)
-    lib_out = F.scaled_dot_product_attention(sq, sk, sv, enable_gqa=True)
-    lib_err = (lib_out[:, :, 0].float() - ref.decode_attn_ref(
-        q, k, v, length).float()).abs().max().item()
-    times = {}
-    for key, fn in (
-            ("plain", lambda: ref.decode_attn_ref(q, k, v, length)),
-            ("kernel", lambda: da.decode_attn(q, k, v, length)),
-            ("library", lambda: F.scaled_dot_product_attention(
-                sq, sk, sv, enable_gqa=True)),
-            ("kernel", lambda: da.decode_attn(q, k, v, length)),
-            ("plain", lambda: ref.decode_attn_ref(q, k, v, length))):
-        times.setdefault(key, []).append(time_ms(fn))
-    ms = min(times["kernel"])
-    log(f"decode_attn bf16 B{b} Hq{hq} Hk{hk} D{d} S{s} length {length}: "
-        f"kernel {times['kernel']} ms, plain {times['plain']} ms, "
-        f"SDPA {times['library']} ms (SDPA vs plain max|err| {lib_err:.3e}); "
-        f"bound {bound_ms:.5f} ms by {bound_by} ({io_bytes} B, {flops} "
-        f"FLOP) -> {bound_ms / ms:.3f} of roofline, "
-        f"{io_bytes / ms / 1e6:.1f} GB/s")
-    dev = step_launch_ms["decode_attn"]
+    k2 = decode_attn_timing(da, ref, slice_shape, PROMPT + GEN // 2, 3,
+                            spec)
+    dev = step_launch_ms[DENSE_ARCH]
     log(f"decode_attn on the decode steps of phase 4 (context "
         f"{PROMPT + 1}..{PROMPT + 8}): "
         f"{'not measured' if dev is None else f'{dev:.5f} ms a launch'}")
@@ -1962,14 +2110,20 @@ def main():
     log(f"decode_attn bf16 B{gb} Hq{ghq} Hk{ghk} D{gd} length {gs}: kernel "
         f"{g_ms:.5f} ms, bound {g_bytes / peak_bw * 1e3:.5f} ms by bytes "
         f"({gb * ghk} blocks on {torch.cuda.get_device_properties(0).multi_processor_count} SMs)")
+    # olmoe-1b-7b's decode (D 128, G 1) and the planner's mistral-large
+    # layer at 32k (G 12): phase 6 holds the planner's memory term to it.
+    decode_attn_timing(da, ref, moe_shape, PROMPT + GEN // 2, 8, spec)
+    dev = step_launch_ms[MOE_ARCH]
+    log(f"decode_attn on olmoe-1b-7b's decode steps of phase 4: "
+        f"{'not measured' if dev is None else f'{dev:.5f} ms a launch'}")
+    plan_k2 = decode_attn_timing(da, ref, PLAN_LAYER_SHAPE, plan_s, 9, spec)
     entries = [{
         "name": "decode_attn", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/decode_attn.cu",
         "replaces": "src/repro/kernels/decode_attn.py:34",
         "launches": launches["decode_attn"],
         "max_abs_err": path_err["decode_attn"],
-        "ms": ms, "plain_ms": min(times["plain"]), "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": min(times["library"])}]
+        **k2}]
 
     # wkv at the prefill shape (the JSON line's numbers) and at a decode
     # step.  The plain version at T = PROMPT is a Python loop over time:
@@ -2029,7 +2183,7 @@ def main():
     plain_ms = [time_ms(lambda: ref.wkv_ref(*layer_args[0]))]
     wkv_line(1, pass_ms, wkv_dev_ms(one_pass, ssm.n_layers), plain_ms,
              f", {ssm.n_layers} distinct states in place")
-    dev = step_launch_ms["wkv"]
+    dev = step_launch_ms[SSM_ARCH]
     log(f"wkv at T1 on the decode steps of phase 4: "
         f"{'not measured' if dev is None else f'{dev:.5f} ms a launch'}")
     del layer_args
@@ -2099,7 +2253,7 @@ def main():
     del a, b
 
     # -- phase 6: the design-space engine -------------------------------------
-    engine_phase()
+    engine_phase(plan_k2["ms"])
 
     # -- phase 7: the memory-system DES --------------------------------------
     entries.extend(memsim_phase(path_err["memsim"]))

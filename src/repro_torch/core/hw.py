@@ -6,9 +6,10 @@ Port of ``repro/core/hw.py``.  Two worlds live here:
    the port's own copy of the reference's constants, value for value.
 
 2. The card the port runs on: ``GpuSpec``, the data-sheet peaks of the
-   NVIDIA H100 parts, picked by the card's name with ``spec_for``.  The
-   STREAM probe (``repro_torch.launch.stream``) measures HBM bandwidth
-   against ``hbm_bw``.
+   NVIDIA H100 parts and their NVLink links, picked by the card's name
+   with ``spec_for``.  The STREAM probe (``repro_torch.launch.stream``)
+   measures HBM bandwidth against ``hbm_bw``; the channel planner
+   (``core/planner``) reads the peaks and the links.
 """
 
 from __future__ import annotations
@@ -84,7 +85,7 @@ DIMM_DYN_W_PER_CH = 16.74
 
 @dataclasses.dataclass(frozen=True)
 class GpuSpec:
-    """Roofline-relevant peaks of one card."""
+    """Roofline-relevant peaks of one card and of its NVLink links."""
 
     #: The part, as it appears in the card's name ("SXM", "PCIe", "NVL").
     part: str
@@ -98,11 +99,34 @@ class GpuSpec:
     hbm_bytes: int
     #: L2 cache, bytes.
     l2_bytes: int
+    #: NVLink bandwidth of one link IN ONE DIRECTION, bytes/s.  The data
+    #: sheets give each part's total over both directions (SXM: 900 GB/s
+    #: over 18 NVLink-4 links, 50 GB/s a link); a channel's combine
+    #: traffic flows one way, so the planner reads half of it.
+    nvlink_bw_per_link: float
+    #: NVLink links of one card.
+    nvlink_links: int
+    #: Latency of one stage of a combine between two cards over NVLink,
+    #: seconds.  No data sheet gives it: 3 us is an ESTIMATE of a small
+    #: peer-to-peer exchange with its launch and signal, not measured on
+    #: any card of this repo's runs.
+    nvlink_hop_s: float
+
+    @property
+    def link_bw(self) -> float:
+        """Aggregate NVLink bandwidth of one card in one direction,
+        bytes/s."""
+        return self.nvlink_bw_per_link * self.nvlink_links
 
 
-H100_SXM = GpuSpec("SXM", 3.35e12, 989e12, 67e12, 80 * 10**9, 50 * 2**20)
-H100_PCIE = GpuSpec("PCIe", 2.0e12, 756e12, 51e12, 80 * 10**9, 50 * 2**20)
-H100_NVL = GpuSpec("NVL", 3.9e12, 835e12, 60e12, 94 * 10**9, 50 * 2**20)
+# The PCIe and NVL parts' 600 GB/s (both directions, over their NVLink
+# bridges) is 12 links of the SXM part's 50 GB/s.
+H100_SXM = GpuSpec("SXM", 3.35e12, 989e12, 67e12, 80 * 10**9, 50 * 2**20,
+                   25e9, 18, 3e-6)
+H100_PCIE = GpuSpec("PCIe", 2.0e12, 756e12, 51e12, 80 * 10**9, 50 * 2**20,
+                    25e9, 12, 3e-6)
+H100_NVL = GpuSpec("NVL", 3.9e12, 835e12, 60e12, 94 * 10**9, 50 * 2**20,
+                   25e9, 12, 3e-6)
 
 
 def spec_for(device_name: str) -> GpuSpec:

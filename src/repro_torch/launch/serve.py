@@ -4,13 +4,16 @@
         --batch 8 --prompt-len 1024 --gen 32
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \
         --batch 8 --prompt-len 1024 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \
+        --batch 8 --prompt-len 1024 --gen 32
 
 Port of ``repro/launch/serve.py``: cache construction, batched prefill and
 the decode hot loop.  The hand kernels on the path depend on the family
-(``PATH_KERNELS``): a dense model's decode attention is ``decode_attn``;
-an ssm (rwkv6) model's WKV recurrence is ``wkv``, on prefill and on every
-decode step.  Weights are random, made from ``--seed``.  Runs on the card
-unless ``--device cpu`` is given; with no card, ``--device cuda`` raises.
+(``PATH_KERNELS``): a dense or moe model's decode attention is
+``decode_attn``; an ssm (rwkv6) model's WKV recurrence is ``wkv``, on
+prefill and on every decode step.  Weights are random, made from
+``--seed``.  Runs on the card unless ``--device cpu`` is given; with no
+card, ``--device cuda`` raises.
 """
 
 import argparse
@@ -26,6 +29,7 @@ from repro_torch.models.model import Model
 
 #: The hand kernels each ported family's serving path launches.
 PATH_KERNELS = {"dense": {"decode_attn": decode_attn.KERNEL},
+                "moe": {"decode_attn": decode_attn.KERNEL},
                 "ssm": {"wkv": rwkv_wkv.KERNEL}}
 
 

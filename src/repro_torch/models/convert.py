@@ -3,7 +3,8 @@
 ``params_from_jax`` takes the parameter pytree of ``repro``'s
 ``Model.init`` as numpy arrays (nested dicts, stacked ``layers/*`` leaves
 included) and returns the port's parameter tree: the same keys, shapes and
-``(d_in, d_out)`` layouts, as tensors on ``device``.  Tests use it to run
+``(d_in, d_out)`` layouts (a moe layer's experts as ``(E, d_in, d_out)``),
+as tensors on ``device``, for every ported family.  Tests use it to run
 both packages on identical weights.
 """
 

@@ -1,7 +1,7 @@
 """Public model API: init / prefill / decode_step / greedy_generate.
 
 Port of ``repro/models/model.py`` for the serving path of the ported
-families (``transformer.PORTED_FAMILIES``: dense and ssm).
+families (``transformer.PORTED_FAMILIES``: dense, moe and ssm).
 Every entry point runs on an explicit device: ``cuda`` unless the caller
 asks for ``cpu``.  Asking for ``cuda`` where there is no card raises; the
 model never carries on on the CPU.  Training (``loss``) is not ported yet.

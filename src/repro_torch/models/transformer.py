@@ -6,12 +6,14 @@ the same stacked tensors (``params["layers"][...][i]`` is a view).
 
 Families ported:
   dense -- pre-RMSNorm GQA + MLP decoder with a KV cache
+  moe   -- pre-RMSNorm GQA + top-k routed experts (``models/moe.py``),
+           with the dense family's KV cache
   ssm   -- RWKV6 time-mix + channel-mix with a recurrent state
-The others (moe, hybrid, audio, vlm) are not ported yet.
+The others (hybrid, audio, vlm) are not ported yet.
 
 Caches carry their length as a host int, so the decode loop never waits on
 the device for it.
-  * dense: ``{"k", "v": (L, B, S_max, Hk, hd), "len"}``.  Unlike the
+  * dense, moe: ``{"k", "v": (L, B, S_max, Hk, hd), "len"}``.  Unlike the
     reference, which returns a new cache array from
     ``dynamic_update_slice``, the port writes each step's K/V into the
     cache tensors IN PLACE and returns a new dict holding the same tensors
@@ -26,9 +28,9 @@ the device for it.
     new state after the pass: a caller that runs two passes from one state
     clones the cache first.
 
-``plain_kernels=True`` sends every hand kernel on the pass (the dense
-decode step's ``decode_attn``, every layer's ``wkv``) to its plain version;
-it exists only to compare the two paths.
+``plain_kernels=True`` sends every hand kernel on the pass (the dense and
+moe decode step's ``decode_attn``, every layer's ``wkv``) to its plain
+version; it exists only to compare the two paths.
 """
 
 from __future__ import annotations
@@ -38,14 +40,14 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.models import attention, layers, rwkv
+from repro_torch.models import attention, layers, moe, rwkv
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Spec
 
 #: Stub modality-frontend feature width (audio frames / vision patches).
 FRONTEND_DIM = 512
 
-PORTED_FAMILIES = ("dense", "ssm")
+PORTED_FAMILIES = ("dense", "moe", "ssm")
 
 
 def check_ported(cfg: ModelConfig) -> None:
@@ -73,6 +75,9 @@ def model_specs(cfg: ModelConfig) -> dict:
     if cfg.family == "dense":
         specs["layers"]["attn"] = attention.attn_specs(cfg)
         specs["layers"]["mlp"] = layers.mlp_specs(cfg)
+    elif cfg.family == "moe":
+        specs["layers"]["attn"] = attention.attn_specs(cfg)
+        specs["layers"]["moe"] = moe.moe_specs(cfg)
     else:   # ssm
         specs["layers"]["rwkv"] = rwkv.rwkv_specs(cfg)
     return specs
@@ -125,6 +130,15 @@ def _dense_body(cfg, x, pl, positions, causal, kv_cache,
     return x + layers.mlp_apply(cfg, pl["mlp"], h)
 
 
+def _moe_body(cfg, x, pl, positions, causal, kv_cache,
+              plain_kernels: bool = False):
+    h = layers.rms_norm(x, pl["ln1"], cfg.norm_eps)
+    x = x + _attn_block(cfg, pl, h, positions, causal, kv_cache,
+                        plain_kernels)
+    h = layers.rms_norm(x, pl["ln2"], cfg.norm_eps)
+    return x + moe.moe_apply(cfg, pl["moe"], h)
+
+
 def _rwkv_body(cfg, x, pl, cache, plain_kernels: bool = False,
                in_place: bool = False):
     """cache is (tm_shift, wkv_state, cm_shift); with ``in_place`` the
@@ -166,6 +180,9 @@ def forward(cfg: ModelConfig, params, batch, *,
 
 
 def _dense_stack(cfg, params, x, positions, cache, plain_kernels):
+    """The dense and moe families: attention with a KV cache, then the
+    family's feed-forward body."""
+    body = _moe_body if cfg.family == "moe" else _dense_body
     causal = not cfg.encoder_only
     new_cache = None
     if cache is not None:
@@ -176,7 +193,7 @@ def _dense_stack(cfg, params, x, positions, cache, plain_kernels):
         pl = layer_params(params["layers"], i)
         kv = None if cache is None else (cache["k"][i], cache["v"][i],
                                          cache_len)
-        x = _dense_body(cfg, x, pl, positions, causal, kv, plain_kernels)
+        x = body(cfg, x, pl, positions, causal, kv, plain_kernels)
     return x, new_cache
 
 
@@ -209,6 +226,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
         tm, wkv, cm = (torch.stack([a] * cfg.n_layers) for a in
                        rwkv.init_rwkv_cache(cfg, batch, dtype, device))
         return dict(tm_shift=tm, wkv=wkv, cm_shift=cm, len=0)
+    # dense and moe: a KV cache.
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads,
              cfg.resolved_head_dim)
     return dict(k=torch.zeros(shape, dtype=dtype, device=device),

@@ -525,6 +525,13 @@ def test_coaxial_study_prints_the_reference_rows(capsys):
     g = jm.design_gradient(jm.COAXIAL_4X, coaxial_study.GRADIENT_FIELDS)
     for k, v in g.items():
         assert got[f"grad_{k}"] == pytest.approx(v, rel=RTOL), k
+    # The decode-plan line, on the SXM part when the CPU runs it.
+    plan = coaxial_study.decode_plan(hw.H100_SXM)
+    assert (got["plan_part"], got["plan_n_channels"], got["plan_speedup"]) \
+        == ("SXM", plan.n_channels, plan.speedup)
+    assert (f"H100 channelized decode (mistral-large 32k): "
+            f"{plan.n_channels} KV channels -> {plan.speedup:.1f}x "
+            f"predicted") in out
 
 
 def test_coaxial_study_defaults_to_the_card(monkeypatch):

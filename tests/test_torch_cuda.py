@@ -44,6 +44,7 @@ def _qkv(b, hq, hk, d, s, dtype, seed=0):
 @pytest.mark.parametrize("b,hq,hk,d,s", [
     (8, 32, 32, 64, 1056),      # stablelm-1.6b serving slice
     (8, 24, 2, 128, 4096),      # starcoder2-3b attention (G = 12)
+    (8, 16, 16, 128, 1056),     # olmoe-1b-7b serving slice (D 128, G 1)
     (2, 4, 2, 16, 40),          # smoke variants (head dim 16)
     (3, 8, 1, 32, 300),         # G = 8, head dim 32
 ])
@@ -86,7 +87,8 @@ def test_dispatch_launches_on_cuda_and_raises_on_bad_input():
     assert da.KERNEL.launches == before + 1
 
 
-@pytest.mark.parametrize("arch", ["stablelm-1.6b", "starcoder2-3b"])
+@pytest.mark.parametrize("arch", ["stablelm-1.6b", "starcoder2-3b",
+                                  "olmoe-1b-7b"])
 def test_decode_step_kernel_path_matches_plain_path(arch):
     """float32 smoke model: the decode step through the kernel and through
     the plain decode_attention give the same logits."""
@@ -103,14 +105,15 @@ def test_decode_step_kernel_path_matches_plain_path(arch):
     torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
 
 
-def test_serve_smoke_launches_the_kernel_every_layer_and_step():
+@pytest.mark.parametrize("arch", ["stablelm-1.6b", "olmoe-1b-7b"])
+def test_serve_smoke_launches_the_kernel_every_layer_and_step(arch):
     _need_card()
     before = da.KERNEL.launches
-    toks = serve.main(["--arch", "stablelm-1.6b", "--smoke", "--batch", "2",
+    toks = serve.main(["--arch", arch, "--smoke", "--batch", "2",
                        "--prompt-len", "10", "--gen", "4"])
     assert toks.shape == (2, 4)
     assert da.KERNEL.launches - before == 4 * smoke_variant(
-        get_config("stablelm-1.6b")).n_layers
+        get_config(arch)).n_layers
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,8 @@
 """The serving slice as a whole: the port against the reference model.
 
 On ``smoke_variant`` configs of stablelm-1.6b (MHA, SwiGLU),
-starcoder2-3b (GQA G = 2, GELU) and rwkv6-1.6b (ssm: RWKV6 time-mix and
-channel-mix) in float32, the reference's ``Model.init`` parameters are
+starcoder2-3b (GQA G = 2, GELU), rwkv6-1.6b (ssm: RWKV6 time-mix and
+channel-mix) and olmoe-1b-7b (moe: routed experts) in float32, the reference's ``Model.init`` parameters are
 carried into the port with ``params_from_jax``; then prefill logits, eight
 teacher-forced ``decode_step`` logits, the cache contents (over the
 family's own keys) and ``greedy_generate``'s tokens must agree.
@@ -26,9 +26,11 @@ from repro_torch.models.transformer import PORTED_FAMILIES, forward
 
 jax.config.update("jax_platform_name", "cpu")
 
-ARCHS_UNDER_TEST = ["stablelm-1.6b", "starcoder2-3b", "rwkv6-1.6b"]
+ARCHS_UNDER_TEST = ["stablelm-1.6b", "starcoder2-3b", "rwkv6-1.6b",
+                    "olmoe-1b-7b"]
 #: The decode cache's tensors, by family.
-CACHE_KEYS = {"dense": ("k", "v"), "ssm": ("tm_shift", "wkv", "cm_shift")}
+CACHE_KEYS = {"dense": ("k", "v"), "moe": ("k", "v"),
+              "ssm": ("tm_shift", "wkv", "cm_shift")}
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-5)
 B, PROMPT, STEPS = 2, 12, 8
 

@@ -19,7 +19,7 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
 @pytest.mark.parametrize("arch", ["stablelm-1.6b", "starcoder2-3b",
-                                  "rwkv6-1.6b"])
+                                  "rwkv6-1.6b", "olmoe-1b-7b"])
 def test_serve_main_smoke_on_cpu(arch, capsys):
     kernels = [k for family in serve.PATH_KERNELS.values()
                for k in family.values()]
@@ -35,7 +35,7 @@ def test_serve_main_smoke_on_cpu(arch, capsys):
 
 def test_serve_refuses_unported_family():
     with pytest.raises(NotImplementedError, match="not ported"):
-        serve.main(["--arch", "olmoe-1b-7b", "--smoke", "--device", "cpu"])
+        serve.main(["--arch", "zamba2-2.7b", "--smoke", "--device", "cpu"])
 
 
 def _imported_roots(path: Path):
