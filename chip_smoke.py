@@ -10,9 +10,15 @@ Phases; any failure exits non-zero and no phase swallows one:
   2. hold each kernel against its plain PyTorch version on the card, at the
      shapes the paths give it and beyond, in bf16 and f32: decode_attn at
      lengths that are not tile multiples and with poisoned cache tails, at
-     stablelm-1.6b's and olmoe-1b-7b's decode shapes (D 64 and D 128, G 1),
-     starcoder2-3b's (G 12 over Hk 2) and one mistral-large-123b layer at
-     32k context (D 128, G 12, the decode plan's shape);
+     stablelm-1.6b's, olmoe-1b-7b's and zamba2-2.7b's decode shapes (D 64,
+     128 and 80, G 1), starcoder2-3b's (G 12 over Hk 2) and one
+     mistral-large-123b layer at 32k context (D 128, G 12, the decode
+     plan's shape); lengths 1, 2 and 65 at 32k in 16 parts (most parts
+     empty), lengths one either side of a tile and of a part boundary in
+     the parts the full cache is split into, the same and more lengths
+     with the keys either side of each boundary dominant (so that one key
+     dropped or counted twice shows), and calls at alternating shapes
+     queued back to back, each held again;
      wkv at ragged lengths and at the edges of its chunk of steps, both
      decay ranges, and chained bit-exactly, cut inside a chunk and at its
      edge;
@@ -40,9 +46,13 @@ Phases; any failure exits non-zero and no phase swallows one:
      profile the device's busy share and the kernel's time a launch;
   5. time each kernel at the paths' shapes beside its bound, its plain
      version and the PyTorch library call that computes the same function
-     (none for wkv); decode_attn also at olmoe's decode shape and at the
-     planner's mistral-large layer (SDPA with enable_gqa); wkv's lines give
-     the launch it made (blocks x
+     (none for wkv); decode_attn (SDPA with enable_gqa beside it) at
+     stablelm's, starcoder2's, olmoe's and zamba2's decode shapes and at
+     the planner's mistral-large layer, each call on a cold copy of the
+     cache, in a CUDA graph (the card's time, no host) and by CUDA events
+     around back-to-back calls (the call's), with the launch it made
+     (parts = cluster size, blocks, threads, the ring's stages, tile and
+     bytes); wkv's lines give the launch it made (blocks x
      threads, steps a chunk, the tile of key groups x columns, shared
      bytes) and the profiler's share of the bound at the prefill and the
      decode shape;
@@ -128,6 +138,9 @@ HERE = Path(__file__).resolve().parent
 sys.path.insert(0, str(HERE / "src"))
 
 DENSE_ARCH, SSM_ARCH, MOE_ARCH = "stablelm-1.6b", "rwkv6-1.6b", "olmoe-1b-7b"
+# zamba2-2.7b's attention (D 80): K2 is held and timed at its decode shape;
+# the hybrid family does not serve yet.
+HYBRID_ARCH = "zamba2-2.7b"
 BATCH, PROMPT, GEN, SEED = 8, 1024, 32, 0
 # float32: the reference's own kernel-test tolerance.  bfloat16: kernel and
 # plain version both compute in fp32 and round once to bf16, so they may
@@ -273,6 +286,32 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, calls: int = 20, replays: int = 5) -> float:
+    """Device time of one call of ``fn``: ``calls`` calls captured in one
+    CUDA graph and replayed ``replays`` times between CUDA events, so that
+    the calls' kernels run back to back and no host time is counted."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (replays * calls)
+
+
 def rand_qkv(b, hq, hk, d, s, dtype, seed):
     gen = torch.Generator(device="cuda").manual_seed(seed)
     mk = lambda *shape: torch.randn(*shape, device="cuda", generator=gen,
@@ -280,34 +319,125 @@ def rand_qkv(b, hq, hk, d, s, dtype, seed):
     return mk(b, hq, d), mk(b, s, hk, d), mk(b, s, hk, d)
 
 
-def check_decode_attn(da, ref, shape, dtype, lengths, seed):
-    """Kernel against plain on the card; returns the max |error|."""
+def launch_split(da, q, k, v, length, parts=None):
+    """``da.decode_attn``, split by ``da.partition``, or its launch forced
+    into ``parts`` parts."""
+    if parts is None:
+        return da.decode_attn(q, k, v, length)
+    return da._launch(q, k, v, length, da.split(parts, length))
+
+
+def check_boundary_keys(da, ref, shape, dtype, lengths, seed, parts=None):
+    """Kernel against plain where one key more or less shows: at each
+    length the keys either side of every part boundary of the split taken
+    there, of the first tile boundary and of the length itself dominate.
+    Every query head of a KV head is one vector q0; those keys are 4 q0
+    (a score of ~4 sqrt(D), ~45 at D 128, against ~N(0, 1) for the rest,
+    whose exponentials then add < 1e-10 of the weight); the i-th carries 4
+    in dimension i of its value and 0 elsewhere.  The output is the mean of
+    the n such values within length, 4/n in each of their dimensions, and a
+    key dropped, counted twice or read past length moves it by >= 4/(n+1)
+    (n <= 34), far past ``KERNEL_TOL``.  With random inputs a one-key error
+    at 16k keys moves the output by ~1e-3, inside it."""
+    b, hq, hk, d, s = shape
+    g = hq // hk
+    q, k, v = rand_qkv(b, hq, hk, d, s, dtype, seed)
+    q0 = q.view(b, hk, g, d)[:, :, 0]
+    q = q0[:, :, None].expand(b, hk, g, d).reshape(b, hq, d).contiguous()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    tol = KERNEL_TOL[dtype]
+    for length in lengths:
+        cut = (da.partition(b, hk, length, sms) if parts is None
+               else da.split(parts, length))
+        edges = [da.TILE_KEYS, length] + [
+            p * cut.part_keys for p in range(1, cut.parts)
+            if p * cut.part_keys < length]
+        keys = sorted({x + dx for x in edges for dx in (-1, 0)
+                       if 0 <= x + dx < s})
+        saved = k[:, keys].clone(), v[:, keys].clone()
+        k[:, keys] = 4 * q0[:, None]
+        v[:, keys] = 0
+        for i, n in enumerate(keys):
+            v[:, n, :, i % d] = 4
+        got = launch_split(da, q, k, v, length, parts).float()
+        want = ref.decode_attn_ref(q, k, v, length).float()
+        k[:, keys], v[:, keys] = saved
+        err = (got - want).abs().max().item()
+        ok = torch.allclose(got, want, **tol)
+        inside = sum(n < length for n in keys)
+        log(f"  decode_attn {dtype} {shape} length {length} in "
+            f"{cut.parts} parts of {cut.part_keys}: {inside} dominant keys "
+            f"{keys} inside: max|err| {err:.3e} (output up to "
+            f"{want.abs().max().item():.3g}) {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"decode_attn miscounts a boundary key at {shape}, {dtype},"
+                 f" length {length} in {cut.parts} parts")
+
+
+def check_decode_attn(da, ref, shape, dtype, lengths, seed, parts=None):
+    """Kernel against plain on the card, split by ``da.partition`` or into
+    ``parts``; returns the max |error|."""
     b, hq, hk, d, s = shape
     q, k, v = rand_qkv(b, hq, hk, d, s, dtype, seed)
     tol = KERNEL_TOL[dtype]
+    split = "" if parts is None else f" in {parts} parts"
     worst = 0.0
     for length in lengths:
-        got = da.decode_attn(q, k, v, length)
+        got = launch_split(da, q, k, v, length, parts)
         want = ref.decode_attn_ref(q, k, v, length)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         worst = max(worst, err)
         ok = torch.allclose(got.float(), want.float(), **tol)
         log(f"  decode_attn {dtype} B{b} Hq{hq} Hk{hk} D{d} S{s} "
-            f"length {length}: max|err| {err:.3e} (atol {tol['atol']}, "
-            f"rtol {tol['rtol']}) {'ok' if ok else 'MISMATCH'}")
+            f"length {length}{split}: max|err| {err:.3e} (atol "
+            f"{tol['atol']}, rtol {tol['rtol']}) "
+            f"{'ok' if ok else 'MISMATCH'}")
         if not ok:
             fail(f"decode_attn disagrees with decode_attn_ref at {shape}, "
-                 f"{dtype}, length {length}")
+                 f"{dtype}, length {length}{split}")
     # Poisoned tail: entries past `length` must not move the output.
     length = s // 2 + 3
-    clean = da.decode_attn(q, k, v, length)
+    clean = launch_split(da, q, k, v, length, parts)
     k[:, length:], v[:, length:] = 1e4, -1e4
-    poisoned = da.decode_attn(q, k, v, length)
+    poisoned = launch_split(da, q, k, v, length, parts)
     if not torch.equal(clean, poisoned):
-        fail(f"decode_attn read past length {length} at {shape}, {dtype}")
-    log(f"  poisoned tail past length {length}: output unchanged")
+        fail(f"decode_attn read past length {length} at {shape}, "
+             f"{dtype}{split}")
+    log(f"  poisoned tail past length {length}{split}: output unchanged")
     return worst
+
+
+def split_edges(da, shape):
+    """The split ``da.partition`` makes at the full cache of ``shape``, and
+    lengths one either side of its first tile and part boundaries."""
+    b, _, hk, _, s = shape
+    cut = da.partition(b, hk, s, torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    edges = {x + dx for x in (da.TILE_KEYS, cut.part_keys,
+                              (cut.parts - 1) * cut.part_keys)
+             for dx in (-1, 0, 1)}
+    return cut, sorted(n for n in edges if 1 <= n <= s)
+
+
+def check_back_to_back(da, ref, cases, dtype, seed):
+    """Calls at alternating shapes and lengths queued with no synchronize
+    between them, then each held to the plain version again: no merge
+    state may carry from one launch to the next."""
+    inputs = [rand_qkv(*shape, dtype, seed + i)
+              for i, (shape, _) in enumerate(cases)]
+    calls = [(i, n) for i, (_, lengths) in enumerate(cases) for n in lengths]
+    calls = calls[0::2] + calls[1::2]
+    outs = [da.decode_attn(*inputs[i], n) for i, n in calls]
+    worst = 0.0
+    for (i, n), got in zip(calls, outs):
+        want = ref.decode_attn_ref(*inputs[i], n)
+        worst = max(worst, (got.float() - want.float()).abs().max().item())
+        if not torch.allclose(got.float(), want.float(), **KERNEL_TOL[dtype]):
+            fail(f"decode_attn back to back: {cases[i][0]}, length {n}, "
+                 f"{dtype} disagrees with decode_attn_ref")
+    log(f"  {len(calls)} calls back to back at {len(cases)} alternating "
+        f"shapes, {dtype}: each within tolerance (max|err| {worst:.3e})")
 
 
 def rand_wkv(b, t, h, d, dtype, decay, seed):
@@ -1688,41 +1818,68 @@ def decode_attn_timing(da, ref, shape, length, seed, spec):
     """Phase 5 for K2 at one shape (B, Hq, Hk, D, S) in bf16, attending
     ``length`` keys: the kernel, its plain version and SDPA (with
     ``enable_gqa``, on (B, Hk, L, D) views of the same cache) in turns,
-    and the bound.  Returns the JSON line's time fields."""
+    and the bound.  Each call takes the next of as many copies of the
+    cache as exceed twice the L2 together, so that it finds its cache cold
+    as a decode step finds a layer's.  Returns the JSON line's time fields
+    and the launch's geometry."""
     b, hq, hk, d, s = shape
-    q, k, v = rand_qkv(b, hq, hk, d, s, torch.bfloat16, seed=seed)
-    item = q.element_size()
+    item = torch.finfo(torch.bfloat16).bits // 8
+    cache_bytes = 2 * b * s * hk * d * item
+    l2 = torch.cuda.get_device_properties(0).L2_cache_size
+    n_copies = max(1, -(-2 * l2 // cache_bytes))
+    copies = [rand_qkv(b, hq, hk, d, s, torch.bfloat16, seed=seed + i)
+              for i in range(n_copies)]
     io_bytes = 2 * b * length * hk * d * item + 2 * b * hq * d * item
     flops = 4 * b * hq * length * d
     t_bytes, t_ops = io_bytes / spec.hbm_bw, flops / spec.peak_bf16_flops
     bound_ms = max(t_bytes, t_ops) * 1e3
     bound_by = "bytes" if t_bytes >= t_ops else "operations"
-    sq, sk, sv = q[:, :, None, :], k[:, :length].transpose(1, 2), \
-        v[:, :length].transpose(1, 2)
-    library = lambda: F.scaled_dot_product_attention(sq, sk, sv,
-                                                     enable_gqa=True)
-    lib_err = (library()[:, :, 0].float() - ref.decode_attn_ref(
-        q, k, v, length).float()).abs().max().item()
-    times = {}
-    for key, fn in (
-            ("plain", lambda: ref.decode_attn_ref(q, k, v, length)),
-            ("kernel", lambda: da.decode_attn(q, k, v, length)),
-            ("library", library),
-            ("kernel", lambda: da.decode_attn(q, k, v, length)),
-            ("plain", lambda: ref.decode_attn_ref(q, k, v, length))):
+    views = [(q[:, :, None, :], k[:, :length].transpose(1, 2),
+              v[:, :length].transpose(1, 2)) for q, k, v in copies]
+
+    def turns(fn):
+        """``fn`` on copy i at its i-th call, cycling."""
+        calls = iter(range(1 << 62))
+        return lambda: fn(next(calls) % n_copies)
+
+    library = turns(lambda i: F.scaled_dot_product_attention(
+        *views[i], enable_gqa=True))
+    plain = turns(lambda i: ref.decode_attn_ref(*copies[i], length))
+    kernel = turns(lambda i: da.decode_attn(*copies[i], length))
+    want = ref.decode_attn_ref(*copies[0], length).float()
+    lib_err = (F.scaled_dot_product_attention(*views[0], enable_gqa=True)[
+        :, :, 0].float() - want).abs().max().item()
+    # Events around back-to-back calls time the host's call at the small
+    # shapes; a CUDA graph of the calls times the card alone, and is what
+    # the JSON line and the ratios take.
+    times, dev = {}, {}
+    for key, fn in (("plain", plain), ("kernel", kernel),
+                    ("library", library), ("kernel", kernel),
+                    ("plain", plain)):
         times.setdefault(key, []).append(time_ms(fn))
-    ms = min(times["kernel"])
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
+        dev.setdefault(key, []).append(graph_ms(fn))
+    best = {key: min(dev[key]) for key in dev}
+    ms = best["kernel"]
+    geo = da.geometry(torch.bfloat16, shape, length)
     log(f"decode_attn bf16 B{b} Hq{hq} Hk{hk} D{d} G{hq // hk} S{s} length "
-        f"{length}: kernel {times['kernel']} ms, plain {times['plain']} ms, "
-        f"SDPA {times['library']} ms (SDPA vs plain max|err| {lib_err:.3e}); "
+        f"{length}: in a CUDA graph kernel {dev['kernel']} ms, plain "
+        f"{dev['plain']} ms, SDPA {dev['library']} ms; by events a call "
+        f"kernel {times['kernel']} ms, plain {times['plain']} ms, SDPA "
+        f"{times['library']} ms (SDPA vs plain max|err| {lib_err:.3e}); "
         f"bound {bound_ms:.5f} ms by {bound_by} ({io_bytes} B, {flops} "
         f"FLOP) -> {bound_ms / ms:.3f} of roofline, "
-        f"{io_bytes / ms / 1e6:.1f} GB/s; {b * hk} blocks on {sms} SMs")
-    del q, k, v, sk, sv
+        f"{io_bytes / ms / 1e6:.1f} GB/s; kernel / SDPA "
+        f"{ms / best['library']:.3f}; {n_copies} cache copies in turn")
+    log(f"  launch: {geo['parts']} parts of {geo['part_keys']} keys (cluster "
+        f"{geo['cluster']}), {geo['blocks']} blocks x {geo['threads']} "
+        f"threads, ring {geo['stages']} stages x {geo['tile_keys']} keys "
+        f"({geo['ring_bytes']} B), {geo['smem_bytes']} B shared a block, "
+        f"{geo['blocks_per_sm']} blocks an SM, {geo['clusters']} clusters at "
+        f"once")
+    del copies, views
     torch.cuda.empty_cache()
-    return {"ms": ms, "plain_ms": min(times["plain"]), "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": min(times["library"])}
+    return {"ms": ms, "plain_ms": best["plain"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": best["library"]}
 
 
 def serve_path(serve, kernels, arch, expected):
@@ -2001,6 +2158,9 @@ def main():
     moe_shape = (BATCH, moe_cfg.n_heads, moe_cfg.n_kv_heads,
                  moe_cfg.resolved_head_dim, s_max)
     gqa_shape = (8, 24, 2, 128, 4096)       # starcoder2-3b's attention
+    hybrid = get_config(HYBRID_ARCH)        # zamba2-2.7b: head dim 80
+    hybrid_shape = (BATCH, hybrid.n_heads, hybrid.n_kv_heads,
+                    hybrid.resolved_head_dim, s_max)
     plan_s = PLAN_LAYER_SHAPE[-1]
     path_err = {"decode_attn": 0.0}
     for dtype in (torch.bfloat16, torch.float32):
@@ -2010,10 +2170,41 @@ def main():
                 [1, 333, PROMPT + 1, PROMPT + 17, s_max], seed=seed)
             if dtype == torch.bfloat16:
                 path_err["decode_attn"] = max(path_err["decode_attn"], err)
+        check_decode_attn(da, ref, hybrid_shape, dtype,
+                          [1, 333, PROMPT + 1, PROMPT + 17, s_max], seed=11)
         check_decode_attn(da, ref, gqa_shape, dtype, [1, 1000, 4095, 4096],
                           seed=2)
         check_decode_attn(da, ref, PLAN_LAYER_SHAPE, dtype,
-                          [1, 4097, plan_s - 1001, plan_s], seed=7)
+                          [1, 2, 4097, plan_s - 1001, plan_s], seed=7)
+        # Most parts empty: lengths 1 and 2 at 32k in all 16 parts.
+        check_decode_attn(da, ref, PLAN_LAYER_SHAPE, dtype, [1, 2, 65],
+                          seed=12, parts=da.MAX_PARTS)
+        # One either side of a tile and of a part boundary, in the parts
+        # the full cache is split into.
+        for shape, seed in ((gqa_shape, 13), (PLAN_LAYER_SHAPE, 14)):
+            cut, edges = split_edges(da, shape)
+            log(f"  {shape}: full cache split into {cut.parts} parts of "
+                f"{cut.part_keys} keys; edges {edges}")
+            check_decode_attn(da, ref, shape, dtype, edges, seed=seed,
+                              parts=cut.parts)
+            # The same lengths, then lengths that leave the last part one
+            # key or end a part, with the boundary keys dominant.
+            t = da.TILE_KEYS
+            check_boundary_keys(
+                da, ref, shape, dtype,
+                edges + [(cut.parts - 1) * t + 1, cut.parts * t - 1,
+                         cut.parts * t, cut.parts * t + 1, shape[-1]],
+                seed=seed + 2, parts=cut.parts)
+        check_boundary_keys(da, ref, PLAN_LAYER_SHAPE, dtype,
+                            [1, 65, 961, 1024, 1025, plan_s // 2 + 1, plan_s],
+                            seed=17, parts=da.MAX_PARTS)
+        check_boundary_keys(da, ref, PLAN_LAYER_SHAPE, dtype,
+                            [1000, plan_s // 2 + 1, plan_s - 1, plan_s],
+                            seed=18)
+        check_back_to_back(da, ref, [
+            (gqa_shape, [4096, 1, 1000]), (slice_shape, [PROMPT + 16, 7]),
+            (PLAN_LAYER_SHAPE, [plan_s, 2]),
+            (hybrid_shape, [PROMPT + 16, 65])], dtype, seed=20)
     h, hd = ssm.rwkv_heads, ssm.rwkv_head_dim
     path_err["wkv"] = 0.0
     seed = 10
@@ -2087,8 +2278,8 @@ def main():
 
     # -- phase 4: path checks and decode-step timing ------------------------
     step_launch_ms = {}
-    for cfg, symbol in ((dense, "decode_attn_kernel"), (ssm, "wkv_kernel"),
-                        (moe_cfg, "decode_attn_kernel")):
+    for cfg, symbol in ((dense, "decode_attn_mma"), (ssm, "wkv_kernel"),
+                        (moe_cfg, "decode_attn_mma")):
         dtype, tol = PATH_CHECK[cfg.name]
         path_check(Model, SyntheticDataset, dataclasses.replace(
             cfg, dtype=str(dtype).removeprefix("torch.")), s_max, tol,
@@ -2097,25 +2288,22 @@ def main():
                                                  cfg, s_max, symbol)
 
     # -- phase 5: kernel time, bound, plain and library ----------------------
+    # K2 at stablelm-1.6b's decode (the JSON line's numbers), starcoder2-3b's
+    # (G 12 over Hk 2), olmoe-1b-7b's (D 128, G 1), zamba2-2.7b's (D 80) and
+    # the planner's mistral-large layer at 32k (G 12): phase 6 holds the
+    # planner's memory term to the last.
     k2 = decode_attn_timing(da, ref, slice_shape, PROMPT + GEN // 2, 3,
                             spec)
     dev = step_launch_ms[DENSE_ARCH]
     log(f"decode_attn on the decode steps of phase 4 (context "
         f"{PROMPT + 1}..{PROMPT + 8}): "
         f"{'not measured' if dev is None else f'{dev:.5f} ms a launch'}")
-    gb, ghq, ghk, gd, gs = gqa_shape
-    gq, gk, gv = rand_qkv(gb, ghq, ghk, gd, gs, torch.bfloat16, seed=4)
-    g_ms = time_ms(lambda: da.decode_attn(gq, gk, gv, gs))
-    g_bytes = 2 * gb * gs * ghk * gd * 2 + 2 * gb * ghq * gd * 2
-    log(f"decode_attn bf16 B{gb} Hq{ghq} Hk{ghk} D{gd} length {gs}: kernel "
-        f"{g_ms:.5f} ms, bound {g_bytes / peak_bw * 1e3:.5f} ms by bytes "
-        f"({gb * ghk} blocks on {torch.cuda.get_device_properties(0).multi_processor_count} SMs)")
-    # olmoe-1b-7b's decode (D 128, G 1) and the planner's mistral-large
-    # layer at 32k (G 12): phase 6 holds the planner's memory term to it.
+    decode_attn_timing(da, ref, gqa_shape, gqa_shape[-1], 4, spec)
     decode_attn_timing(da, ref, moe_shape, PROMPT + GEN // 2, 8, spec)
     dev = step_launch_ms[MOE_ARCH]
     log(f"decode_attn on olmoe-1b-7b's decode steps of phase 4: "
         f"{'not measured' if dev is None else f'{dev:.5f} ms a launch'}")
+    decode_attn_timing(da, ref, hybrid_shape, PROMPT + GEN // 2, 10, spec)
     plan_k2 = decode_attn_timing(da, ref, PLAN_LAYER_SHAPE, plan_s, 9, spec)
     entries = [{
         "name": "decode_attn", "route": "cuda",

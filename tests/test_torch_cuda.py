@@ -47,14 +47,85 @@ def _qkv(b, hq, hk, d, s, dtype, seed=0):
     (8, 16, 16, 128, 1056),     # olmoe-1b-7b serving slice (D 128, G 1)
     (2, 4, 2, 16, 40),          # smoke variants (head dim 16)
     (3, 8, 1, 32, 300),         # G = 8, head dim 32
+    (2, 96, 8, 128, 32768),     # a mistral-large-123b layer at 32k (G 12)
+    (8, 32, 32, 80, 1056),      # zamba2-2.7b decode (head dim 80)
 ])
 def test_kernel_matches_plain(dtype, b, hq, hk, d, s):
+    """Lengths 1 (at 32k for the mistral layer), a third, S - 1 and S."""
     _need_card()
     q, k, v = _qkv(b, hq, hk, d, s, dtype)
     for length in (1, s // 3, s - 1, s):
         got = da.decode_attn(q, k, v, length)
         want = ref.decode_attn_ref(q, k, v, length)
         torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("parts", [1, 3, 8, 16])
+def test_kernel_matches_plain_at_part_and_tile_edges(dtype, parts):
+    """A split forced to ``parts``: lengths that leave most parts empty
+    (1, 2) and lengths one either side of a tile and a part boundary."""
+    _need_card()
+    q, k, v = _qkv(2, 24, 2, 128, 4096, dtype, seed=2)
+    tile = da.TILE_KEYS
+    for length in (1, 2, tile - 1, tile, tile + 1, 4 * tile - 1, 4 * tile,
+                   4 * tile + 1, 4095, 4096):
+        part = da.split(parts, length).part_keys
+        for n in (length, min(part + 1, 4096), max(part - 1, 1)):
+            got = da._launch(q, k, v, n, da.split(parts, n))
+            want = ref.decode_attn_ref(q, k, v, n)
+            torch.testing.assert_close(got.float(), want.float(),
+                                       **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("parts", [None, 3, 16])
+def test_kernel_counts_each_boundary_key_once(dtype, parts):
+    """The keys either side of each part boundary of the split taken at a
+    length, of the first tile and of the length dominate the softmax (every
+    query head of a KV head is q0, they are 4 q0), each carrying its own
+    dimension in v: a key dropped, counted twice or read past length moves
+    the output by >= 4/(n+1), where random inputs hide it under the
+    tolerance."""
+    _need_card()
+    b, hq, hk, d, s = 2, 24, 2, 128, 4096
+    q, k, v = _qkv(b, hq, hk, d, s, dtype, seed=5)
+    q0 = q.view(b, hk, hq // hk, d)[:, :, 0]
+    q = q0[:, :, None].expand(b, hk, hq // hk, d).reshape(b, hq, d)
+    q = q.contiguous()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for length in (1, 65, 961, 1025, 2049, 4095, 4096):
+        cut = (da.partition(b, hk, length, sms) if parts is None
+               else da.split(parts, length))
+        edges = [da.TILE_KEYS, length] + [
+            p * cut.part_keys for p in range(1, cut.parts)
+            if p * cut.part_keys < length]
+        keys = sorted({x + dx for x in edges for dx in (-1, 0)
+                       if 0 <= x + dx < s})
+        kk, vv = k.clone(), v.clone()
+        kk[:, keys] = 4 * q0[:, None]
+        vv[:, keys] = 0
+        for i, n in enumerate(keys):
+            vv[:, n, :, i] = 4
+        got = da._launch(q, kk, vv, length, cut)
+        want = ref.decode_attn_ref(q, kk, vv, length)
+        torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_back_to_back_at_alternating_shapes(dtype):
+    """Calls at alternating shapes, splits and lengths, queued without a
+    synchronize, each held to the plain version: no merge state may carry
+    from one launch to the next."""
+    _need_card()
+    shapes = [(8, 24, 2, 128, 4096), (8, 32, 32, 64, 1056),
+              (2, 96, 8, 128, 8192), (8, 32, 32, 80, 1056)]
+    inputs = [_qkv(*shape, dtype, seed=i) for i, shape in enumerate(shapes)]
+    calls = [(i, length) for length in (1, 700, 1040) for i in range(4)]
+    got = [da.decode_attn(*inputs[i], n) for i, n in calls + calls[::-1]]
+    for (i, n), out in zip(calls + calls[::-1], got):
+        want = ref.decode_attn_ref(*inputs[i], n)
+        torch.testing.assert_close(out.float(), want.float(), **TOL[dtype])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -81,9 +152,11 @@ def test_dispatch_launches_on_cuda_and_raises_on_bad_input():
         ops.decode_attn(q, strided, strided, 10)
     with pytest.raises(ValueError, match="mixed"):
         ops.decode_attn(q.cpu(), k, v, 10)
-    q80, k80, v80 = _qkv(1, 4, 2, 80, 64, torch.float32)  # stablelm-3b dim
+    q72, k72, v72 = _qkv(1, 4, 2, 72, 64, torch.float32)  # no such head dim
     with pytest.raises(ValueError, match="no kernel built"):
-        ops.decode_attn(q80, k80, v80, 10)
+        ops.decode_attn(q72, k72, v72, 10)
+    with pytest.raises(ValueError, match="parts"):
+        da._launch(q, k, v, 10, da.split(da.MAX_PARTS + 1, 10))
     assert da.KERNEL.launches == before + 1
 
 

@@ -4,7 +4,11 @@ On the CPU, ``repro_torch.kernels.ops.decode_attn`` runs the plain version
 ``decode_attn_ref``; it is held to ``repro.kernels.decode_attn`` in
 interpret mode and to ``repro.kernels.ref.decode_attn_ref`` on identical
 numpy inputs.  The hand CUDA kernel itself is held to the plain version in
-``test_torch_cuda.py``, which runs only where there is a card.
+``test_torch_cuda.py``, which runs only where there is a card.  What the
+kernel does around its arithmetic is held here: the split of each cache
+into parts of whole tiles (``decode_attn.partition``) covers the prefix
+once, and the parts' softmax partials, merged as the kernel's clusters
+merge them, equal the reference's kernel.
 """
 
 import jax
@@ -113,3 +117,116 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         da.decode_attn(q, k, v, 8)
     assert da.KERNEL.library._lib is None
+
+
+# --- the split over the cache (csrc/decode_attn.cu's parts and merge) -------
+
+SMS = 132   # an H100 SXM's SMs
+
+
+def _assert_covers(cut, length):
+    """The parts are [lo, hi) runs of whole tiles that cover [0, length)
+    once, in order; empty parts (lo == hi == length) only at the end."""
+    assert 1 <= cut.parts <= da.MAX_PARTS
+    assert cut.part_keys % da.TILE_KEYS == 0 and cut.part_keys > 0
+    bounds = cut.bounds(length)
+    assert len(bounds) == cut.parts
+    assert bounds[0][0] == 0 and bounds[-1][1] == length
+    for (lo, hi), (nlo, _) in zip(bounds, bounds[1:]):
+        assert hi == nlo
+    for lo, hi in bounds:
+        assert 0 <= lo <= hi <= length
+        assert lo % da.TILE_KEYS == 0 or lo == length
+    assert sum(hi - lo for lo, hi in bounds) == length
+    empty = [lo == hi for lo, hi in bounds]
+    assert empty == sorted(empty)
+
+
+def _assert_partition(b, hk, length, sms):
+    cut = da.partition(b, hk, length, sms)
+    _assert_covers(cut, length)
+    # One wave of at most one block an SM (or one part), parts of at least
+    # MIN_PART_KEYS keys unless there is one.
+    assert cut.parts == 1 or b * hk * cut.parts <= sms
+    assert cut.parts == 1 or length // cut.parts >= da.MIN_PART_KEYS
+    assert cut.parts & (cut.parts - 1) == 0
+
+
+def test_partition_covers_the_prefix_once():
+    """Any B, Hk, length and SM count, and every forced split."""
+    hyp = pytest.importorskip("hypothesis")
+    st = pytest.importorskip("hypothesis.strategies")
+
+    @hyp.given(st.integers(1, 64), st.integers(1, 64),
+               st.integers(1, 1 << 17), st.integers(1, 264),
+               st.integers(1, da.MAX_PARTS))
+    @hyp.settings(max_examples=300, deadline=None)
+    def check(b, hk, length, sms, parts):
+        _assert_partition(b, hk, length, sms)
+        _assert_covers(da.split(parts, length), length)
+
+    check()
+
+
+@pytest.mark.parametrize("arch,b,hk,length,parts,blocks", [
+    ("stablelm-1.6b", 8, 32, 1040, 1, 256),
+    ("olmoe-1b-7b", 8, 16, 1040, 1, 128),
+    ("starcoder2-3b", 8, 2, 4096, 8, 128),
+    ("mistral-large-123b layer", 8, 8, 32768, 2, 128),
+])
+def test_partition_at_the_path_shapes(arch, b, hk, length, parts, blocks):
+    cut = da.partition(b, hk, length, SMS)
+    assert (cut.parts, b * hk * cut.parts) == (parts, blocks), arch
+    _assert_covers(cut, length)
+
+
+def test_most_parts_empty_at_short_lengths():
+    for length in (1, 2, da.TILE_KEYS + 1):
+        cut = da.split(da.MAX_PARTS, length)
+        assert cut.part_keys == da.TILE_KEYS
+        lens = [hi - lo for lo, hi in cut.bounds(length)]
+        assert sum(n > 0 for n in lens) == -(-length // da.TILE_KEYS)
+
+
+def _partials(q, k, v, lo, hi):
+    """One part's (m, l, acc) as a block of the kernel leaves them, fp32:
+    the running max, the sum of exponentials and the unnormalized output
+    over keys [lo, hi); an empty part is (-1e30, 0, 0)."""
+    b, hq, d = q.shape
+    hk = k.shape[2]
+    qg = q.reshape(b, hk, hq // hk, d)
+    if hi == lo:
+        return (torch.full((b, hk, hq // hk), -1e30),
+                torch.zeros(b, hk, hq // hk), torch.zeros(b, hk, hq // hk, d))
+    s = torch.einsum("bhgd,bshd->bhgs", qg, k[:, lo:hi]) * d ** -0.5
+    m = s.max(-1).values
+    p = torch.exp(s - m[..., None])
+    return m, p.sum(-1), torch.einsum("bhgs,bshd->bhgd", p, v[:, lo:hi])
+
+
+def _merge(parts):
+    """The cluster's merge: weights exp(m_r - max) / sum_r l_r exp(...)."""
+    m = torch.stack([p[0] for p in parts])
+    mx = m.max(0).values
+    w = torch.exp(m - mx)
+    den = (w * torch.stack([p[1] for p in parts])).sum(0)
+    acc = (w[..., None] * torch.stack([p[2] for p in parts])).sum(0)
+    return acc / den[..., None]
+
+
+@pytest.mark.parametrize("length", [1, 65, 640])
+def test_merge_of_parts_matches_reference(length):
+    """Per-part partials merged as the kernel's clusters merge them, with
+    empty parts, held to the reference's Pallas kernel in interpret mode
+    at every split the kernel may take."""
+    q, k, v = _inputs(6, 2, 8, 2, 64, 1024)
+    want = np.asarray(jax_decode_attn(
+        *(jnp.asarray(x) for x in (q, k, v)), jnp.array(length, jnp.int32),
+        interpret=True))
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    for parts in (1, 2, 3, 4, 16):
+        cut = da.split(parts, length)
+        got = _merge([_partials(tq, tk, tv, lo, hi)
+                      for lo, hi in cut.bounds(length)])
+        np.testing.assert_allclose(got.reshape(q.shape).numpy(), want,
+                                   **F32_TOL)
