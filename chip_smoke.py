@@ -11,9 +11,10 @@ Phases; any failure exits non-zero and no phase swallows one:
      shapes the paths give it and beyond, in bf16 and f32: decode_attn at
      lengths that are not tile multiples and with poisoned cache tails, at
      stablelm-1.6b's, olmoe-1b-7b's and zamba2-2.7b's decode shapes (D 64,
-     128 and 80, G 1), starcoder2-3b's (G 12 over Hk 2) and one
-     mistral-large-123b layer at 32k context (D 128, G 12, the decode
-     plan's shape); lengths 1, 2 and 65 at 32k in 16 parts (most parts
+     128 and 80, G 1), qwen2-vl-72b's (D 128, G 8 over Hk 8),
+     starcoder2-3b's (G 12 over Hk 2) and one mistral-large-123b layer at
+     32k context (D 128, G 12, the decode plan's shape); lengths 1, 2 and
+     65 at 32k in 16 parts (most parts
      empty), lengths one either side of a tile and of a part boundary in
      the parts the full cache is split into, the same and more lengths
      with the keys either side of each boundary dominant (so that one key
@@ -27,28 +28,37 @@ Phases; any failure exits non-zero and no phase swallows one:
   3. drive each path once through its entry point, with every kernel's
      launch count set to 0 just before and read just after; each count
      must be exactly what the path implies:
-       stablelm-1.6b, rwkv6-1.6b, olmoe-1b-7b:
+       stablelm-1.6b, rwkv6-1.6b, olmoe-1b-7b, zamba2-2.7b, qwen2-vl-72b:
          ``repro_torch.launch.serve.main`` at full width, bf16, batch 8,
-         prompt 1024, 32 new tokens, random weights from a seed;
-         decode_attn gen x n_layers for stablelm (768) and olmoe (512);
-         wkv (gen + 2) x n_layers for rwkv6 (serve's timed prefill,
+         prompt 1024, 32 new tokens, random weights from a seed
+         (qwen2-vl-72b at 8 of its 80 layers: 145 GB in bf16 do not fit
+         one card; its prompt carries the pipeline's 64 vision rows and
+         M-RoPE positions); decode_attn gen x attention layers for
+         stablelm (768), olmoe (512), zamba2 (288: one shared block a
+         group of 6 Mamba layers, 9 groups) and qwen2-vl (256); wkv
+         (gen + 2) x n_layers for rwkv6 (serve's timed prefill,
          greedy_generate's prefill and gen steps); no other kernel (the
-         JSON line's decode_attn launches are stablelm's and olmoe's);
-       the STREAM probe: ``repro_torch.launch.stream.main`` at 2**26
-         float32 elements an array; each stream kernel 2 x (warm-up +
-         iters) (the probe's size, then the reference's L2-resident
-         shape); no other kernel;
-  4. per serving path: prefill and first-decode-step logits through the
+         JSON line's decode_attn launches are the sum of the four);
+       the STREAM probe (run after phase 4 of the serving paths):
+         ``repro_torch.launch.stream.main`` at 2**26 float32 elements an
+         array; each stream kernel 2 x (warm-up + iters) (the probe's
+         size, then the reference's L2-resident shape); no other kernel;
+  4. per serving path (``serve_phase`` runs phases 3 and 4 of the
+     serving paths; alone for the hybrid and vlm paths: ``python3 -c
+     "import chip_smoke; chip_smoke.serve_phase(['zamba2-2.7b',
+     'qwen2-vl-72b'])"``): prefill and first-decode-step logits through the
      kernels and through their plain versions must agree (stablelm in
-     bf16, rwkv6 and olmoe in float32; for olmoe the routing decisions of
-     both paths are counted and the gate holds on the rows whose routes
-     agree); time prefills and decode steps on both paths in bf16 and
-     profile the device's busy share and the kernel's time a launch;
+     bf16, rwkv6, olmoe, zamba2 and qwen2-vl in float32; for olmoe the
+     routing decisions of both paths are counted and the gate holds on the
+     rows whose routes agree); time prefills and decode steps on both
+     paths in bf16 and profile the device's busy share and the kernel's
+     time a launch;
   5. time each kernel at the paths' shapes beside its bound, its plain
      version and the PyTorch library call that computes the same function
      (none for wkv); decode_attn (SDPA with enable_gqa beside it) at
-     stablelm's, starcoder2's, olmoe's and zamba2's decode shapes and at
-     the planner's mistral-large layer, each call on a cold copy of the
+     stablelm's, starcoder2's, olmoe's, zamba2's and qwen2-vl's decode
+     shapes and at the planner's mistral-large layer, each call on a cold
+     copy of the
      cache, in a CUDA graph (the card's time, no host) and by CUDA events
      around back-to-back calls (the call's), with the launch it made
      (parts = cluster size, blocks, threads, the ring's stages, tile and
@@ -138,9 +148,11 @@ HERE = Path(__file__).resolve().parent
 sys.path.insert(0, str(HERE / "src"))
 
 DENSE_ARCH, SSM_ARCH, MOE_ARCH = "stablelm-1.6b", "rwkv6-1.6b", "olmoe-1b-7b"
-# zamba2-2.7b's attention (D 80): K2 is held and timed at its decode shape;
-# the hybrid family does not serve yet.
-HYBRID_ARCH = "zamba2-2.7b"
+# zamba2-2.7b serves at full width (9 groups of 6 Mamba layers, a shared
+# attention block of head dim 80 after each); qwen2-vl-72b at full layer
+# width but 8 of its 80 layers (72.7 B parameters, 145 GB in bf16, do not
+# fit one card; 8 layers hold ~9.5 B, 19 GB in bf16, 38 GB in float32).
+HYBRID_ARCH, VLM_ARCH, VLM_LAYERS = "zamba2-2.7b", "qwen2-vl-72b", 8
 BATCH, PROMPT, GEN, SEED = 8, 1024, 32, 0
 # float32: the reference's own kernel-test tolerance.  bfloat16: kernel and
 # plain version both compute in fp32 and round once to bf16, so they may
@@ -176,9 +188,27 @@ WKV_TOL = dict(atol=1e-4, rtol=1e-4)
 #    by ~1e-4, while a kernel that dropped or repeated one key of ~1,000
 #    moves them by ~1e-2 or more.  The routing decisions of both paths are
 #    counted; the gate holds on the batch rows whose routes all agree.
+#  * zamba2-2.7b, float32: in bf16 each of the 9 shared blocks' K2 call
+#    moves its attention output by a bf16 step, and 54 Mamba layers, each
+#    rounding its gated norm and projections to bf16, carry and re-round
+#    it; the logits would then move by as much as a faulty kernel's.  In
+#    float32 the paths differ by ~1e-6 relative a K2 call; through 54
+#    layers logits of |logit| <= 5 move by ~1e-4, while a kernel that
+#    dropped or repeated one key of ~1,000 moves them by ~1e-2 or more.
+#  * qwen2-vl-72b (8 layers), float32: in bf16 the decode step's K2 call
+#    and the plain attention's bf16 roundings of q*scale and the
+#    probabilities sit a bf16 step apart a layer, and through 8 layers of
+#    d_model 8,192 the logits move by up to ~7e-2 (read on the card), more
+#    than a kernel that dropped or repeated one key of ~1,000 (~1e-2)
+#    would.  In float32 the prefills of both paths are the same code (the
+#    prompt's vision rows make the bf16 pass float32 as well) and the step
+#    differs by ~1e-6 relative a K2 call; through 8 layers logits of
+#    |logit| <= 5 move by ~1e-5, so a gate of 1e-2 sees such a fault.
 PATH_CHECK = {DENSE_ARCH: (torch.bfloat16, 0.125),
               SSM_ARCH: (torch.float32, 1e-2),
-              MOE_ARCH: (torch.float32, 1e-2)}
+              MOE_ARCH: (torch.float32, 1e-2),
+              HYBRID_ARCH: (torch.float32, 1e-2),
+              VLM_ARCH: (torch.float32, 1e-2)}
 # K2 at the planner's shape (phases 2, 5, 6): one mistral-large-123b layer
 # decoding at 32k context, batch 8, 96 query heads over 8 KV heads of 128
 # (G 12), the study's decode plan (launch/coaxial_study.DECODE_PLAN).
@@ -1882,19 +1912,112 @@ def decode_attn_timing(da, ref, shape, length, seed, spec):
             "bound_by": bound_by, "library_ms": best["library"]}
 
 
-def serve_path(serve, kernels, arch, expected):
+@contextlib.contextmanager
+def depth_cut(serve, n_layers):
+    """``serve.main`` builds its model from ``serve.get_config``: with
+    ``n_layers``, the named config cut to that many layers (full layer
+    width); serve has no flag for it, as the reference's has none."""
+    if n_layers is None:
+        yield
+        return
+    orig = serve.get_config
+    serve.get_config = lambda arch: dataclasses.replace(
+        orig(arch), n_layers=n_layers)
+    try:
+        yield
+    finally:
+        serve.get_config = orig
+
+
+def serve_path(serve, kernels, arch, expected, n_layers=None):
     """Phase 3 for one path: counts to 0, serve once, read the counts."""
     for kern in kernels.values():
         kern.launches = 0
-    toks = serve.main(["--arch", arch, "--batch", str(BATCH),
-                       "--prompt-len", str(PROMPT), "--gen", str(GEN),
-                       "--seed", str(SEED)])
+    with depth_cut(serve, n_layers):
+        toks = serve.main(["--arch", arch, "--batch", str(BATCH),
+                           "--prompt-len", str(PROMPT), "--gen", str(GEN),
+                           "--seed", str(SEED)])
     launches = {name: kern.launches for name, kern in kernels.items()}
     log(f"{arch}: kernel launches on the serving path: {launches} "
         f"(expected {expected})")
     if launches != expected:
         fail(f"{arch}: launch counts {launches} != {expected}")
     return toks, launches
+
+
+#: The serving paths of phases 3 and 4: arch -> (layers served, None for
+#: all of them; the hand kernel the path launches; its symbol in the
+#: profiler's rows of a bf16 decode step).
+SERVE_PATHS = {DENSE_ARCH: (None, "decode_attn", "decode_attn_mma"),
+               SSM_ARCH: (None, "wkv", "wkv_kernel"),
+               MOE_ARCH: (None, "decode_attn", "decode_attn_mma"),
+               HYBRID_ARCH: (None, "decode_attn", "decode_attn_mma"),
+               VLM_ARCH: (VLM_LAYERS, "decode_attn", "decode_attn_mma")}
+
+
+def path_launches(cfg, kname) -> int:
+    """The launches of ``kname`` one serve.main run implies: wkv every
+    layer on both prefills and every step; decode_attn every attention
+    layer on every step (a hybrid model's shared block once a group)."""
+    if kname == "wkv":
+        return (GEN + 2) * cfg.n_layers
+    if cfg.family == "hybrid":
+        return GEN * (cfg.n_layers // cfg.attn_every)
+    return GEN * cfg.n_layers
+
+
+def serve_phase(archs=tuple(SERVE_PATHS)):
+    """Phases 3 and 4 for the serving paths ``archs``: each through
+    ``serve.main`` with every kernel's count at 0 just before and the
+    exact counts just after, then its logits kernel path against plain
+    path (``PATH_CHECK``) and its prefill and decode steps timed.  Returns
+    (launches a kernel, summed over the paths; the profiler's time a
+    launch of each path's kernel on its decode steps, by arch).  Alone,
+    the hybrid and vlm paths: ``python3 -c "import chip_smoke;
+    chip_smoke.serve_phase(['zamba2-2.7b', 'qwen2-vl-72b'])"``."""
+    if not torch.cuda.is_available():
+        fail("torch sees no CUDA card; this script runs only on one")
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticDataset
+    from repro_torch.kernels import build
+    from repro_torch.kernels import memsim_scan as ms
+    from repro_torch.kernels import stream as ks
+    from repro_torch.launch import serve
+    from repro_torch.models import moe
+    from repro_torch.models.model import Model
+
+    kernels = {kname: kern for family in serve.PATH_KERNELS.values()
+               for kname, kern in family.items()}
+    build.load_all([kern.library for kern in kernels.values()])
+    kernels.update(ks.KERNELS)
+    kernels.update(ms.KERNELS)
+    none = dict.fromkeys(kernels, 0)
+    cfgs = {}
+    for arch in archs:
+        n_layers = SERVE_PATHS[arch][0]
+        cfg = get_config(arch)
+        cfgs[arch] = cfg if n_layers is None else dataclasses.replace(
+            cfg, n_layers=n_layers)
+    launches = {}
+    for arch, cfg in cfgs.items():
+        n_layers, kname, _ = SERVE_PATHS[arch]
+        expected = {**none, kname: path_launches(cfg, kname)}
+        toks, counts = serve_path(serve, kernels, arch, expected, n_layers)
+        launches[kname] = launches.get(kname, 0) + counts[kname]
+        if toks.shape != (BATCH, GEN) or toks.min() < 0 or \
+                toks.max() >= cfg.vocab:
+            fail(f"{arch}: bad generated tokens: shape {toks.shape}, "
+                 f"range [{toks.min()}, {toks.max()}]")
+    step_launch_ms = {}
+    s_max = PROMPT + GEN
+    for arch, cfg in cfgs.items():
+        dtype, tol = PATH_CHECK[arch]
+        path_check(Model, SyntheticDataset, dataclasses.replace(
+            cfg, dtype=str(dtype).removeprefix("torch.")), s_max, tol,
+            moe=moe if cfg.family == "moe" else None)
+        step_launch_ms[arch] = decode_timing(
+            Model, SyntheticDataset, cfg, s_max, SERVE_PATHS[arch][2])
+    return launches, step_launch_ms
 
 
 def clone_cache(cache):
@@ -1904,14 +2027,19 @@ def clone_cache(cache):
 
 
 def prompt_of(SyntheticDataset, cfg):
+    """serve's prompt: the pipeline's batch without its training keys
+    (for qwen2-vl its vision rows and (B, S, 3) M-RoPE positions)."""
     return {k: v for k, v in SyntheticDataset(
         cfg, BATCH, PROMPT, seed=SEED + 1).batch_at(0).items()
-        if k in ("tokens", "positions")}
+        if k not in ("targets", "loss_mask")}
 
 
-def step_of(tok, cache):
-    return dict(tokens=tok[:, None], positions=torch.full(
-        (BATCH, 1), cache["len"], dtype=torch.int32, device="cuda"))
+def step_of(tok, cache, cfg):
+    pos = torch.full((BATCH, 1), cache["len"], dtype=torch.int32,
+                     device=tok.device)
+    if cfg.mrope_sections:
+        pos = pos[..., None].expand(-1, -1, 3)
+    return dict(tokens=tok[:, None], positions=pos)
 
 
 class RouteLog:
@@ -1985,7 +2113,7 @@ def path_check(Model, SyntheticDataset, cfg, s_max, tol, moe=None):
         for path in ("kernel", "plain"):
             with routes.collect(f"step {path}"):
                 step[path] = model.decode_step(
-                    params, step_of(tok, cache), clone_cache(cache),
+                    params, step_of(tok, cache, cfg), clone_cache(cache),
                     plain_kernels=path != "kernel")[0]
         torch.cuda.synchronize()
         worst = 0.0
@@ -2056,7 +2184,7 @@ def decode_timing(Model, SyntheticDataset, cfg, s_max, symbol):
         def decode_run(plain: bool, c):
             t = tok
             for _ in range(n_steps):
-                lg, c = model.decode_step(params, step_of(t, c), c,
+                lg, c = model.decode_step(params, step_of(t, c, cfg), c,
                                           plain_kernels=plain)
                 t = lg.argmax(-1).to(torch.int32)
             torch.cuda.synchronize()
@@ -2108,7 +2236,6 @@ def main():
 
     from repro_torch.configs import get_config
     from repro_torch.core import hw
-    from repro_torch.data.pipeline import SyntheticDataset
     from repro_torch.kernels import build, ref
     from repro_torch.core import memsim, threefry
     from repro_torch.kernels import decode_attn as da
@@ -2117,8 +2244,6 @@ def main():
     from repro_torch.kernels import stream as ks
     from repro_torch.launch import serve
     from repro_torch.launch import stream as probe
-    from repro_torch.models import moe
-    from repro_torch.models.model import Model
 
     # -- phase 1: the card and the build --------------------------------
     smi = subprocess.run(
@@ -2161,17 +2286,19 @@ def main():
     hybrid = get_config(HYBRID_ARCH)        # zamba2-2.7b: head dim 80
     hybrid_shape = (BATCH, hybrid.n_heads, hybrid.n_kv_heads,
                     hybrid.resolved_head_dim, s_max)
+    vlm = dataclasses.replace(get_config(VLM_ARCH), n_layers=VLM_LAYERS)
+    vlm_shape = (BATCH, vlm.n_heads, vlm.n_kv_heads, vlm.resolved_head_dim,
+                 s_max)                     # qwen2-vl-72b: G 8, D 128
     plan_s = PLAN_LAYER_SHAPE[-1]
     path_err = {"decode_attn": 0.0}
     for dtype in (torch.bfloat16, torch.float32):
-        for shape, seed in ((slice_shape, 1), (moe_shape, 6)):
+        for shape, seed in ((slice_shape, 1), (moe_shape, 6),
+                            (hybrid_shape, 11), (vlm_shape, 21)):
             err = check_decode_attn(
                 da, ref, shape, dtype,
                 [1, 333, PROMPT + 1, PROMPT + 17, s_max], seed=seed)
             if dtype == torch.bfloat16:
                 path_err["decode_attn"] = max(path_err["decode_attn"], err)
-        check_decode_attn(da, ref, hybrid_shape, dtype,
-                          [1, 333, PROMPT + 1, PROMPT + 17, s_max], seed=11)
         check_decode_attn(da, ref, gqa_shape, dtype, [1, 1000, 4095, 4096],
                           seed=2)
         check_decode_attn(da, ref, PLAN_LAYER_SHAPE, dtype,
@@ -2181,7 +2308,8 @@ def main():
                           seed=12, parts=da.MAX_PARTS)
         # One either side of a tile and of a part boundary, in the parts
         # the full cache is split into.
-        for shape, seed in ((gqa_shape, 13), (PLAN_LAYER_SHAPE, 14)):
+        for shape, seed in ((gqa_shape, 13), (PLAN_LAYER_SHAPE, 14),
+                            (vlm_shape, 23)):
             cut, edges = split_edges(da, shape)
             log(f"  {shape}: full cache split into {cut.parts} parts of "
                 f"{cut.part_keys} keys; edges {edges}")
@@ -2204,7 +2332,8 @@ def main():
         check_back_to_back(da, ref, [
             (gqa_shape, [4096, 1, 1000]), (slice_shape, [PROMPT + 16, 7]),
             (PLAN_LAYER_SHAPE, [plan_s, 2]),
-            (hybrid_shape, [PROMPT + 16, 65])], dtype, seed=20)
+            (hybrid_shape, [PROMPT + 16, 65]),
+            (vlm_shape, [PROMPT + 16, 300])], dtype, seed=20)
     h, hd = ssm.rwkv_heads, ssm.rwkv_head_dim
     path_err["wkv"] = 0.0
     seed = 10
@@ -2235,26 +2364,12 @@ def main():
     # memsim's two scans, bit for bit, on stage-A draws made on the card.
     path_err["memsim"] = check_memsim_scans(ms, ref, memsim, threefry, seed)
 
-    # -- phase 3: each path through its entry point --------------------------
-    # decode_attn's launches in the JSON line are those of both serving
-    # paths that run it (stablelm-1.6b and olmoe-1b-7b).
-    launches = {}
-    none = dict.fromkeys(kernels, 0)
-    for arch, cfg, kname, expected in (
-            (DENSE_ARCH, dense, "decode_attn",
-             {**none, "decode_attn": GEN * dense.n_layers}),
-            (SSM_ARCH, ssm, "wkv",
-             {**none, "wkv": (GEN + 2) * ssm.n_layers}),
-            (MOE_ARCH, moe_cfg, "decode_attn",
-             {**none, "decode_attn": GEN * moe_cfg.n_layers})):
-        toks, counts = serve_path(serve, kernels, arch, expected)
-        launches[kname] = launches.get(kname, 0) + counts[kname]
-        if toks.shape != (BATCH, GEN) or toks.min() < 0 or \
-                toks.max() >= cfg.vocab:
-            fail(f"{arch}: bad generated tokens: shape {toks.shape}, "
-                 f"range [{toks.min()}, {toks.max()}]")
+    # -- phases 3 and 4: each serving path through serve.main, then held
+    # kernel path against plain path and timed ------------------------------
+    launches, step_launch_ms = serve_phase()
 
     # The STREAM probe: its own size, then the reference's shape in L2.
+    none = dict.fromkeys(kernels, 0)
     for kern in kernels.values():
         kern.launches = 0
     probed = probe.main(["--n", str(STREAM_N), "--iters", str(STREAM_ITERS),
@@ -2276,22 +2391,11 @@ def main():
             f"{probed[op]['best_ms']:.5f} ms, L2-resident reference shape "
             f"{probed[op]['l2_mean_ms']:.5f} ms)")
 
-    # -- phase 4: path checks and decode-step timing ------------------------
-    step_launch_ms = {}
-    for cfg, symbol in ((dense, "decode_attn_mma"), (ssm, "wkv_kernel"),
-                        (moe_cfg, "decode_attn_mma")):
-        dtype, tol = PATH_CHECK[cfg.name]
-        path_check(Model, SyntheticDataset, dataclasses.replace(
-            cfg, dtype=str(dtype).removeprefix("torch.")), s_max, tol,
-            moe=moe if cfg.family == "moe" else None)
-        step_launch_ms[cfg.name] = decode_timing(Model, SyntheticDataset,
-                                                 cfg, s_max, symbol)
-
     # -- phase 5: kernel time, bound, plain and library ----------------------
     # K2 at stablelm-1.6b's decode (the JSON line's numbers), starcoder2-3b's
-    # (G 12 over Hk 2), olmoe-1b-7b's (D 128, G 1), zamba2-2.7b's (D 80) and
-    # the planner's mistral-large layer at 32k (G 12): phase 6 holds the
-    # planner's memory term to the last.
+    # (G 12 over Hk 2), olmoe-1b-7b's (D 128, G 1), zamba2-2.7b's (D 80),
+    # qwen2-vl-72b's (D 128, G 8) and the planner's mistral-large layer at
+    # 32k (G 12): phase 6 holds the planner's memory term to the last.
     k2 = decode_attn_timing(da, ref, slice_shape, PROMPT + GEN // 2, 3,
                             spec)
     dev = step_launch_ms[DENSE_ARCH]
@@ -2303,7 +2407,12 @@ def main():
     dev = step_launch_ms[MOE_ARCH]
     log(f"decode_attn on olmoe-1b-7b's decode steps of phase 4: "
         f"{'not measured' if dev is None else f'{dev:.5f} ms a launch'}")
-    decode_attn_timing(da, ref, hybrid_shape, PROMPT + GEN // 2, 10, spec)
+    for shape, arch, seed in ((hybrid_shape, HYBRID_ARCH, 10),
+                              (vlm_shape, VLM_ARCH, 22)):
+        decode_attn_timing(da, ref, shape, PROMPT + GEN // 2, seed, spec)
+        dev = step_launch_ms[arch]
+        log(f"decode_attn on {arch}'s decode steps of phase 4: "
+            f"{'not measured' if dev is None else f'{dev:.5f} ms a launch'}")
     plan_k2 = decode_attn_timing(da, ref, PLAN_LAYER_SHAPE, plan_s, 9, spec)
     entries = [{
         "name": "decode_attn", "route": "cuda",

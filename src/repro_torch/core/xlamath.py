@@ -1,5 +1,5 @@
-"""float32 ``log``, ``exp``, ``log1p``, ``pow`` and FMA as the reference's
-compiled code rounds them, in torch ops.
+"""float32 ``log``, ``exp``, ``log1p``, ``pow``, FMA and cumulative sums as
+the reference's compiled code rounds them, in torch ops.
 
 The reference's DES runs its transcendental math through XLA's CPU code
 generator, which does not call a correctly rounded library: ``log`` and
@@ -152,3 +152,35 @@ def pow(x, y):
     its last bit in ~6e-4 of the DES's inputs)."""
     x, y = torch.as_tensor(x, dtype=F32), torch.as_tensor(y, dtype=F32)
     return torch.pow(x.to(F64), y.to(F64)).to(F32)
+
+
+#: Block length of XLA's cumulative sum.  XLA (CPU) computes a cumulative
+#: sum of length L > 16 as blocks of 16, each summed left to right, plus
+#: the exclusive cumulative sum of the block totals, taken the same way
+#: recursively; a length <= 16 is summed left to right.
+_XLA_SCAN_BLOCK = 16
+
+
+def cumsum0(x):
+    """Cumulative sum along dim 0 in XLA's order of float additions, so
+    that equal inputs give the reference's partial sums bit for bit (a
+    float sum's value depends on its order; ``torch.cumsum`` sums in
+    another, and on the CPU in float64)."""
+    length = x.shape[0]
+    b = _XLA_SCAN_BLOCK
+    if length <= b:
+        out = x.clone()
+        for j in range(1, length):
+            out[j] += out[j - 1]
+        return out
+    nb = -(-length // b)
+    pad = nb * b - length
+    if pad:
+        x = torch.cat([x, x.new_zeros((pad,) + x.shape[1:])])
+    inner = x.reshape((nb, b) + x.shape[1:]).clone()
+    for j in range(1, b):
+        inner[:, j] += inner[:, j - 1]
+    before = cumsum0(inner[:, -1])
+    excl = torch.cat([before.new_zeros((1,) + before.shape[1:]),
+                      before[:-1]])
+    return (inner + excl[:, None]).reshape((nb * b,) + x.shape[1:])[:length]

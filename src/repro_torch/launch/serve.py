@@ -6,12 +6,19 @@
         --batch 8 --prompt-len 1024 --gen 32
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \
         --batch 8 --prompt-len 1024 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \
+        --batch 8 --prompt-len 1024 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-vl-72b \
+        --smoke --device cpu
 
 Port of ``repro/launch/serve.py``: cache construction, batched prefill and
 the decode hot loop.  The hand kernels on the path depend on the family
-(``PATH_KERNELS``): a dense or moe model's decode attention is
-``decode_attn``; an ssm (rwkv6) model's WKV recurrence is ``wkv``, on
-prefill and on every decode step.  Weights are random, made from
+(``PATH_KERNELS``): the decode attention of a dense, vlm, moe or hybrid
+model is ``decode_attn`` (a hybrid model's shared attention block, once a
+group); an ssm (rwkv6) model's WKV recurrence is ``wkv``, on prefill and
+on every decode step.  A vlm prompt carries the synthetic pipeline's
+vision rows and (B, S, 3) M-RoPE positions.  qwen2-vl-72b (145 GB in
+bf16) does not fit one card at full depth.  Weights are random, made from
 ``--seed``.  Runs on the card unless ``--device cpu`` is given; with no
 card, ``--device cuda`` raises.
 """
@@ -29,7 +36,9 @@ from repro_torch.models.model import Model
 
 #: The hand kernels each ported family's serving path launches.
 PATH_KERNELS = {"dense": {"decode_attn": decode_attn.KERNEL},
+                "vlm": {"decode_attn": decode_attn.KERNEL},
                 "moe": {"decode_attn": decode_attn.KERNEL},
+                "hybrid": {"decode_attn": decode_attn.KERNEL},
                 "ssm": {"wkv": rwkv_wkv.KERNEL}}
 
 

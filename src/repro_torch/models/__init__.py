@@ -1,4 +1,5 @@
-"""Model zoo port: config, layers, attention, stacks (dense, ssm)."""
+"""Model zoo port: config, layers, attention, stacks (dense, vlm, moe,
+hybrid, ssm)."""
 
 from repro_torch.models.config import ModelConfig, smoke_variant  # noqa: F401
 from repro_torch.models.model import Model  # noqa: F401

@@ -133,12 +133,26 @@ def _rotate(x, cos, sin):
 
 def apply_rope(q, k, positions, head_dim: int, theta: float,
                mrope_sections: Optional[tuple] = None):
-    """Rotary embedding.  q: (B, S, Hq, D), k: (B, S, Hk, D);
-    positions: (B, S) integer."""
-    if mrope_sections is not None:
-        raise NotImplementedError("M-RoPE (vlm family) is not ported yet")
+    """Rotary embedding.
+
+    q: (B, S, Hq, D), k: (B, S, Hk, D).
+    positions: (B, S) integer, or (B, S, 3) for M-RoPE (t, h, w component
+    positions per token, qwen2-vl style: the frequency spectrum is split
+    into ``mrope_sections`` groups, each rotated by its own position).
+    """
     inv = rope_freqs(head_dim, theta, device=q.device)      # (half,)
-    angles = positions.float()[..., None] * inv             # (B, S, half)
+    if mrope_sections is None:
+        angles = positions.float()[..., None] * inv         # (B, S, half)
+    else:
+        if positions.dim() != 3 or positions.shape[-1] != len(
+                mrope_sections):
+            raise ValueError(f"M-RoPE wants (B, S, {len(mrope_sections)}) "
+                             f"positions, got {tuple(positions.shape)}")
+        # The static section -> component table: frequency i turns by
+        # the position of component sec[i].
+        sec = torch.tensor([i for i, n in enumerate(mrope_sections)
+                            for _ in range(n)], device=q.device)
+        angles = positions.float()[..., sec] * inv          # (B, S, half)
     cos = torch.cos(angles)[:, :, None, :].to(q.dtype)
     sin = torch.sin(angles)[:, :, None, :].to(q.dtype)
     return _rotate(q, cos, sin), _rotate(k, cos, sin)

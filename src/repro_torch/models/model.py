@@ -1,7 +1,8 @@
 """Public model API: init / prefill / decode_step / greedy_generate.
 
 Port of ``repro/models/model.py`` for the serving path of the ported
-families (``transformer.PORTED_FAMILIES``: dense, moe and ssm).
+families (``transformer.PORTED_FAMILIES``: dense, vlm, moe, hybrid and
+ssm; the audio family, encoder-only, waits for training).
 Every entry point runs on an explicit device: ``cuda`` unless the caller
 asks for ``cpu``.  Asking for ``cuda`` where there is no card raises; the
 model never carries on on the CPU.  Training (``loss``) is not ported yet.
@@ -66,7 +67,7 @@ class Model:
 
     def _logits(self, params, h):
         w_head = layers.unembed_matrix(self.cfg, params["embed"])
-        return (h[:, -1, :] @ w_head).float()
+        return (h[:, -1, :] @ transformer.as_dtype(w_head, h.dtype)).float()
 
     def prefill(self, params, batch, cache, plain_kernels: bool = False):
         """Run a prompt through the model from ``cache``, which is written
@@ -99,6 +100,8 @@ class Model:
         for _ in range(steps):
             pos = torch.full((tok.shape[0], 1), cache["len"],
                              dtype=torch.int32, device=self.device)
+            if self.cfg.mrope_sections:
+                pos = pos[..., None].expand(-1, -1, 3)   # (B, 1, 3)
             sb = dict(tokens=tok[:, None], positions=pos)
             logits, cache = self.decode_step(params, sb, cache)
             tok = logits.argmax(dim=-1).to(torch.int32)

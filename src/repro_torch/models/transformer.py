@@ -5,16 +5,23 @@ layer body over stacked ``(L, ...)`` parameters; here a Python loop walks
 the same stacked tensors (``params["layers"][...][i]`` is a view).
 
 Families ported:
-  dense -- pre-RMSNorm GQA + MLP decoder with a KV cache
-  moe   -- pre-RMSNorm GQA + top-k routed experts (``models/moe.py``),
-           with the dense family's KV cache
-  ssm   -- RWKV6 time-mix + channel-mix with a recurrent state
-The others (hybrid, audio, vlm) are not ported yet.
+  dense  -- pre-RMSNorm GQA + MLP decoder with a KV cache
+  vlm    -- the dense body with M-RoPE ((B, S, 3) positions) and vision
+            rows: ``vision_embeds @ frontend.proj`` replaces the token
+            embedding where ``vision_mask`` is set (qwen2-vl)
+  moe    -- pre-RMSNorm GQA + top-k routed experts (``models/moe.py``),
+            with the dense family's KV cache
+  hybrid -- groups of ``attn_every`` Mamba2 layers (``models/ssm.py``),
+            each group followed by one *shared* attention block: every
+            group applies the same weights (``shared_attn``) with its own
+            KV slice (zamba2)
+  ssm    -- RWKV6 time-mix + channel-mix with a recurrent state
+The audio family is not ported yet.
 
 Caches carry their length as a host int, so the decode loop never waits on
 the device for it.
-  * dense, moe: ``{"k", "v": (L, B, S_max, Hk, hd), "len"}``.  Unlike the
-    reference, which returns a new cache array from
+  * dense, vlm, moe: ``{"k", "v": (L, B, S_max, Hk, hd), "len"}``.  Unlike
+    the reference, which returns a new cache array from
     ``dynamic_update_slice``, the port writes each step's K/V into the
     cache tensors IN PLACE and returns a new dict holding the same tensors
     and the advanced length.
@@ -24,13 +31,29 @@ the device for it.
     IN PLACE (the ``wkv`` kernel writes its final state over its input
     state, which is safe because one block owns one (batch, head) state and
     reads all of it before writing it) and returns a new dict holding the
-    same tensors and the advanced length.  So the input cache holds the
-    new state after the pass: a caller that runs two passes from one state
-    clones the cache first.
+    same tensors and the advanced length.
+  * hybrid: ``{"ssm_state": (L, B, H, N, P) fp32, "conv": (L, B, cw - 1,
+    d_inner + 2N) model dtype, "k", "v": (groups, B, S_max, Hk, hd),
+    "len"}``.  Each Mamba layer writes its new state and conv window into
+    its slices, and each group's shared block its K/V into the group's
+    slice, IN PLACE; the pass returns a new dict holding the same tensors
+    and the advanced length.
+So the input cache holds the new state after the pass: a caller that runs
+two passes from one state clones the cache first.
 
-``plain_kernels=True`` sends every hand kernel on the pass (the dense and
-moe decode step's ``decode_attn``, every layer's ``wkv``) to its plain
-version; it exists only to compare the two paths.
+Vision rows (vlm): the reference's ``vision_embeds`` are float32, so the
+projected rows are float32 and ``jnp.where`` promotes the whole pass to
+float32 activations, each product meeting its bfloat16 weight upcast; the
+K/V cache is still written in the model dtype.  The port does the same
+through one cast, ``as_dtype``: a layer whose activations are wider than
+its weights takes its weights, and its attention the cache's valid
+prefix, cast to the activations' dtype (a one-token pass so runs the
+decode kernel's float32 build).  A pass without vision rows stays in the
+model dtype and casts nothing.
+
+``plain_kernels=True`` sends every hand kernel on the pass (the decode
+step's ``decode_attn``, every layer's ``wkv``) to its plain version; it
+exists only to compare the two paths.
 """
 
 from __future__ import annotations
@@ -40,14 +63,14 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.models import attention, layers, moe, rwkv
+from repro_torch.models import attention, layers, moe, rwkv, ssm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Spec
 
 #: Stub modality-frontend feature width (audio frames / vision patches).
 FRONTEND_DIM = 512
 
-PORTED_FAMILIES = ("dense", "moe", "ssm")
+PORTED_FAMILIES = ("dense", "vlm", "moe", "hybrid", "ssm")
 
 
 def check_ported(cfg: ModelConfig) -> None:
@@ -64,15 +87,32 @@ def check_ported(cfg: ModelConfig) -> None:
 def model_specs(cfg: ModelConfig) -> dict:
     check_ported(cfg)
     d = cfg.d_model
-    specs = {
+    specs: dict = {
         "embed": layers.embed_specs(cfg),
         "final_norm": Spec((d,), ("embed",), init="zeros"),
-        "layers": {
-            "ln1": Spec((cfg.n_layers, d), ("layers", "embed"), init="zeros"),
-            "ln2": Spec((cfg.n_layers, d), ("layers", "embed"), init="zeros"),
-        },
     }
-    if cfg.family == "dense":
+    if cfg.embed_inputs or cfg.family == "vlm":
+        specs["frontend"] = {
+            "proj": Spec((FRONTEND_DIM, d), ("frontend", "embed"))}
+    if cfg.family == "hybrid":
+        if cfg.n_layers % cfg.attn_every:
+            raise ValueError("hybrid: n_layers must divide by attn_every")
+        specs["layers"] = {
+            "ln1": Spec((cfg.n_layers, d), ("layers", "embed"), init="zeros"),
+            "mamba": ssm.ssm_specs(cfg),
+        }
+        specs["shared_attn"] = {
+            "ln1": Spec((d,), ("embed",), init="zeros"),
+            "ln2": Spec((d,), ("embed",), init="zeros"),
+            "attn": attention.attn_specs(cfg, layered=False),
+            "mlp": layers.mlp_specs(cfg, layered=False),
+        }
+        return specs
+    specs["layers"] = {
+        "ln1": Spec((cfg.n_layers, d), ("layers", "embed"), init="zeros"),
+        "ln2": Spec((cfg.n_layers, d), ("layers", "embed"), init="zeros"),
+    }
+    if cfg.family in ("dense", "vlm"):
         specs["layers"]["attn"] = attention.attn_specs(cfg)
         specs["layers"]["mlp"] = layers.mlp_specs(cfg)
     elif cfg.family == "moe":
@@ -87,6 +127,16 @@ def layer_params(params_layers: dict, i: int) -> dict:
     """Layer i's slice of the stacked per-layer parameter tree."""
     return {name: (layer_params(sub, i) if isinstance(sub, dict) else sub[i])
             for name, sub in params_layers.items()}
+
+
+def as_dtype(t, dtype):
+    """``t`` (a tensor or a tree of them) cast to ``dtype``; a tensor
+    already of it is returned as it is.  The one cast of the vision rows'
+    promotion (module note): weights, the embedding rows and the cache
+    meet float32 activations as float32."""
+    if isinstance(t, dict):
+        return {name: as_dtype(sub, dtype) for name, sub in t.items()}
+    return t if t.dtype == dtype else t.to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -109,6 +159,11 @@ def _attn_block(cfg: ModelConfig, pl, x, positions, causal, kv_cache,
         k_cache, v_cache, cache_len = kv_cache
         k_cache[:, cache_len:cache_len + s] = k
         v_cache[:, cache_len:cache_len + s] = v
+        if q.dtype != k_cache.dtype:
+            # float32 queries (vision rows) meet the model dtype's cache
+            # upcast, as the reference's einsum does: its valid prefix.
+            k_cache, v_cache = (as_dtype(c[:, :cache_len + s], q.dtype)
+                                for c in (k_cache, v_cache))
         if s == 1 and not plain_kernels:
             # The decode step: the hand kernel on the card.
             o = ops.decode_attn(q[:, 0], k_cache, v_cache,
@@ -139,6 +194,15 @@ def _moe_body(cfg, x, pl, positions, causal, kv_cache,
     return x + moe.moe_apply(cfg, pl["moe"], h)
 
 
+def _mamba_body(cfg, x, pl, cache):
+    """cache is None or (state, conv_state); returns (x, (new_state,
+    new_conv_state))."""
+    state, conv = cache if cache is not None else (None, None)
+    h = layers.rms_norm(x, pl["ln1"], cfg.norm_eps)
+    y, new = ssm.mamba_apply(cfg, pl["mamba"], h, state, conv)
+    return x + y, new
+
+
 def _rwkv_body(cfg, x, pl, cache, plain_kernels: bool = False,
                in_place: bool = False):
     """cache is (tm_shift, wkv_state, cm_shift); with ``in_place`` the
@@ -157,21 +221,37 @@ def _rwkv_body(cfg, x, pl, cache, plain_kernels: bool = False,
     return x, (new_tm, new_wkv, new_cm)
 
 
+def _embed_inputs(cfg: ModelConfig, params, batch):
+    x = layers.embed_apply(cfg, params["embed"], batch["tokens"])
+    if cfg.family == "vlm" and "vision_embeds" in batch:
+        rows = batch["vision_embeds"]
+        dtype = torch.promote_types(rows.dtype, x.dtype)
+        proj = as_dtype(rows, dtype) @ as_dtype(params["frontend"]["proj"],
+                                                dtype)
+        x = torch.where(batch["vision_mask"][..., None], proj,
+                        as_dtype(x, dtype))
+    return x
+
+
 def forward(cfg: ModelConfig, params, batch, *,
             cache: Optional[dict] = None, plain_kernels: bool = False):
     """Full forward pass -> (hidden (B,S,D), new_cache_or_None).
 
-    ``batch`` keys: tokens (B,S) and positions (B,S), integer tensors on
-    the parameters' device.  When ``cache`` is given the pass is an
-    incremental decode/prefill continuation that writes the cache in
-    place (see the module note).  ``plain_kernels`` sends every hand
-    kernel on the pass to its plain version; it exists only to compare the
-    two paths.
+    ``batch`` keys: tokens (B,S) and positions (B,S) [or (B,S,3) for
+    M-RoPE], integer tensors on the parameters' device; for vlm, optionally
+    vision_embeds (B,S,FRONTEND_DIM) and vision_mask (B,S) bool.  When
+    ``cache`` is given the pass is an incremental decode/prefill
+    continuation that writes the cache in place (see the module note).
+    ``plain_kernels`` sends every hand kernel on the pass to its plain
+    version; it exists only to compare the two paths.
     """
     check_ported(cfg)
-    x = layers.embed_apply(cfg, params["embed"], batch["tokens"])
+    x = _embed_inputs(cfg, params, batch)
     if cfg.family == "ssm":
         x, new_cache = _rwkv_stack(cfg, params, x, cache, plain_kernels)
+    elif cfg.family == "hybrid":
+        x, new_cache = _hybrid_stack(cfg, params, x, batch["positions"],
+                                     cache, plain_kernels)
     else:
         x, new_cache = _dense_stack(cfg, params, x, batch["positions"],
                                     cache, plain_kernels)
@@ -180,8 +260,8 @@ def forward(cfg: ModelConfig, params, batch, *,
 
 
 def _dense_stack(cfg, params, x, positions, cache, plain_kernels):
-    """The dense and moe families: attention with a KV cache, then the
-    family's feed-forward body."""
+    """The dense, vlm and moe families: attention with a KV cache, then
+    the family's feed-forward body."""
     body = _moe_body if cfg.family == "moe" else _dense_body
     causal = not cfg.encoder_only
     new_cache = None
@@ -191,10 +271,40 @@ def _dense_stack(cfg, params, x, positions, cache, plain_kernels):
                          len=cache_len + x.shape[1])
     for i in range(cfg.n_layers):
         pl = layer_params(params["layers"], i)
+        if pl["ln1"].dtype != x.dtype:      # vision rows (module note)
+            pl = as_dtype(pl, x.dtype)
         kv = None if cache is None else (cache["k"][i], cache["v"][i],
                                          cache_len)
         x = body(cfg, x, pl, positions, causal, kv, plain_kernels)
     return x, new_cache
+
+
+def _hybrid_stack(cfg, params, x, positions, cache, plain_kernels):
+    """Zamba2-style: ``n_layers / attn_every`` groups, each of
+    ``attn_every`` Mamba layers followed by the shared attention block
+    (the same weights every group; each group its own KV slice).  Without
+    a cache the Mamba layers start from no state (the conv padded with
+    zeros); with one, each continues from its slices and writes its new
+    state and conv window back into them."""
+    per = cfg.attn_every
+    shared = params["shared_attn"]
+    if cache is not None:
+        cache_len = cache["len"]
+    for g in range(cfg.n_layers // per):
+        for i in range(g * per, (g + 1) * per):
+            pl = layer_params(params["layers"], i)
+            st = None if cache is None else (cache["ssm_state"][i],
+                                             cache["conv"][i])
+            x, (new_state, new_conv) = _mamba_body(cfg, x, pl, st)
+            if cache is not None:
+                cache["ssm_state"][i].copy_(new_state)
+                cache["conv"][i].copy_(new_conv)
+        kv = None if cache is None else (cache["k"][g], cache["v"][g],
+                                         cache_len)
+        x = _dense_body(cfg, x, shared, positions, True, kv, plain_kernels)
+    if cache is None:
+        return x, None
+    return x, dict(cache, len=cache_len + x.shape[1])
 
 
 def _rwkv_stack(cfg, params, x, cache, plain_kernels):
@@ -226,8 +336,16 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
         tm, wkv, cm = (torch.stack([a] * cfg.n_layers) for a in
                        rwkv.init_rwkv_cache(cfg, batch, dtype, device))
         return dict(tm_shift=tm, wkv=wkv, cm_shift=cm, len=0)
-    # dense and moe: a KV cache.
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads,
+    # dense, vlm and moe: a KV cache a layer; hybrid: one a group, beside
+    # every Mamba layer's state and conv window.
+    kv_slices = cfg.n_layers
+    states = {}
+    if cfg.family == "hybrid":
+        kv_slices = cfg.n_layers // cfg.attn_every
+        state, conv = ssm.init_ssm_cache(cfg, batch, dtype, device)
+        states = dict(ssm_state=torch.stack([state] * cfg.n_layers),
+                      conv=torch.stack([conv] * cfg.n_layers))
+    shape = (kv_slices, batch, max_len, cfg.n_kv_heads,
              cfg.resolved_head_dim)
-    return dict(k=torch.zeros(shape, dtype=dtype, device=device),
+    return dict(**states, k=torch.zeros(shape, dtype=dtype, device=device),
                 v=torch.zeros(shape, dtype=dtype, device=device), len=0)

@@ -278,3 +278,22 @@ def test_rho_gradients_at_bounds_match_jax(fn, rho, kappa):
     want = jax.grad(lambda x: f(jq, x, kappa))(jnp.asarray(rho32))
     np.testing.assert_allclose(r.grad.numpy(), np.asarray(want),
                                rtol=GRAD_RTOL)
+
+
+def test_clip_bounds_are_never_written():
+    """Every ``queueing`` clip shares one cached 0-dim tensor per bound,
+    so a write to one would move every later solve in the process.  After
+    the study twin on the CPU (the solves, the Pareto frontier and
+    ``design_gradient``'s autograd through ``maximum``/``minimum``), and an
+    in-place write to a clip's result, each bound the study clips to is
+    untouched (``_bound`` hands back its cached tensor)."""
+    from repro_torch.core import cpu_model
+    from repro_torch.launch import coaxial_study
+    coaxial_study.main(["--device", "cpu"])
+    x = queueing.clip(torch.tensor([-1.0, 0.5, 2.0]), 0.0, 1.0)
+    x.mul_(3.0)
+    for value in (0.0, 1.0, 1e-9, queueing.RHO_MAX, cpu_model.MAX_MLP):
+        t = queueing._bound(value, torch.float32)
+        assert t is queueing._bound(value, torch.float32)
+        assert t._version == 0, value
+        assert t.item() == torch.tensor(value, dtype=torch.float32).item()

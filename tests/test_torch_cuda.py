@@ -49,6 +49,7 @@ def _qkv(b, hq, hk, d, s, dtype, seed=0):
     (3, 8, 1, 32, 300),         # G = 8, head dim 32
     (2, 96, 8, 128, 32768),     # a mistral-large-123b layer at 32k (G 12)
     (8, 32, 32, 80, 1056),      # zamba2-2.7b decode (head dim 80)
+    (8, 64, 8, 128, 1056),      # qwen2-vl-72b decode (G 8, head dim 128)
 ])
 def test_kernel_matches_plain(dtype, b, hq, hk, d, s):
     """Lengths 1 (at 32k for the mistral layer), a third, S - 1 and S."""
@@ -161,32 +162,63 @@ def test_dispatch_launches_on_cuda_and_raises_on_bad_input():
 
 
 @pytest.mark.parametrize("arch", ["stablelm-1.6b", "starcoder2-3b",
-                                  "olmoe-1b-7b"])
+                                  "olmoe-1b-7b", "zamba2-2.7b",
+                                  "qwen2-vl-72b"])
 def test_decode_step_kernel_path_matches_plain_path(arch):
     """float32 smoke model: the decode step through the kernel and through
-    the plain decode_attention give the same logits."""
+    the plain decode_attention give the same logits (qwen2-vl's prompt
+    carries the pipeline's vision rows and M-RoPE positions)."""
     _need_card()
     cfg = smoke_variant(get_config(arch))
     m = Model(cfg)
     params = m.init(0)
     batch = SyntheticDataset(cfg, 2, 17, seed=3).batch_at(0)
-    prompt = {k: batch[k][:, :16] for k in ("tokens", "positions")}
+    prompt = {k: v[:, :16] for k, v in batch.items()
+              if k not in ("targets", "loss_mask")}
     step = {k: batch[k][:, 16:17] for k in ("tokens", "positions")}
     _, cache = m.prefill(params, prompt, m.make_cache(2, 20))
+    # A pass writes its cache in place (a hybrid model's Mamba states
+    # too): each path's step starts from its own copy.
+    copy = {k: (t.clone() if torch.is_tensor(t) else t)
+            for k, t in cache.items()}
     a, _ = m.decode_step(params, step, cache)
-    b, _ = m.decode_step(params, step, cache, plain_kernels=True)
+    b, _ = m.decode_step(params, step, copy, plain_kernels=True)
     torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
 
 
-@pytest.mark.parametrize("arch", ["stablelm-1.6b", "olmoe-1b-7b"])
-def test_serve_smoke_launches_the_kernel_every_layer_and_step(arch):
+def test_vlm_one_token_prompt_with_vision_embeds_runs_on_the_card():
+    """bf16 qwen2-vl: a one-token prompt that carries vision embeddings
+    runs in float32 activations (as the reference's does), so its
+    attention meets the bf16 cache upcast: one launch of the kernel's
+    float32 build a layer, equal to the plain path."""
     _need_card()
+    cfg = smoke_variant(get_config("qwen2-vl-72b"), dtype="bfloat16")
+    m = Model(cfg)
+    params = m.init(0)
+    batch = SyntheticDataset(cfg, 2, 1, seed=3).batch_at(0)
+    prompt = {k: v for k, v in batch.items()
+              if k not in ("targets", "loss_mask")}
+    before = da.KERNEL.launches
+    a, _ = m.prefill(params, prompt, m.make_cache(2, 4))
+    assert da.KERNEL.launches - before == cfg.n_layers
+    b, _ = m.prefill(params, prompt, m.make_cache(2, 4), plain_kernels=True)
+    torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["stablelm-1.6b", "olmoe-1b-7b",
+                                  "zamba2-2.7b", "qwen2-vl-72b"])
+def test_serve_smoke_launches_the_kernel_every_layer_and_step(arch):
+    """Once a step for every attention layer: zamba2's shared block runs
+    once a group of ``attn_every`` Mamba layers."""
+    _need_card()
+    cfg = smoke_variant(get_config(arch))
+    attn_layers = cfg.n_layers // (
+        cfg.attn_every if cfg.family == "hybrid" else 1)
     before = da.KERNEL.launches
     toks = serve.main(["--arch", arch, "--smoke", "--batch", "2",
                        "--prompt-len", "10", "--gen", "4"])
     assert toks.shape == (2, 4)
-    assert da.KERNEL.launches - before == 4 * smoke_variant(
-        get_config(arch)).n_layers
+    assert da.KERNEL.launches - before == 4 * attn_layers
 
 
 # ---------------------------------------------------------------------------

@@ -59,6 +59,49 @@ def test_apply_rope(hq, hk, d):
     _close(got_k, want_k)
 
 
+def _mrope_positions(b):
+    """(b, 23, 3) qwen2-vl style M-RoPE positions whose t, h and w
+    components differ: 3 text tokens, a 4 x 4 grid of image tokens (t
+    fixed, h the row, w the column), then 4 text tokens; batch row i
+    starts at 5 i.  (The synthetic pipeline's positions repeat one value
+    in all three components, under which a wrong section table would
+    pass.)"""
+    rows = []
+    for i in range(b):
+        start = 5 * i
+        text = [(start + j,) * 3 for j in range(3)]
+        t0 = start + 3
+        grid = [(t0, t0 + r, t0 + c) for r in range(4) for c in range(4)]
+        after = [(t0 + 4 + j,) * 3 for j in range(4)]
+        rows.append(text + grid + after)
+    return np.asarray(rows, np.int32)
+
+
+@pytest.mark.parametrize("sections,hq,hk,d", [((2, 3, 3), 4, 2, 16),
+                                              ((16, 24, 24), 8, 1, 128)])
+def test_apply_mrope(sections, hq, hk, d):
+    """M-RoPE against the reference at the smoke variant's sections and
+    qwen2-vl-72b's, on positions with distinct t/h/w components; the
+    same call with the section table reversed must not match."""
+    pos = _mrope_positions(2)
+    jq, tq = _both(_randn(12, 2, pos.shape[1], hq, d))
+    jk, tk = _both(_randn(13, 2, pos.shape[1], hk, d))
+    jp, tp = _both(pos)
+    want = jlayers.apply_rope(jq, jk, jp, d, 1_000_000.0, sections)
+    got = layers.apply_rope(tq, tk, tp, d, 1_000_000.0, sections)
+    for g, w in zip(got, want):
+        _close(g, w)
+    wrong = layers.apply_rope(tq, tk, tp, d, 1_000_000.0, sections[::-1])
+    assert not np.allclose(wrong[0].numpy(), np.asarray(want[0]), **TOL)
+
+
+def test_apply_mrope_rejects_flat_positions():
+    q = torch.zeros(1, 4, 2, 16)
+    with pytest.raises(ValueError, match="M-RoPE"):
+        layers.apply_rope(q, q, torch.zeros(1, 4, dtype=torch.int32), 16,
+                          1e4, (2, 3, 3))
+
+
 @pytest.mark.parametrize("arch", ["stablelm-1.6b", "starcoder2-3b"])
 def test_mlp_apply(arch):
     cfg, jcfg = _cfgs(arch)
@@ -73,15 +116,20 @@ def test_mlp_apply(arch):
     _close(layers.mlp_apply(cfg, tp, tx), jlayers.mlp_apply(jcfg, jp, jx))
 
 
-@pytest.mark.parametrize("arch", ["stablelm-1.6b", "starcoder2-3b"])
+@pytest.mark.parametrize("arch", ["stablelm-1.6b", "starcoder2-3b",
+                                  "qwen2-vl-72b"])
 def test_qkv_project(arch):
+    """qwen2-vl-72b: (B, S, 3) M-RoPE positions pass through unchanged."""
     cfg, jcfg = _cfgs(arch)
     specs = attention.attn_specs(cfg, layered=False)
     jp, tp = {}, {}
     for i, (n, spec) in enumerate(sorted(specs.items())):
         jp[n], tp[n] = _both(0.1 * _randn(20 + i, *spec.shape))
-    jx, tx = _both(_randn(5, 2, 6, cfg.d_model))
-    pos = np.broadcast_to(np.arange(6, dtype=np.int32), (2, 6)).copy()
+    if cfg.mrope_sections:
+        pos = _mrope_positions(2)
+    else:
+        pos = np.broadcast_to(np.arange(6, dtype=np.int32), (2, 6)).copy()
+    jx, tx = _both(_randn(5, 2, pos.shape[1], cfg.d_model))
     jpos, tpos = _both(pos)
     for got, want in zip(attention.qkv_project(cfg, tp, tx, tpos),
                          jattn.qkv_project(jcfg, jp, jx, jpos)):

@@ -10,7 +10,9 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+from repro_torch.configs import get_config
 from repro_torch.launch import serve
+from repro_torch.models import Model, smoke_variant
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -19,7 +21,8 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
 @pytest.mark.parametrize("arch", ["stablelm-1.6b", "starcoder2-3b",
-                                  "rwkv6-1.6b", "olmoe-1b-7b"])
+                                  "rwkv6-1.6b", "olmoe-1b-7b",
+                                  "zamba2-2.7b", "qwen2-vl-72b"])
 def test_serve_main_smoke_on_cpu(arch, capsys):
     kernels = [k for family in serve.PATH_KERNELS.values()
                for k in family.values()]
@@ -34,8 +37,14 @@ def test_serve_main_smoke_on_cpu(arch, capsys):
 
 
 def test_serve_refuses_unported_family():
+    """hubert-xlarge (audio) is the one family left unported.  serve exits
+    on an encoder-only model before it builds one, so the refusal is the
+    model's own."""
+    cfg = smoke_variant(get_config("hubert-xlarge"))
     with pytest.raises(NotImplementedError, match="not ported"):
-        serve.main(["--arch", "zamba2-2.7b", "--smoke", "--device", "cpu"])
+        Model(cfg, device="cpu")
+    with pytest.raises(SystemExit, match="encoder-only"):
+        serve.main(["--arch", "hubert-xlarge", "--smoke", "--device", "cpu"])
 
 
 def _imported_roots(path: Path):
