@@ -22,7 +22,11 @@ Phases; any failure exits non-zero and no phase swallows one:
      queued back to back, each held again;
      wkv at ragged lengths and at the edges of its chunk of steps, both
      decay ranges, and chained bit-exactly, cut inside a chunk and at its
-     edge;
+     edge; wkv_bwd (K3b, wkv's backward) against ``wkv_bwd_ref`` at ragged
+     lengths and the edges of its 16-step segment, both decay ranges,
+     the final state's gradient zero and not, D 16/32/64, f32 and bf16,
+     and at the training shape (B 8, T 1,024, H 32, D 64), each output
+     within ``WKV_BWD_TOL`` of its largest element;
      the four STREAM kernels bit for bit (torch.equal) at the reference's
      test shapes, at ragged n and at the probe's size;
   3. drive each path once through its entry point, with every kernel's
@@ -125,7 +129,23 @@ Phases; any failure exits non-zero and no phase swallows one:
      ``des`` and the ``lut`` source held to the CPU's; then
      ``queuelut.headline_metrics``; the optimize, one value-and-grad
      (launches, busy share), the verification run and both plans timed.
-     Alone: ``python3 -c "import chip_smoke; chip_smoke.serving_phase()"``.
+     Alone: ``python3 -c "import chip_smoke; chip_smoke.serving_phase()"``;
+ 10. training (``train_phase``): rwkv6-1.6b at full width (24 layers,
+     bf16, batch 8 x 1,024, remat "full", the CLI's AdamW) through
+     ``repro_torch.launch.train.main`` for 4 steps, launches exact (48
+     wkv and 24 wkv_bwd a step: each layer's forward and its recompute,
+     and its backward), losses finite; one float32 value-and-grad at full
+     width cut to 4 layers through K3/K3b and through their plain
+     versions, the loss, the gradient norm and every leaf held
+     (``TRAIN_PATH_TOL``); stablelm-1.6b and hubert-xlarge at full width
+     through train.main for 2 steps each (flash_attention's two KV chunks
+     at 1,024; no hand kernel), each held to the CPU in float32 at 2
+     layers and batch 1; a checkpoint save, a crash and a resume on the
+     card (smoke rwkv6) reproducing the uninterrupted losses; a train step
+     of each model timed (ms, tokens/s, busy share, peak memory, K3/K3b a
+     launch) and K3b timed at the training shape beside its bound and its
+     plain version.  Alone: ``python3 -c "import chip_smoke;
+     chip_smoke.train_phase()"``.
 
 The card's nvidia-smi line is printed again just before the JSON object
 ``{"kernels": [...]}``, the line before the last; the last line is
@@ -136,6 +156,7 @@ of JAX.
 import contextlib
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -290,6 +311,40 @@ DESIGN_RTOL = 1e-4
 PLAN_SAMPLE_STRIDE = 6
 # Warm timed repeats of the optimize and of each plan.
 SERVING_REPEATS = 2
+# Phase 10, training at full width, batch 8 x 1,024 tokens (the CLI's
+# AdamW, remat "full"): rwkv6-1.6b through K3 and K3b, stablelm-1.6b and
+# hubert-xlarge through flash_attention (two KV chunks at 1,024), steps
+# through train.main each; then TRAIN_TIMED warm steps of each timed.
+AUDIO_ARCH = "hubert-xlarge"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_TIMED = 8, 1024, 2
+TRAIN_STEPS = {SSM_ARCH: 4, DENSE_ARCH: 2, AUDIO_ARCH: 2}
+# K3b's inputs at that shape: rwkv6-1.6b's 32 heads of 64.
+TRAIN_SHAPE = (TRAIN_BATCH, TRAIN_SEQ, 32, 64)
+# K3b against wkv_bwd_ref: every output within 1e-4 of its largest
+# element.  Both compute in fp32 and walk the same recurrence over T;
+# only the order of the sums over D differs (measured in the CPU tests
+# against jax.vjp: <= 2.3e-7 of the largest).  A missing bonus term, a
+# state one step off or a segment edge dropped moves an output by 1e-2 of
+# its largest or more.
+WKV_BWD_TOL = 1e-4
+# rwkv6 at full width cut to 4 layers, float32, one value-and-grad through
+# K3/K3b and through their plain versions.  Only the order of fp32 sums in
+# the two kernels differs (~1e-6 relative a call, phase 2), but the
+# model's gradients carry the recurrence's rounding far: measured on the
+# card (H100, 700 W) the loss is bit-equal, the global gradient norm
+# 3.0e-4 relative apart and the worst leaf (cm_mix) 4.7e-4 of its largest
+# element.  Gates: loss 1e-5, norm 2e-3, leaves 5e-3.  A wiring fault (a
+# gradient dropped, swapped or given to the wrong input: du, dw) moves a
+# leaf by its own size.
+TRAIN_CHECK_LAYERS = 4
+TRAIN_PATH_TOL = dict(loss=1e-5, gnorm=2e-3, leaf=5e-3)
+# stablelm-1.6b and hubert-xlarge at full width cut to 2 layers, float32,
+# batch 1 x 1,024 (the CPU side within about a minute), card against CPU:
+# the same port code, cuBLAS and the CPU's BLAS summing in other orders.
+# Measured: losses equal, norms 1.2e-7 apart, leaves within 1.3e-5 of
+# their largest.  Gates: loss and norm 1e-5, leaves 1e-4.
+TRAIN_CPU_LAYERS, TRAIN_CPU_BATCH = 2, 1
+TRAIN_CPU_TOL = dict(loss=1e-5, gnorm=1e-5, leaf=1e-4)
 
 
 def fail(msg: str):
@@ -2230,6 +2285,448 @@ def decode_timing(Model, SyntheticDataset, cfg, s_max, symbol):
     return per_launch
 
 
+# --- phase 10: training -----------------------------------------------------
+
+def wkv_bwd_cost(b, t, h, d, itemsize):
+    """(bytes, FLOP) wkv's backward needs: r, k, v (itemsize), w and dy
+    (fp32), u and the initial state read once; dr, dk, dv (itemsize), dw,
+    du and the initial state's gradient written once (no final-state
+    gradient, as in training).  Per step and state element 14 fp32
+    operations (the states recomputed, S * w + k v: 3; r.S.dy, dS.v,
+    <dS, S>, k.dS: 2 each; dS * w + r dy: 3), and per step, head and key
+    15 for the bonus terms (v.dy 2, r.u.k 3, dr 3, dk 2, dv 2, du 3)."""
+    n = b * t * h * d
+    nbytes = n * (3 * itemsize + 8) + h * d * 4 + b * h * d * d * 4 + \
+        n * (3 * itemsize + 4) + h * d * 4 + b * h * d * d * 4
+    return nbytes, 14 * n * d + 15 * n
+
+
+WKV_BWD_OUTPUTS = ("dr", "dk", "dv", "dw", "du", "ds0")
+
+
+def check_wkv_bwd(kw, ref, shape, dtype, decay, ds_t, seed):
+    """K3b against wkv_bwd_ref on the card: every output within
+    WKV_BWD_TOL of its largest element (bf16 dr, dk, dv also within 1e-2
+    of themselves: both round once to bf16).  Returns the largest
+    absolute error over the outputs."""
+    b, t, h, d = shape
+    r, k, v, w, u, s0 = rand_wkv(b, t, h, d, dtype, decay, seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    dy = torch.randn(b, t, h, d, device="cuda", generator=gen)
+    dst = torch.randn(b, h, d, d, device="cuda", generator=gen) \
+        if ds_t else None
+    got = kw.wkv_bwd(r, k, v, w, u, s0, dy, dst)
+    want = ref.wkv_bwd_ref(r, k, v, w, u, s0, dy, dst)
+    torch.cuda.synchronize()
+    errs, worst = [], 0.0
+    for name, g, x in zip(WKV_BWD_OUTPUTS, got, want):
+        if g.dtype != x.dtype or g.shape != x.shape:
+            fail(f"wkv_bwd {name}: {g.dtype} {tuple(g.shape)}, plain "
+                 f"{x.dtype} {tuple(x.shape)}")
+        g, x = g.float(), x.float()
+        scale = x.abs().max().item()
+        diff = (g - x).abs()
+        rtol = 1e-2 if name in ("dr", "dk", "dv") and \
+            dtype == torch.bfloat16 else 0.0
+        if not bool((diff <= WKV_BWD_TOL * scale + rtol * x.abs()).all()):
+            fail(f"wkv_bwd {name} disagrees with wkv_bwd_ref at {shape}, "
+                 f"{dtype}, w~{decay}, ds_t {ds_t}: max|err| "
+                 f"{diff.max().item():.3e} of max|grad| {scale:.3e}")
+        errs.append(f"{name} {diff.max().item():.2e}/{scale:.1e}")
+        worst = max(worst, diff.max().item())
+    log(f"  wkv_bwd {dtype} w~{decay} ds_T {'N(0,1)' if ds_t else '0'} "
+        f"B{b} T{t} H{h} D{d}: max|err|/max|grad| {', '.join(errs)} "
+        f"(tol {WKV_BWD_TOL} of max|grad|) ok")
+    return worst
+
+
+def check_wkv_bwd_cases(kw, ref):
+    """Phase 2 for K3b: ragged lengths and the edges of its segment (the
+    checkpoint interval), both decay ranges, ds_T zero and not, f32 and
+    bf16, D 16/32/64, and the training shape.  Returns the largest error
+    at the training shape in bf16 (the JSON line's)."""
+    seg = kw.geometry_bwd(torch.bfloat16, TRAIN_SHAPE)["segment"]
+    if seg != kw.SEGMENT:
+        fail(f"wkv_bwd: the library's segment {seg} != {kw.SEGMENT}")
+    h, d = TRAIN_SHAPE[2:]
+    seed, path_err = 300, 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        for decay in ("model", "sigmoid"):
+            for i, t in enumerate((1, 7, seg - 1, seg, seg + 1, 2 * seg + 1,
+                                   100)):
+                seed += 1
+                check_wkv_bwd(kw, ref, (BATCH, t, h, d), dtype, decay,
+                              i % 2 == 1, seed)
+            check_wkv_bwd(kw, ref, (2, 40, 4, 16), dtype, decay, True,
+                          seed + 1)
+            check_wkv_bwd(kw, ref, (3, 50, 5, 32), dtype, decay, False,
+                          seed + 2)
+        for ds_t in (False, True):
+            seed += 3
+            err = check_wkv_bwd(kw, ref, TRAIN_SHAPE, dtype, "model", ds_t,
+                                seed)
+            if dtype == torch.bfloat16 and not ds_t:
+                path_err = err
+    return path_err
+
+
+def grads_close(what, got, want, tol):
+    """Hold (loss, grad norm, gradient tree) to another run's: the loss and
+    the norm within ``tol`` relative, each leaf within tol["leaf"] of its
+    largest element.  Logs the largest share."""
+    from repro_torch.models.layers import flatten_tree
+    (loss, gnorm, grads), (wloss, wgnorm, wgrads) = got, want
+    wl = dict(flatten_tree(wgrads, torch.is_tensor))
+    shares = []
+    for path, g in flatten_tree(grads, torch.is_tensor):
+        x = wl[path].to(g.device)
+        share = ((g - x).abs().max() / x.abs().max().clamp(min=1e-30)).item()
+        if not share <= tol["leaf"]:
+            fail(f"{what}: gradient {path} differs by {share:.3e} of its "
+                 f"largest element (tol {tol['leaf']})")
+        shares.append((share, path))
+    shares.sort(reverse=True)
+    dl, dn = abs(loss / wloss - 1), abs(gnorm / wgnorm - 1)
+    log(f"{what}: loss {loss:.6f} vs {wloss:.6f} (rel {dl:.2e}, tol "
+        f"{tol['loss']}), grad norm {gnorm:.6f} vs {wgnorm:.6f} (rel "
+        f"{dn:.2e}, tol {tol['gnorm']}); every gradient leaf within "
+        f"{shares[0][0]:.2e} of its largest element (tol {tol['leaf']}; "
+        f"worst {', '.join(f'{p} {x:.1e}' for x, p in shares[:4])})")
+    if not (dl <= tol["loss"] and dn <= tol["gnorm"]):
+        fail(f"{what}: loss or grad norm out of tolerance")
+
+
+def loss_and_grads(model, params, batch, plain=False):
+    """(loss, global grad norm, gradient tree) of one value-and-grad."""
+    from repro_torch.distributed import step as pstep
+    from repro_torch.models.layers import flatten_tree
+    from repro_torch.optim import adamw
+    for _, p in flatten_tree(params, torch.is_tensor):
+        p.requires_grad_(True)
+    loss, _ = model.loss(params, batch, plain_kernels=plain)
+    grads = pstep._grads(loss, params)
+    return loss.item(), adamw.global_norm(grads).item(), grads
+
+
+def train_path(train, kernels, arch, steps, expected):
+    """Counts to 0, ``train.main`` at full width, read the counts; the
+    losses must be finite.  Returns (launches, losses, peak GiB)."""
+    for kern in kernels.values():
+        kern.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = train.main(["--arch", arch, "--batch", str(TRAIN_BATCH),
+                         "--seq", str(TRAIN_SEQ), "--steps", str(steps),
+                         "--log-every", "1", "--seed", str(SEED)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: kern.launches for name, kern in kernels.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"{arch}: train.main {steps} steps at B{TRAIN_BATCH} S{TRAIN_SEQ} "
+        f"in {wall:.1f} s (model init, the kernels' load and the first "
+        f"step included), peak {peak:.2f} GiB; launches {launches} "
+        f"(expected {expected}); losses {losses}")
+    if launches != expected:
+        fail(f"{arch}: training launch counts {launches} != {expected}")
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+        fail(f"{arch}: training losses {losses}")
+    torch.cuda.empty_cache()
+    return launches, losses, peak
+
+
+def train_timing(arch, smi):
+    """A train step at full width (B TRAIN_BATCH, S TRAIN_SEQ, the CLI's
+    AdamW) timed warm by the host clock ending in a synchronise, the peak
+    memory, the profiler's busy share and the K3/K3b time a launch (None
+    if the profiler saw none)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticDataset
+    from repro_torch.distributed import step as pstep
+    from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import AdamWConfig
+    cfg = get_config(arch)
+    model = Model(cfg)
+    step_cfg = pstep.TrainStepConfig(
+        opt=AdamWConfig(lr=3e-3, total_steps=4, warmup_steps=5),
+        param_dtype=cfg.dtype)
+    fn = pstep.make_train_step(model, step_cfg)
+    torch.cuda.reset_peak_memory_stats()
+    state = pstep.init_train_state(model, SEED, step_cfg)
+    ds = SyntheticDataset(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=SEED + 1)
+    state, _ = fn(state, ds.batch_at(0))                       # warm
+    torch.cuda.synchronize()
+    step_ms = []
+    for i in range(1, 1 + TRAIN_TIMED):
+        t0 = time.perf_counter()
+        state, met = fn(state, ds.batch_at(i))
+        loss = met["loss"].item()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    batch = ds.batch_at(TRAIN_TIMED + 1)
+    dev_ms, rows = profile(lambda: fn(state, batch))
+    best = min(step_ms)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    log(f"{arch} {cfg.dtype} train step B{TRAIN_BATCH} S{TRAIN_SEQ} on "
+        f"{smi}: {', '.join(f'{x:.1f}' for x in step_ms)} ms -> "
+        f"{tokens * 1e3 / best:.0f} tokens/s; peak {peak:.2f} GiB; last "
+        f"loss {loss:.4f}")
+    per_launch = {}
+    if dev_ms is None:
+        log(f"{arch}: train step busy share not measured (the profiler "
+            f"gave no device time)")
+    else:
+        n_launch, n_copy = launch_counts(rows)
+        log(f"{arch}: device kernel time of a train step {dev_ms:.1f} ms of "
+            f"{best:.1f} ms unprofiled wall -> busy share "
+            f"{dev_ms / best:.3f}; {n_launch} kernel launches, {n_copy} "
+            f"copies")
+        for ms, key, count in rows[:8]:
+            log(f"  {ms:9.3f} ms  x{count:<5d} {key[:90]}")
+        for name, symbol in (("wkv", "wkv_kernel"),
+                             ("wkv_bwd", "wkv_bwd_kernel")):
+            mine = [(ms, n) for ms, key, n in rows if symbol in key]
+            if mine:
+                per_launch[name] = mine[0][0] / mine[0][1]
+                log(f"{arch}: {name} in the train step {per_launch[name]:.4f}"
+                    f" ms a launch (x{mine[0][1]})")
+    del state, fn, model
+    torch.cuda.empty_cache()
+    return dict(step_ms=step_ms, peak_gib=peak, busy=None if dev_ms is None
+                else dev_ms / best, per_launch=per_launch)
+
+
+def train_path_check(arch, n_layers, kernels):
+    """rwkv6 at full width, depth cut to ``n_layers``, float32: one
+    value-and-grad through K3/K3b and through their plain versions; the
+    loss, the grad norm and every gradient leaf held (TRAIN_PATH_TOL), and
+    the kernel path's launches exact."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticDataset
+    from repro_torch.models.model import Model
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers,
+                              dtype="float32")
+    model = Model(cfg)
+    params = model.init(SEED)
+    batch = SyntheticDataset(cfg, TRAIN_BATCH, TRAIN_SEQ,
+                             seed=SEED + 1).batch_at(0)
+    runs = {}
+    for plain in (False, True):
+        for kern in kernels.values():
+            kern.launches = 0
+        t0 = time.perf_counter()
+        runs[plain] = loss_and_grads(model, params, batch, plain)
+        torch.cuda.synchronize()
+        counts = {name: kern.launches for name, kern in kernels.items()}
+        want = dict.fromkeys(kernels, 0)
+        if not plain:
+            want.update(wkv=2 * n_layers, wkv_bwd=n_layers)
+        log(f"{arch} f32 {n_layers} layers, B{TRAIN_BATCH} S{TRAIN_SEQ}: "
+            f"value-and-grad ({'plain' if plain else 'kernel'} path) "
+            f"{(time.perf_counter() - t0) * 1e3:.0f} ms, launches {counts}")
+        if counts != want:
+            fail(f"{arch}: launches {counts} != {want}")
+    grads_close(f"{arch} f32 {n_layers} layers, kernel path vs plain path",
+                runs[False], runs[True], TRAIN_PATH_TOL)
+    del runs, params, model
+    torch.cuda.empty_cache()
+
+
+def train_cpu_check(arch, n_layers, kernels):
+    """One float32 value-and-grad at full width, depth cut to ``n_layers``,
+    batch TRAIN_CPU_BATCH x TRAIN_SEQ (flash_attention's two chunks), on
+    the card and on the CPU from the same weights: held (TRAIN_CPU_TOL);
+    no hand kernel launched."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticDataset
+    from repro_torch.models.layers import map_tree
+    from repro_torch.models.model import Model
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers,
+                              dtype="float32")
+    batch = SyntheticDataset(cfg, TRAIN_CPU_BATCH, TRAIN_SEQ,
+                             seed=SEED + 1).batch_at(0)
+    cpu_model = Model(cfg, device="cpu")
+    cpu_params = cpu_model.init(SEED)
+    card_params = map_tree(lambda p: p.to("cuda"), cpu_params)
+    for kern in kernels.values():
+        kern.launches = 0
+    t0 = time.perf_counter()
+    card = loss_and_grads(Model(cfg), card_params, batch)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    cpu = loss_and_grads(cpu_model, cpu_params, batch)
+    t2 = time.perf_counter()
+    counts = {name: kern.launches for name, kern in kernels.items()}
+    log(f"{arch} f32 {n_layers} layers, B{TRAIN_CPU_BATCH} S{TRAIN_SEQ}: "
+        f"value-and-grad card {(t1 - t0) * 1e3:.0f} ms, CPU "
+        f"{(t2 - t1) * 1e3:.0f} ms (host clock); hand-kernel launches "
+        f"{counts}")
+    if any(counts.values()):
+        fail(f"{arch}: a hand kernel launched on the attention path")
+    grads_close(f"{arch} f32 {n_layers} layers, card vs CPU", card, cpu,
+                TRAIN_CPU_TOL)
+    del card, cpu, card_params, cpu_params
+    torch.cuda.empty_cache()
+
+
+def train_resume_check(train):
+    """Checkpoint save, crash and resume on the card at the smoke config of
+    rwkv6 (K3 and K3b in the loop): a run crashed in step 3 and run again
+    from its checkpoint of step 2 gives the uninterrupted run's losses."""
+    import tempfile
+    from repro_torch.checkpoint import ckpt
+    argv = ["--arch", SSM_ARCH, "--smoke", "--steps", "5", "--batch", "2",
+            "--seq", "64", "--ckpt-every", "2", "--seed", str(SEED)]
+    whole = train.main(argv)
+    make = train.make_train_step
+
+    def crashing(model, step_cfg):
+        step = make(model, step_cfg)
+
+        def run(state, batch):
+            if int(state["step"]) == 3:
+                raise RuntimeError("injected crash")
+            return step(state, batch)
+        return run
+    with tempfile.TemporaryDirectory() as tmp:
+        train.make_train_step = crashing
+        try:
+            train.main(argv + ["--ckpt-dir", tmp])
+            fail("the injected crash did not stop the run")
+        except RuntimeError as err:
+            if "injected crash" not in str(err):
+                raise
+        finally:
+            train.make_train_step = make
+        at = ckpt.latest_step(tmp)
+        resumed = train.main(argv + ["--ckpt-dir", tmp])
+        final = ckpt.latest_step(tmp)
+    log(f"checkpoint on the card: crashed in step 3, restored step {at}, "
+        f"resumed losses {resumed} vs uninterrupted {whole[at:]}; final "
+        f"checkpoint step {final}")
+    if at != 2 or final != 5 or resumed != whole[at:]:
+        fail("crash and resume on the card did not reproduce the "
+             "uninterrupted run")
+
+
+def wkv_bwd_timing(kw, ref, spec, smi):
+    """Phase 5 for K3b at the training shape, bf16: the kernel by events
+    (plain, kernel, kernel, plain), the profiler's time a launch, the
+    bound and the launch it makes.  No single PyTorch call computes the
+    function: library none."""
+    b, t, h, d = TRAIN_SHAPE
+    r, k, v, w, u, s0 = rand_wkv(b, t, h, d, torch.bfloat16, "model", 77)
+    dy = torch.randn(b, t, h, d, device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(78))
+    args = (r, k, v, w, u, s0, dy)
+    wt = {}
+    for key, fn, it in (("plain", lambda: ref.wkv_bwd_ref(*args), 1),
+                        ("kernel", lambda: kw.wkv_bwd(*args), 20),
+                        ("kernel", lambda: kw.wkv_bwd(*args), 20),
+                        ("plain", lambda: ref.wkv_bwd_ref(*args), 1)):
+        wt.setdefault(key, []).append(time_ms(fn, iters=it,
+                                              warmup=min(it, 2)))
+    _, rows = profile(lambda: [kw.wkv_bwd(*args) for _ in range(5)])
+    dev = [(ms, c) for ms, key, c in rows if "wkv_bwd_kernel" in key]
+    dev_ms = dev[0][0] / dev[0][1] if dev else None
+    nbytes, flops = wkv_bwd_cost(b, t, h, d, 2)
+    t_bytes, t_ops = nbytes / spec.hbm_bw, flops / spec.peak_fp32_flops
+    bound = max(t_bytes, t_ops) * 1e3
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    geo = kw.geometry_bwd(torch.bfloat16, TRAIN_SHAPE)
+    seg = geo["segment"]
+    scratch = 4 * b * h * d * d * (-(-t // seg) + seg)
+    ms = min(wt["kernel"])
+    log(f"wkv_bwd bf16 B{b} T{t} H{h} D{d} on {smi}: kernel {wt['kernel']} "
+        f"ms by events (profiler: "
+        f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'} a "
+        f"launch), plain {wt['plain']} ms; bound {bound:.5f} ms by {by} "
+        f"({nbytes} B, {flops} FLOP at {spec.peak_fp32_flops / 1e12} "
+        f"TFLOP/s fp32) -> {bound / ms:.3f} of the bound; launch "
+        f"{geo['blocks']} blocks x {geo['threads']} threads, segments of "
+        f"{geo['segment']} steps, {geo['key_groups']} key groups of "
+        f"{geo['columns']} columns a thread, {geo['smem_bytes']} B shared "
+        f"memory a block, {geo['blocks_per_sm']} blocks an SM; scratch "
+        f"{scratch / 2**20:.0f} MiB (a state a segment and one segment's "
+        f"states, fp32)")
+    del args, r, k, v, w, u, s0, dy
+    torch.cuda.empty_cache()
+    return {"ms": ms, "plain_ms": min(wt["plain"]), "bound_ms": bound,
+            "bound_by": by, "library_ms": None}
+
+
+def train_phase(k3b_err=None):
+    """Phase 10, training on the card.  K3b held to its plain version
+    (unless ``k3b_err`` says phase 2 did); rwkv6-1.6b at full width
+    through ``repro_torch.launch.train.main`` (bf16, batch 8, seq 1,024,
+    remat "full", the CLI's AdamW) for TRAIN_STEPS[rwkv6] steps with exact
+    launch counts (2 wkv and 1 wkv_bwd a layer a step); its kernel path
+    held to the plain path at 4 layers in float32; stablelm-1.6b and
+    hubert-xlarge at full width through train.main with no hand kernel,
+    each held to the CPU in float32 at 2 layers; a checkpoint save, crash
+    and resume; a train step of each timed (ms, tokens/s, busy share, peak
+    memory, K3/K3b a launch), and K3b timed at the training shape.
+    Returns (launches by kernel over the three runs, K3b's JSON row).
+    Alone: ``python3 -c "import chip_smoke; chip_smoke.train_phase()"``."""
+    if not torch.cuda.is_available():
+        fail("torch sees no CUDA card; this script runs only on one")
+    from repro_torch.configs import get_config
+    from repro_torch.core import hw
+    from repro_torch.kernels import build, ref
+    from repro_torch.kernels import memsim_scan as ms
+    from repro_torch.kernels import rwkv_wkv as kw
+    from repro_torch.kernels import stream as ks
+    from repro_torch.launch import serve, train
+    t_phase = time.perf_counter()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    log(f"phase 10 on {smi}; matmul TF32 "
+        f"{torch.backends.cuda.matmul.allow_tf32} (float32 products in "
+        f"full float32)")
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("float32 products would run in TF32")
+    spec = hw.spec_for(torch.cuda.get_device_name(0))
+    kernels = {kname: kern for family in serve.PATH_KERNELS.values()
+               for kname, kern in family.items()}
+    for family in train.PATH_KERNELS.values():
+        kernels.update(family)
+    build.load_all([kern.library for kern in kernels.values()])
+    kernels.update(ks.KERNELS)
+    kernels.update(ms.KERNELS)
+    if k3b_err is None:
+        k3b_err = check_wkv_bwd_cases(kw, ref)
+    none = dict.fromkeys(kernels, 0)
+    n_layers = get_config(SSM_ARCH).n_layers
+    steps = TRAIN_STEPS[SSM_ARCH]
+    launches, _, _ = train_path(
+        train, kernels, SSM_ARCH, steps,
+        {**none, "wkv": 2 * n_layers * steps, "wkv_bwd": n_layers * steps})
+    train_path_check(SSM_ARCH, TRAIN_CHECK_LAYERS, kernels)
+    for arch in (DENSE_ARCH, AUDIO_ARCH):
+        train_path(train, kernels, arch, TRAIN_STEPS[arch], none)
+        train_cpu_check(arch, TRAIN_CPU_LAYERS, kernels)
+    train_resume_check(train)
+    timing = {arch: train_timing(arch, smi) for arch in TRAIN_STEPS}
+    row = wkv_bwd_timing(kw, ref, spec, smi)
+    for name in ("wkv", "wkv_bwd"):
+        dev = timing[SSM_ARCH]["per_launch"].get(name)
+        log(f"{name} in the rwkv6 train step: "
+            f"{'not measured' if dev is None else f'{dev:.4f} ms a launch'}")
+    summary = []
+    for arch, t in timing.items():
+        best = min(t["step_ms"])
+        busy = "not measured" if t["busy"] is None else f"{t['busy']:.3f}"
+        summary.append(f"{arch} {best:.1f} ms a step, "
+                       f"{TRAIN_BATCH * TRAIN_SEQ * 1e3 / best:.0f} "
+                       f"tokens/s, busy {busy}, peak {t['peak_gib']:.2f} GiB")
+    log(f"training summary on {smi}: {'; '.join(summary)}")
+    log(f"phase 10 took {time.perf_counter() - t_phase:.1f} s (host clock)")
+    return ({"wkv": launches["wkv"], "wkv_bwd": launches["wkv_bwd"]},
+            {"max_abs_err": k3b_err, **row})
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch sees no CUDA card; this script runs only on one")
@@ -2242,7 +2739,7 @@ def main():
     from repro_torch.kernels import memsim_scan as ms
     from repro_torch.kernels import rwkv_wkv as kw
     from repro_torch.kernels import stream as ks
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, train
     from repro_torch.launch import stream as probe
 
     # -- phase 1: the card and the build --------------------------------
@@ -2260,6 +2757,8 @@ def main():
         f"TFLOP/s bf16 tensor cores, {peak_f32 / 1e12} TFLOP/s fp32)")
     kernels = {kname: kern for family in serve.PATH_KERNELS.values()
                for kname, kern in family.items()}
+    for family in train.PATH_KERNELS.values():
+        kernels.update(family)
     kernels.update(ks.KERNELS)
     kernels.update(ms.KERNELS)
     t0 = time.time()
@@ -2351,6 +2850,8 @@ def main():
                     path_err["wkv"] = max(path_err["wkv"], err)
             seed += 1
             check_wkv(kw, ref, (2, 40, 4, 16), dtype, decay, seed)  # smoke
+    # wkv's backward (K3b): segment edges, both decays, ds_T 0 and not.
+    path_err["wkv_bwd"] = check_wkv_bwd_cases(kw, ref)
     # STREAM: the reference's test shapes, ragged n (not a multiple of the
     # 16-byte vector, and shorter than one), and the probe's size.
     for dtype in (torch.float32, torch.bfloat16):
@@ -2560,6 +3061,17 @@ def main():
 
     # -- phase 9: the designer and the capacity planner ---------------------
     serving_phase()
+
+    # -- phase 10: training --------------------------------------------------
+    trained, k3b_row = train_phase(path_err["wkv_bwd"])
+    for entry in entries:
+        if entry["name"] == "wkv":
+            entry["launches"] += trained["wkv"]
+    entries.insert(2, {
+        "name": "wkv_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rwkv_wkv_bwd.cu",
+        "replaces": "src/repro/models/rwkv.py:60",
+        "launches": trained["wkv_bwd"], **k3b_row})
 
     # The card's line again, so that it stands in the output's tail.
     print(smi, flush=True)

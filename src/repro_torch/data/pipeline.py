@@ -1,11 +1,16 @@
-"""Deterministic synthetic data pipeline (numpy only).
+"""Deterministic synthetic data pipeline with background prefetch.
 
-Port of ``repro/data/pipeline.py``'s ``SyntheticDataset``: the batch for
-step N is a pure function of (seed, N).  The background
-``PrefetchIterator`` is not ported yet.
+Port of ``repro/data/pipeline.py``: the batch for step N is a pure
+function of (seed, N) (numpy only, the reference's streams), which makes
+checkpoint/restart exactly resumable without data-state snapshots;
+``PrefetchIterator`` builds batch(step + 1) on a host thread while step
+runs on the card.  Batches stay numpy; the model moves them to its device.
 """
 
 from __future__ import annotations
+
+import queue
+import threading
 
 import numpy as np
 
@@ -67,3 +72,45 @@ class SyntheticDataset:
             vm[:, : min(64, s // 4)] = True     # leading image tokens
             out["vision_mask"] = vm
         return out
+
+
+class PrefetchIterator:
+    """Builds batch(step+1) on a host thread while step runs on device.
+    Yields (step, batch) from ``start_step`` on; ``close`` stops the
+    thread."""
+
+    def __init__(self, dataset: SyntheticDataset, start_step: int = 0,
+                 depth: int = 2):
+        self.dataset = dataset
+        self._q: queue.Queue = queue.Queue(maxsize=depth)
+        self._stop = threading.Event()
+        self._step = start_step
+        self._thread = threading.Thread(target=self._worker, daemon=True)
+        self._thread.start()
+
+    def _worker(self):
+        step = self._step
+        while not self._stop.is_set():
+            batch = self.dataset.batch_at(step)
+            while not self._stop.is_set():
+                try:
+                    self._q.put((step, batch), timeout=0.1)
+                    break
+                except queue.Full:
+                    continue
+            step += 1
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        return self._q.get()
+
+    def close(self):
+        self._stop.set()
+        try:
+            while True:
+                self._q.get_nowait()
+        except queue.Empty:
+            pass
+        self._thread.join(timeout=2.0)

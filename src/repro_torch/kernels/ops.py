@@ -5,11 +5,14 @@ between the compiled Pallas kernel and interpret mode.  Here:
 
 * every input on the CPU -> the plain PyTorch version in ``ref.py``;
 * every input on CUDA    -> the hand kernel, which counts the launch;
+  ``wkv``'s gradient is a kernel too (K3b), through ``torch.autograd``;
 * anything else (mixed devices, or a dtype, shape or layout the kernel
   does not take) raises.  Nothing falls back.
 """
 
 from __future__ import annotations
+
+import torch
 
 from repro_torch.kernels import decode_attn as _da
 from repro_torch.kernels import memsim_scan as _ms
@@ -63,13 +66,48 @@ def decode_attn(q, k, v, length: int):
     return _da.decode_attn(q, k, v, length)
 
 
-def wkv(r, k, v, w, u, state, state_out=None):
+class _Wkv(torch.autograd.Function):
+    """wkv with its gradient: forward K3 and backward K3b on CUDA tensors;
+    ``wkv_ref`` and ``wkv_bwd_ref`` on CPU tensors, or with ``plain`` on
+    any device (the comparison path)."""
+
+    @staticmethod
+    def forward(ctx, plain, r, k, v, w, u, state):
+        ctx.plain = plain or _all_on_cpu(r, k, v, w, u, state)
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(r, k, v, w, u, state)
+        if ctx.plain:
+            return ref.wkv_ref(r, k, v, w, u, state)
+        return _wkv.wkv(r, k, v, w, u, state)
+
+    @staticmethod
+    def backward(ctx, dy, ds_t):
+        r, k, v, w, u, state = ctx.saved_tensors
+        dy = torch.zeros(r.shape, dtype=torch.float32, device=r.device) \
+            if dy is None else dy.float().contiguous()
+        if ds_t is not None:
+            ds_t = ds_t.float().contiguous()
+        bwd = ref.wkv_bwd_ref if ctx.plain else _wkv.wkv_bwd
+        return (None, *bwd(r, k, v, w, u, state, dy, ds_t))
+
+
+def wkv(r, k, v, w, u, state, state_out=None, plain: bool = False):
     """r/k/v/w: (B, T, H, D); u: (H, D); state: (B, H, D, D) fp32.
 
-    Returns (y (B, T, H, D) fp32, final state (B, H, D, D) fp32); the
-    final state goes into ``state_out`` when given (it may be ``state``)."""
+    Returns (y (B, T, H, D) fp32, final state (B, H, D, D) fp32), with a
+    gradient (K3b on the card) for every input.  With ``state_out`` the
+    final state goes into it (it may be ``state``): the decode cache's
+    in-place update, which has no gradient and raises if one is asked for.
+    ``plain`` takes the plain versions on any device (path comparison)."""
     extra = () if state_out is None else (state_out,)
-    if _all_on_cpu(r, k, v, w, u, state, *extra):
+    on_cpu = _all_on_cpu(r, k, v, w, u, state, *extra)
+    if state_out is None:
+        return _Wkv.apply(plain, r, k, v, w, u, state)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (r, k, v, w, u, state)):
+        raise RuntimeError("wkv: the in-place state update (state_out) has "
+                           "no gradient; call it under torch.no_grad()")
+    if plain or on_cpu:
         return ref.wkv_ref(r, k, v, w, u, state, state_out)
     return _wkv.wkv(r, k, v, w, u, state, state_out)
 

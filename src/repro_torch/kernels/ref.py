@@ -84,6 +84,44 @@ def wkv_ref(r, k, v, w, u, state, state_out=None):
     return torch.stack(ys, dim=1), s
 
 
+def wkv_bwd_ref(r, k, v, w, u, state, dy, ds_t=None):
+    """The backward of ``wkv_ref`` (K3b's plain version), in fp32.
+
+    r/k/v: (B, T, H, D); w, dy: (B, T, H, D) fp32; u: (H, D); state:
+    (B, H, D, D) fp32, the forward's initial state; ds_t: the gradient of
+    its final state, or None (zero).  The states are recomputed forward and
+    kept, then the step's gradients are taken walking back; with dS the
+    gradient of the state after step t:
+      dr_t = S_{t-1} dy_t + u k_t (v_t . dy_t),  dk_t = dS v_t + u r_t (v_t . dy_t),
+      dv_t = k_t dS + dy_t (r_t . u k_t),  dw_t = rowsum(dS * S_{t-1}),
+      du += r_t k_t (v_t . dy_t),  dS <- diag(w_t) dS + r_t^T dy_t.
+    Returns (dr, dk, dv in r's type, dw fp32, du (H, D) fp32, ds0 fp32).
+    """
+    dtype = r.dtype
+    r, k, v, w, dy = (t.float() for t in (r, k, v, w, dy))
+    uu = u.float()
+    s = state.float()
+    states = []
+    for t in range(r.shape[1]):
+        states.append(s)
+        s = s * w[:, t, :, :, None] + k[:, t, :, :, None] * v[:, t, :, None, :]
+    ds = torch.zeros_like(s) if ds_t is None else ds_t.float()
+    dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
+    du = torch.zeros_like(uu)
+    for t in reversed(range(r.shape[1])):
+        rt, kt, vt, wt, dyt = (x[:, t] for x in (r, k, v, w, dy))
+        vdy = (vt * dyt).sum(-1, keepdim=True)                # (B, H, 1)
+        dr[:, t] = torch.einsum("bhij,bhj->bhi", states[t], dyt) + \
+            uu * kt * vdy
+        dk[:, t] = torch.einsum("bhij,bhj->bhi", ds, vt) + uu * rt * vdy
+        dv[:, t] = torch.einsum("bhi,bhij->bhj", kt, ds) + \
+            dyt * (rt * uu * kt).sum(-1, keepdim=True)
+        dw[:, t] = (ds * states[t]).sum(-1)
+        du = du + (rt * kt * vdy).sum(0)
+        ds = ds * wt[..., None] + rt[..., None] * dyt[..., None, :]
+    return dr.to(dtype), dk.to(dtype), dv.to(dtype), dw, du, ds
+
+
 # --- memsim stage B: the timestep backlog scan and the Lindley scan ---------
 # Per-step loops of torch ops in the order of the reference's scan bodies
 # (repro/core/memsim.py ``_ts_chunk_core`` and ``_event_chunk_core``):

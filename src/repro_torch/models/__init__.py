@@ -1,5 +1,5 @@
 """Model zoo port: config, layers, attention, stacks (dense, vlm, moe,
-hybrid, ssm)."""
+audio, hybrid, ssm)."""
 
 from repro_torch.models.config import ModelConfig, smoke_variant  # noqa: F401
 from repro_torch.models.model import Model  # noqa: F401

@@ -1,11 +1,14 @@
-"""Attention: GQA projections, the O(S^2) oracle and cache attention.
+"""Attention: GQA projections, the O(S^2) oracle, chunked (flash-style)
+uncached attention and cache attention.
 
 Port of ``repro/models/attention.py``.  Tensors keep the reference's
 ``(B, S, H, D)`` layout.  The reference's sharding hooks
 (``context.use_params`` / ``flag`` / ``constrain``) are no-ops without an
 active rule set and are dropped here.
 
-``decode_attention`` is the plain einsum form.  It serves prefill (a block
+``flash_attention`` is the uncached pass over more than 256 tokens (the
+training path, hubert's every pass): an online softmax over KV chunks, so
+no S x S score tensor forms.  ``decode_attention`` is the plain einsum form.  It serves prefill (a block
 of new tokens with ``q_start``) and is the plain version of the one-token
 decode step, whose hot path is the hand kernel behind
 ``repro_torch.kernels.ops.decode_attn``.
@@ -68,6 +71,47 @@ def reference_attention(q, k, v, causal: bool = True):
         logits = torch.where(mask, logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def flash_attention(q, k, v, causal: bool = True, chunk: int = 512):
+    """Online-softmax attention over KV chunks.  (B,S,H,D) layout.
+
+    The reference's ``lax.scan`` over ``S / chunk`` KV blocks, as a Python
+    loop of torch ops (two steps at 1,024 tokens): the same running max,
+    denominator and float32 accumulator, the same roundings (q * scale and
+    the probabilities in q's dtype), the same fallback to one chunk when
+    ``chunk`` does not divide the keys, and the causal mask offset by
+    ``sk - sq``.  Autograd differentiates it, as JAX does the scan.
+    """
+    b, sq, hq, d = q.shape
+    sk = k.shape[1]
+    groups = hq // k.shape[2]
+    if sk % chunk:
+        chunk = sk  # fall back for odd sizes (smoke tests)
+    scale = d ** -0.5
+    q_scaled = (q * scale).to(q.dtype)
+    q_pos = torch.arange(sq, device=q.device)
+    acc = torch.zeros((b, hq, sq, d), dtype=torch.float32, device=q.device)
+    m = torch.full((b, hq, sq), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    denom = torch.zeros((b, hq, sq), dtype=torch.float32, device=q.device)
+    for idx in range(sk // chunk):
+        kc = _expand_kv(k[:, idx * chunk:(idx + 1) * chunk], groups)
+        vc = _expand_kv(v[:, idx * chunk:(idx + 1) * chunk], groups)
+        logits = torch.einsum("bqhd,bkhd->bhqk", q_scaled, kc).float()
+        if causal:
+            k_pos = idx * chunk + torch.arange(chunk, device=q.device)
+            mask = q_pos[:, None] + (sk - sq) >= k_pos[None, :]
+            logits = torch.where(mask[None, None], logits, NEG_INF)
+        m_new = torch.maximum(m, logits.amax(dim=-1))
+        p = torch.exp(logits - m_new[..., None])
+        correction = torch.exp(m - m_new)
+        denom = denom * correction + p.sum(dim=-1)
+        acc = acc * correction[..., None] + torch.einsum(
+            "bhqk,bkhd->bhqd", p.to(vc.dtype), vc).float()
+        m = m_new
+    out = acc / torch.clamp(denom[..., None], min=1e-30)
+    return out.transpose(1, 2).to(q.dtype)                 # (B, S, H, D)
 
 
 def decode_attention(q, k_cache, v_cache, cache_len, q_start=None):

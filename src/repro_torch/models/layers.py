@@ -9,6 +9,8 @@ module's init.  The draws differ from the reference's threefry streams;
 tests carry the reference's parameters across with ``convert.params_from_jax``.
 
 Matrices keep the reference's ``(d_in, d_out)`` layout, applied as ``x @ W``.
+The reference's sharding hooks (``context.use_params``) are no-ops on one
+card and are dropped.
 """
 
 from __future__ import annotations
@@ -65,6 +67,23 @@ def unflatten_tree(items) -> dict:
     return out
 
 
+def map_tree(fn, tree: dict, *rest: dict) -> dict:
+    """``fn`` applied leaf by leaf to nested dicts of one structure (the
+    first tree's keys), as ``jax.tree_util.tree_map``."""
+    return {name: (map_tree(fn, sub, *(r[name] for r in rest))
+                   if isinstance(sub, dict) else
+                   fn(sub, *(r[name] for r in rest)))
+            for name, sub in tree.items()}
+
+
+def tree_leaves(tree: dict, is_leaf=torch.is_tensor) -> list:
+    """The leaves in ``jax.tree_util.tree_leaves``'s order (keys sorted at
+    every level; '/' sorts below every character a key uses, so sorted
+    paths give that order)."""
+    return [leaf for _, leaf in sorted(flatten_tree(tree, is_leaf),
+                                       key=lambda item: item[0])]
+
+
 def _leaf_generator(seed: int, path: str, device) -> torch.Generator:
     gen = torch.Generator(device=device)
     # The CPU generator keeps only 32 bits of its seed: fold both in there.
@@ -112,6 +131,17 @@ def rms_norm(x, w, eps: float):
     var = x.square().mean(dim=-1, keepdim=True)
     out = x * torch.rsqrt(var + eps)
     return (out * (1.0 + w.float())).to(dtype)
+
+
+def layer_norm(x, w, b, eps: float):
+    """LayerNorm in fp32 (population variance), scaled by ``1 + w`` and
+    shifted by ``b`` (both zero-initialized)."""
+    dtype = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = x.var(dim=-1, keepdim=True, correction=0)
+    out = (x - mu) * torch.rsqrt(var + eps)
+    return (out * (1.0 + w.float()) + b.float()).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -191,7 +221,7 @@ def mlp_apply(cfg: ModelConfig, p: dict, x):
 
 
 # ---------------------------------------------------------------------------
-# Embedding / unembedding.
+# Embedding / unembedding with sequence-chunked cross-entropy.
 # ---------------------------------------------------------------------------
 
 def embed_specs(cfg: ModelConfig) -> dict:
@@ -209,3 +239,27 @@ def unembed_matrix(cfg: ModelConfig, p: dict):
     if cfg.tie_embeddings:
         return p["tokens"].T
     return p["head"]
+
+
+def chunked_ce_loss(h, w_head, targets, mask, chunk: int = 1024):
+    """Next-token CE over (B, S, D) hidden states, seq-chunked.
+
+    The reference's rule: ``n = max(S // chunk, 1)`` chunks of ``S // n``
+    tokens, so at most (B, chunk, V) logits are live at once in the
+    forward.  Logits in float32 after the product in the model dtype;
+    the loss is the mean over ``mask`` (0/1) positions, in float32.
+    """
+    b, s, d = h.shape
+    n = max(s // chunk, 1)
+    chunk = s // n
+    h_c = h.reshape(b, n, chunk, d)
+    t_c = targets.reshape(b, n, chunk).long()
+    m_c = mask.reshape(b, n, chunk)
+    nll = cnt = 0.0
+    for i in range(n):
+        logits = (h_c[:, i] @ w_head).float()                 # (B, c, V)
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt = logits.gather(-1, t_c[:, i, :, None])[..., 0]
+        nll = nll + ((lse - tgt) * m_c[:, i]).sum()
+        cnt = cnt + m_c[:, i].sum()
+    return nll / torch.clamp(cnt, min=1.0)

@@ -1,11 +1,10 @@
-"""Public model API: init / prefill / decode_step / greedy_generate.
+"""Public model API: init / loss / prefill / decode_step / greedy_generate.
 
-Port of ``repro/models/model.py`` for the serving path of the ported
-families (``transformer.PORTED_FAMILIES``: dense, vlm, moe, hybrid and
-ssm; the audio family, encoder-only, waits for training).
-Every entry point runs on an explicit device: ``cuda`` unless the caller
-asks for ``cpu``.  Asking for ``cuda`` where there is no card raises; the
-model never carries on on the CPU.  Training (``loss``) is not ported yet.
+Port of ``repro/models/model.py`` for all six families
+(``transformer.PORTED_FAMILIES``; the audio family, encoder-only, has
+``loss`` and no decode path).  Every entry point runs on an explicit
+device: ``cuda`` unless the caller asks for ``cpu``.  Asking for ``cuda``
+where there is no card raises; the model never carries on on the CPU.
 """
 
 from __future__ import annotations
@@ -54,6 +53,23 @@ class Model:
 
     def param_count(self) -> int:
         return layers.param_count(self.specs())
+
+    # -- training -----------------------------------------------------------
+    def loss(self, params, batch, plain_kernels: bool = False):
+        """Mean next-token (or masked-prediction) CE -> (loss, metrics).
+
+        The reference's metrics are ``{"loss": loss}`` (no auxiliary
+        loss).  ``batch`` as the pipeline makes it (numpy or tensors);
+        ``plain_kernels`` as in ``prefill``, for path comparison."""
+        cfg = self.cfg
+        batch = self._to_batch(batch)
+        h, _ = forward(cfg, params, batch, training=True,
+                       plain_kernels=plain_kernels)
+        w_head = transformer.as_dtype(
+            layers.unembed_matrix(cfg, params["embed"]), h.dtype)
+        loss = layers.chunked_ce_loss(h, w_head, batch["targets"],
+                                      batch["loss_mask"].float())
+        return loss, {"loss": loss}
 
     # -- serving ------------------------------------------------------------
     def _to_batch(self, batch: dict) -> dict:

@@ -8,9 +8,10 @@ decay w_t = exp(-exp(...)), and the WKV matrix-state recurrence
     y_t = r_t (S_{t-1} + diag(u) k_t^T v_t)
 
 carried as an (H, hd, hd) fp32 state per head.  The recurrence is
-``kernels.ops.wkv``: the hand ``wkv`` kernel on the card, its plain
-version on the CPU; ``plain_kernels=True`` sends it to the plain version
-on any device, to compare the two paths.  The reference's
+``kernels.ops.wkv``: the hand ``wkv`` kernel on the card (and K3b, its
+backward, under autograd), their plain versions on the CPU;
+``plain_kernels=True`` sends it to the plain versions on any device, to
+compare the two paths.  The reference's
 ``context.use_params`` sharding hints have no counterpart on one card.
 
 Channel-mix: token-shift + squared-ReLU MLP with a sigmoid receptance gate.
@@ -26,7 +27,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Spec
 
@@ -71,8 +72,7 @@ def _wkv_scan(r, k, v, w, u, state, plain_kernels: bool = False,
     layout).  Returns y (B, S, H, hd) fp32, new_state (``state_out`` when
     given).
     """
-    wkv = ref.wkv_ref if plain_kernels else ops.wkv
-    return wkv(r, k, v, w, u, state, state_out)
+    return ops.wkv(r, k, v, w, u, state, state_out, plain=plain_kernels)
 
 
 def time_mix(cfg: ModelConfig, p: dict, x, shift_state, wkv_state,

@@ -1,4 +1,4 @@
-"""Stack assembly for the ported families: scan-over-layers + caches.
+"""Stack assembly for all six families: scan-over-layers + remat + caches.
 
 Port of ``repro/models/transformer.py``.  The reference scans one compiled
 layer body over stacked ``(L, ...)`` parameters; here a Python loop walks
@@ -16,7 +16,21 @@ Families ported:
             group applies the same weights (``shared_attn``) with its own
             KV slice (zamba2)
   ssm    -- RWKV6 time-mix + channel-mix with a recurrent state
-The audio family is not ported yet.
+  audio  -- encoder-only pre-LayerNorm attention (bidirectional) + GELU
+            MLP over ``frames @ frontend.proj`` (hubert); no decode cache.
+            Its float32 frames promote a bf16 pass to float32 activations,
+            as in the reference, through the same cast as the vision rows.
+
+Training (``forward(..., training=True)``, no cache) wraps each layer (a
+hybrid stack: each Mamba layer and each call of the shared block) in
+``_maybe_remat``, the reference's ``jax.checkpoint`` policy on
+``cfg.remat``: "full" is ``torch.utils.checkpoint`` (non-reentrant), which
+keeps a layer's input and recomputes the layer in the backward; "dots"
+keeps the plain matrix products (``aten.mm``, the counterpart of
+``dots_with_no_batch_dims_saveable``) and recomputes the rest; "none"
+keeps everything.  Remat changes memory, not results.  Uncached attention
+over more than 256 tokens is ``attention.flash_attention``, at most 256
+``reference_attention``, as in the reference.
 
 Caches carry their length as a host int, so the decode loop never waits on
 the device for it.
@@ -52,15 +66,17 @@ decode kernel's float32 build).  A pass without vision rows stays in the
 model dtype and casts nothing.
 
 ``plain_kernels=True`` sends every hand kernel on the pass (the decode
-step's ``decode_attn``, every layer's ``wkv``) to its plain version; it
-exists only to compare the two paths.
+step's ``decode_attn``, every layer's ``wkv`` and, under autograd, its
+backward) to its plain version; it exists only to compare the two paths.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch.kernels import ops
 from repro_torch.models import attention, layers, moe, rwkv, ssm
@@ -70,7 +86,7 @@ from repro_torch.models.layers import Spec
 #: Stub modality-frontend feature width (audio frames / vision patches).
 FRONTEND_DIM = 512
 
-PORTED_FAMILIES = ("dense", "vlm", "moe", "hybrid", "ssm")
+PORTED_FAMILIES = ("dense", "vlm", "moe", "audio", "hybrid", "ssm")
 
 
 def check_ported(cfg: ModelConfig) -> None:
@@ -108,16 +124,22 @@ def model_specs(cfg: ModelConfig) -> dict:
             "mlp": layers.mlp_specs(cfg, layered=False),
         }
         return specs
+    if cfg.family == "audio":
+        norms = ("ln1_w", "ln1_b", "ln2_w", "ln2_b")
+    else:
+        norms = ("ln1", "ln2")
     specs["layers"] = {
-        "ln1": Spec((cfg.n_layers, d), ("layers", "embed"), init="zeros"),
-        "ln2": Spec((cfg.n_layers, d), ("layers", "embed"), init="zeros"),
-    }
+        name: Spec((cfg.n_layers, d), ("layers", "embed"), init="zeros")
+        for name in norms}
     if cfg.family in ("dense", "vlm"):
         specs["layers"]["attn"] = attention.attn_specs(cfg)
         specs["layers"]["mlp"] = layers.mlp_specs(cfg)
     elif cfg.family == "moe":
         specs["layers"]["attn"] = attention.attn_specs(cfg)
         specs["layers"]["moe"] = moe.moe_specs(cfg)
+    elif cfg.family == "audio":
+        specs["layers"]["attn"] = attention.attn_specs(cfg)
+        specs["layers"]["mlp"] = layers.mlp_specs(cfg)
     else:   # ssm
         specs["layers"]["rwkv"] = rwkv.rwkv_specs(cfg)
     return specs
@@ -139,6 +161,36 @@ def as_dtype(t, dtype):
     return t if t.dtype == dtype else t.to(dtype)
 
 
+def _as_dtype_of(pl: dict, x):
+    """A layer's parameters cast to the activations' dtype when those are
+    wider (vision rows, audio frames: module note)."""
+    _, leaf = next(layers.flatten_tree(pl, is_leaf=torch.is_tensor))
+    return pl if leaf.dtype == x.dtype else as_dtype(pl, x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Remat policy.
+# ---------------------------------------------------------------------------
+
+def _save_plain_products(ctx, op, *args, **kwargs):
+    """The "dots" policy: keep the products without batch dimensions
+    (``x @ W`` runs as ``aten.mm``), recompute everything else."""
+    if op is torch.ops.aten.mm.default:
+        return _ckpt.CheckpointPolicy.MUST_SAVE
+    return _ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _maybe_remat(cfg: ModelConfig, fn, training: bool):
+    if not training or cfg.remat == "none":
+        return fn
+    kwargs = {}
+    if cfg.remat == "dots":
+        kwargs["context_fn"] = functools.partial(
+            _ckpt.create_selective_checkpoint_contexts, _save_plain_products)
+    return lambda *args: _ckpt.checkpoint(fn, *args, use_reentrant=False,
+                                          **kwargs)
+
+
 # ---------------------------------------------------------------------------
 # Blocks.
 # ---------------------------------------------------------------------------
@@ -150,11 +202,9 @@ def _attn_block(cfg: ModelConfig, pl, x, positions, causal, kv_cache,
     q, k, v = attention.qkv_project(cfg, pl["attn"], x, positions)
     b, s = x.shape[:2]
     if kv_cache is None:
-        if s > 256:
-            raise NotImplementedError(
-                "uncached attention over more than 256 tokens uses the "
-                "reference's flash_attention (training path), not ported")
-        o = attention.reference_attention(q, k, v, causal=causal)
+        attend = (attention.reference_attention if s <= 256 else
+                  attention.flash_attention)
+        o = attend(q, k, v, causal=causal)
     else:
         k_cache, v_cache, cache_len = kv_cache
         k_cache[:, cache_len:cache_len + s] = k
@@ -194,6 +244,14 @@ def _moe_body(cfg, x, pl, positions, causal, kv_cache,
     return x + moe.moe_apply(cfg, pl["moe"], h)
 
 
+def _audio_body(cfg, x, pl, positions, causal, kv_cache,
+                plain_kernels: bool = False):
+    h = layers.layer_norm(x, pl["ln1_w"], pl["ln1_b"], cfg.norm_eps)
+    x = x + _attn_block(cfg, pl, h, positions, False, None, plain_kernels)
+    h = layers.layer_norm(x, pl["ln2_w"], pl["ln2_b"], cfg.norm_eps)
+    return x + layers.mlp_apply(cfg, pl["mlp"], h)
+
+
 def _mamba_body(cfg, x, pl, cache):
     """cache is None or (state, conv_state); returns (x, (new_state,
     new_conv_state))."""
@@ -222,6 +280,10 @@ def _rwkv_body(cfg, x, pl, cache, plain_kernels: bool = False,
 
 
 def _embed_inputs(cfg: ModelConfig, params, batch):
+    if cfg.family == "audio":
+        frames, proj = batch["frames"], params["frontend"]["proj"]
+        dtype = torch.promote_types(frames.dtype, proj.dtype)
+        return as_dtype(frames, dtype) @ as_dtype(proj, dtype)
     x = layers.embed_apply(cfg, params["embed"], batch["tokens"])
     if cfg.family == "vlm" and "vision_embeds" in batch:
         rows = batch["vision_embeds"]
@@ -233,53 +295,62 @@ def _embed_inputs(cfg: ModelConfig, params, batch):
     return x
 
 
-def forward(cfg: ModelConfig, params, batch, *,
+def forward(cfg: ModelConfig, params, batch, *, training: bool = False,
             cache: Optional[dict] = None, plain_kernels: bool = False):
     """Full forward pass -> (hidden (B,S,D), new_cache_or_None).
 
-    ``batch`` keys: tokens (B,S) and positions (B,S) [or (B,S,3) for
-    M-RoPE], integer tensors on the parameters' device; for vlm, optionally
-    vision_embeds (B,S,FRONTEND_DIM) and vision_mask (B,S) bool.  When
-    ``cache`` is given the pass is an incremental decode/prefill
-    continuation that writes the cache in place (see the module note).
-    ``plain_kernels`` sends every hand kernel on the pass to its plain
-    version; it exists only to compare the two paths.
+    ``batch`` keys: tokens (B,S) [or, audio, frames (B,S,FRONTEND_DIM)]
+    and positions (B,S) [or (B,S,3) for M-RoPE], tensors on the
+    parameters' device; for vlm, optionally vision_embeds
+    (B,S,FRONTEND_DIM) and vision_mask (B,S) bool.  When ``cache`` is
+    given the pass is an incremental decode/prefill continuation that
+    writes the cache in place (see the module note).  ``training`` applies
+    ``cfg.remat`` to each layer of an uncached pass.  ``plain_kernels``
+    sends every hand kernel on the pass to its plain version; it exists
+    only to compare the two paths.
     """
     check_ported(cfg)
     x = _embed_inputs(cfg, params, batch)
     if cfg.family == "ssm":
-        x, new_cache = _rwkv_stack(cfg, params, x, cache, plain_kernels)
+        x, new_cache = _rwkv_stack(cfg, params, x, cache, plain_kernels,
+                                   training)
     elif cfg.family == "hybrid":
         x, new_cache = _hybrid_stack(cfg, params, x, batch["positions"],
-                                     cache, plain_kernels)
+                                     cache, plain_kernels, training)
     else:
         x, new_cache = _dense_stack(cfg, params, x, batch["positions"],
-                                    cache, plain_kernels)
+                                    cache, plain_kernels, training)
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x, new_cache
 
 
-def _dense_stack(cfg, params, x, positions, cache, plain_kernels):
-    """The dense, vlm and moe families: attention with a KV cache, then
-    the family's feed-forward body."""
-    body = _moe_body if cfg.family == "moe" else _dense_body
+def _dense_stack(cfg, params, x, positions, cache, plain_kernels,
+                 training=False):
+    """The dense, vlm, moe and audio families: attention (with a KV cache,
+    but for audio), then the family's feed-forward body.  A layer whose
+    weights are narrower than the activations (vision rows, audio frames:
+    module note) takes them cast, inside its remat region."""
+    body = {"moe": _moe_body, "audio": _audio_body}.get(cfg.family,
+                                                       _dense_body)
     causal = not cfg.encoder_only
-    new_cache = None
-    if cache is not None:
-        cache_len = cache["len"]
-        new_cache = dict(k=cache["k"], v=cache["v"],
-                         len=cache_len + x.shape[1])
+    if cache is None:
+        def layer(xx, pl):
+            return body(cfg, xx, _as_dtype_of(pl, xx), positions, causal,
+                        None, plain_kernels)
+        layer = _maybe_remat(cfg, layer, training)
+        for i in range(cfg.n_layers):
+            x = layer(x, layer_params(params["layers"], i))
+        return x, None
+    cache_len = cache["len"]
     for i in range(cfg.n_layers):
-        pl = layer_params(params["layers"], i)
-        if pl["ln1"].dtype != x.dtype:      # vision rows (module note)
-            pl = as_dtype(pl, x.dtype)
-        kv = None if cache is None else (cache["k"][i], cache["v"][i],
-                                         cache_len)
+        pl = _as_dtype_of(layer_params(params["layers"], i), x)
+        kv = (cache["k"][i], cache["v"][i], cache_len)
         x = body(cfg, x, pl, positions, causal, kv, plain_kernels)
-    return x, new_cache
+    return x, dict(k=cache["k"], v=cache["v"], len=cache_len + x.shape[1])
 
 
-def _hybrid_stack(cfg, params, x, positions, cache, plain_kernels):
+def _hybrid_stack(cfg, params, x, positions, cache, plain_kernels,
+                  training=False):
     """Zamba2-style: ``n_layers / attn_every`` groups, each of
     ``attn_every`` Mamba layers followed by the shared attention block
     (the same weights every group; each group its own KV slice).  Without
@@ -288,39 +359,44 @@ def _hybrid_stack(cfg, params, x, positions, cache, plain_kernels):
     state and conv window back into them."""
     per = cfg.attn_every
     shared = params["shared_attn"]
-    if cache is not None:
-        cache_len = cache["len"]
+    if cache is None:
+        mamba = _maybe_remat(
+            cfg, lambda xx, pl: _mamba_body(cfg, xx, pl, None)[0], training)
+        block = _maybe_remat(cfg, lambda xx, sp: _dense_body(
+            cfg, xx, sp, positions, True, None, plain_kernels), training)
+        for g in range(cfg.n_layers // per):
+            for i in range(g * per, (g + 1) * per):
+                x = mamba(x, layer_params(params["layers"], i))
+            x = block(x, shared)
+        return x, None
+    cache_len = cache["len"]
     for g in range(cfg.n_layers // per):
         for i in range(g * per, (g + 1) * per):
             pl = layer_params(params["layers"], i)
-            st = None if cache is None else (cache["ssm_state"][i],
-                                             cache["conv"][i])
+            st = (cache["ssm_state"][i], cache["conv"][i])
             x, (new_state, new_conv) = _mamba_body(cfg, x, pl, st)
-            if cache is not None:
-                cache["ssm_state"][i].copy_(new_state)
-                cache["conv"][i].copy_(new_conv)
-        kv = None if cache is None else (cache["k"][g], cache["v"][g],
-                                         cache_len)
+            cache["ssm_state"][i].copy_(new_state)
+            cache["conv"][i].copy_(new_conv)
+        kv = (cache["k"][g], cache["v"][g], cache_len)
         x = _dense_body(cfg, x, shared, positions, True, kv, plain_kernels)
-    if cache is None:
-        return x, None
     return x, dict(cache, len=cache_len + x.shape[1])
 
 
-def _rwkv_stack(cfg, params, x, cache, plain_kernels):
+def _rwkv_stack(cfg, params, x, cache, plain_kernels, training=False):
     """Without a cache each layer starts from a zero state (the reference's
     uncached path); with one, from its slice, and writes its new states
     back into that slice."""
     if cache is None:
         zero = rwkv.init_rwkv_cache(cfg, x.shape[0], x.dtype, x.device)
+        layer = _maybe_remat(cfg, lambda xx, pl: _rwkv_body(
+            cfg, xx, pl, zero, plain_kernels)[0], training)
+        for i in range(cfg.n_layers):
+            x = layer(x, layer_params(params["layers"], i))
+        return x, None
     for i in range(cfg.n_layers):
         pl = layer_params(params["layers"], i)
-        cl = zero if cache is None else (
-            cache["tm_shift"][i], cache["wkv"][i], cache["cm_shift"][i])
-        x, _ = _rwkv_body(cfg, x, pl, cl, plain_kernels,
-                          in_place=cache is not None)
-    if cache is None:
-        return x, None
+        cl = (cache["tm_shift"][i], cache["wkv"][i], cache["cm_shift"][i])
+        x, _ = _rwkv_body(cfg, x, pl, cl, plain_kernels, in_place=True)
     return x, dict(cache, len=cache["len"] + x.shape[1])
 
 
@@ -332,6 +408,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
                device) -> dict:
     """Zeroed decode cache sized for ``max_len`` tokens of context."""
     check_ported(cfg)
+    if cfg.family == "audio":
+        raise ValueError(f"{cfg.family} has no decode cache")
     if cfg.family == "ssm":
         tm, wkv, cm = (torch.stack([a] * cfg.n_layers) for a in
                        rwkv.init_rwkv_cache(cfg, batch, dtype, device))

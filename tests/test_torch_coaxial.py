@@ -21,6 +21,8 @@ paper's anchors (``tests/test_core_repro.py``) are re-run on the port.
 """
 
 import dataclasses
+import hashlib
+import os
 
 import numpy as np
 import pytest
@@ -101,24 +103,75 @@ SPECS = {
 }
 
 
+def _tensor_hashes(obj, prefix="", out=None) -> dict:
+    """sha256 (first 12 hex digits) of every tensor in a tree of
+    dataclasses, named tuples, dicts and sequences, by path."""
+    out = {} if out is None else out
+    if torch.is_tensor(obj):
+        data = obj.detach().cpu().contiguous().numpy().tobytes()
+        out[prefix] = hashlib.sha256(data).hexdigest()[:12]
+    elif dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        for f in dataclasses.fields(obj):
+            _tensor_hashes(getattr(obj, f.name), f"{prefix}.{f.name}", out)
+    elif isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        for name, x in zip(obj._fields, obj):
+            _tensor_hashes(x, f"{prefix}.{name}", out)
+    elif isinstance(obj, dict):
+        for name, x in obj.items():
+            _tensor_hashes(x, f"{prefix}[{name}]", out)
+    elif isinstance(obj, (list, tuple)):
+        for i, x in enumerate(obj):
+            _tensor_hashes(x, f"{prefix}[{i}]", out)
+    return out
+
+
+def _solve_fingerprint(inputs, request) -> str:
+    """What a failure of the solve comparison reports beside the values:
+    a hash of each tensor the port's cell solver was given, the fixed
+    point's constants, torch's thread count, and the test files this
+    process ran before (pytest drops a finished item's request, so those
+    are the items whose ``_request`` is False)."""
+    ran = dict.fromkeys(
+        item.nodeid.split("::")[0] for item in request.session.items
+        if getattr(item, "_request", None) is False)
+    return (f"port solve inputs {inputs}; FP_ITERS {cpu_model.FP_ITERS}, "
+            f"FP_DAMP {cpu_model.FP_DAMP}; torch threads "
+            f"{torch.get_num_threads()}; worker "
+            f"{os.environ.get('PYTEST_XDIST_WORKER', 'none')}; test files "
+            f"run before in this process: {list(ran)}")
+
+
 @pytest.mark.parametrize("spec", list(SPECS))
-def test_solve_spec_matches_reference(spec):
+def test_solve_spec_matches_reference(spec, request, monkeypatch):
+    inputs = []
+    solve_cells = cpu_model._solve_cells
+
+    def recording(*args, **kwargs):
+        if not inputs:
+            inputs.append(_tensor_hashes((args, kwargs)))
+        return solve_cells(*args, **kwargs)
+    monkeypatch.setattr(cpu_model, "_solve_cells", recording)
     solve = lambda: coaxial.solve_spec(SPECS[spec](coaxial), device="cpu")
     calls = cpu_model.solve_trace_count()
     got = solve()
     assert cpu_model.solve_trace_count() == calls + 1
     nxt = one_step_further(solve)
     want = jc.solve_spec(SPECS[spec](jc))
-    assert got.axis_names == want.axis_names
-    assert [ax.coords for ax in got.axes] == [ax.coords for ax in want.axes]
-    assert got.results.ipc.shape == want.results.ipc.shape
-    assert_results_close(got.results, want.results, nxt.results)
-    assert_grid_close(got.geomean_grid(), want.geomean_grid(),
-                      nxt.geomean_grid())
-    assert_grid_close(got.speedup_grid(), want.speedup_grid(),
-                      one_step_further(nxt.speedup_grid))
-    for k, v in want.design_cost_grid().items():
-        np.testing.assert_array_equal(got.design_cost_grid()[k], v)
+    try:
+        assert got.axis_names == want.axis_names
+        assert [ax.coords for ax in got.axes] == \
+            [ax.coords for ax in want.axes]
+        assert got.results.ipc.shape == want.results.ipc.shape
+        assert_results_close(got.results, want.results, nxt.results)
+        assert_grid_close(got.geomean_grid(), want.geomean_grid(),
+                          nxt.geomean_grid())
+        assert_grid_close(got.speedup_grid(), want.speedup_grid(),
+                          one_step_further(nxt.speedup_grid))
+        for k, v in want.design_cost_grid().items():
+            np.testing.assert_array_equal(got.design_cost_grid()[k], v)
+    except AssertionError as err:
+        raise AssertionError(
+            f"{err}\n{_solve_fingerprint(inputs[0], request)}") from err
 
 
 def test_default_sweep_settles_everywhere():

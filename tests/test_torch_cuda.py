@@ -394,6 +394,102 @@ def test_serve_smoke_launches_wkv_every_layer_and_pass():
 
 
 # ---------------------------------------------------------------------------
+# wkv's backward (K3b)
+# ---------------------------------------------------------------------------
+
+def _wkv_bwd_inputs(b, t, h, d, dtype, decay="model", ds_t=True, seed=0):
+    """wkv's inputs, then dy and (or None) ds_t.  ``decay`` "model" is
+    time_mix's exp(-exp(N(0,1) - 3)); "sigmoid" the reference test's
+    sigmoid(N(0,1)) * 0.5 + 0.5."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    mk = lambda *shape: torch.randn(*shape, device="cuda", generator=gen)
+    r, k, v = (mk(b, t, h, d).to(dtype) for _ in range(3))
+    z = mk(b, t, h, d)
+    w = torch.exp(-torch.exp(z - 3.0)) if decay == "model" else \
+        torch.sigmoid(z) * 0.5 + 0.5
+    u, s0, dy = mk(h, d), mk(b, h, d, d), mk(b, t, h, d)
+    return r, k, v, w, u, s0, dy, (mk(b, h, d, d) if ds_t else None)
+
+
+def assert_wkv_grads_close(got, want, dtype):
+    """K3b against wkv_bwd_ref: every output within 1e-4 of its largest
+    element (fp32 sums in another order over D and the same recurrence
+    over T); dr, dk, dv in bf16 also within 1e-2 of themselves (both
+    round once to bf16 from fp32 that may differ in its last bits)."""
+    for name, g, x in zip(("dr", "dk", "dv", "dw", "du", "ds0"), got, want):
+        assert g.dtype == x.dtype and g.shape == x.shape, name
+        rtol = 1e-2 if g.dtype == torch.bfloat16 else 0.0
+        scale = x.float().abs().max().item()
+        torch.testing.assert_close(g.float(), x.float(), rtol=rtol,
+                                   atol=1e-4 * scale, msg=name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("decay", ["model", "sigmoid"])
+@pytest.mark.parametrize("ds_t", [False, True], ids=["dsT0", "dsT"])
+@pytest.mark.parametrize("b,t,h,d", [
+    (2, 1, 4, 16),          # one step
+    (3, 15, 5, 16),         # a segment's edges (16 steps a segment)
+    (3, 16, 5, 32),
+    (3, 17, 5, 64),
+    (2, 33, 3, 32),
+    (2, 300, 32, 64),       # rwkv6-1.6b's heads, ragged length
+])
+def test_wkv_bwd_kernel_matches_plain(dtype, decay, ds_t, b, t, h, d):
+    _need_card()
+    r, k, v, w, u, s0, dy, dst = _wkv_bwd_inputs(b, t, h, d, dtype, decay,
+                                                 ds_t, seed=t + d)
+    got = kw.wkv_bwd(r, k, v, w, u, s0, dy, dst)
+    want = ref.wkv_bwd_ref(r, k, v, w, u, s0, dy, dst)
+    assert_wkv_grads_close(got, want, dtype)
+
+
+def test_wkv_bwd_geometry_reports_the_launch():
+    _need_card()
+    for dtype in (torch.float32, torch.bfloat16):
+        geo = kw.geometry_bwd(dtype, (8, 1024, 32, 64))
+        assert geo["blocks"] == 8 * 32 and geo["segment"] == kw.SEGMENT
+        assert geo["threads"] == 64 // geo["columns"] * geo["key_groups"]
+        assert geo["blocks_per_sm"] >= 1 and geo["smem_bytes"] > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv_autograd_on_card_launches_k3_and_k3b(dtype):
+    """ops.wkv under autograd on CUDA tensors: one K3 and one K3b launch;
+    its gradients equal the plain path's (wkv_ref, wkv_bwd_ref)."""
+    _need_card()
+    r, k, v, w, u, s0, dy, _ = _wkv_bwd_inputs(2, 40, 4, 32, dtype)
+    grads = {}
+    for plain in (False, True):
+        xs = [x.clone().requires_grad_() for x in (r, k, v, w, u, s0)]
+        before = kw.KERNEL.launches, kw.KERNEL_BWD.launches
+        y, s = ops.wkv(*xs, plain=plain)
+        (y * dy).sum().backward()
+        launched = (kw.KERNEL.launches - before[0],
+                    kw.KERNEL_BWD.launches - before[1])
+        assert launched == ((0, 0) if plain else (1, 1))
+        grads[plain] = [x.grad for x in xs]
+    assert_wkv_grads_close(grads[False], grads[True], dtype)
+
+
+def test_wkv_bwd_raises_on_bad_input():
+    _need_card()
+    r, k, v, w, u, s0, dy, dst = _wkv_bwd_inputs(1, 5, 2, 32, torch.float32)
+    before = kw.KERNEL_BWD.launches
+    with pytest.raises(TypeError):                     # fp16 r/k/v
+        kw.wkv_bwd(r.half(), k.half(), v.half(), w, u, s0, dy, dst)
+    with pytest.raises(TypeError):                     # bf16 dy
+        kw.wkv_bwd(r, k, v, w, u, s0, dy.bfloat16(), dst)
+    with pytest.raises(ValueError, match="want"):
+        kw.wkv_bwd(r, k, v, w, u, s0, dy[:, :2].contiguous(), dst)
+    with pytest.raises(ValueError, match="no kernel built"):
+        kw.wkv_bwd(*_wkv_bwd_inputs(1, 5, 2, 128, torch.float32))
+    with pytest.raises(RuntimeError, match="no gradient"):
+        ops.wkv(r.requires_grad_(), k, v, w, u, s0, state_out=s0.clone())
+    assert kw.KERNEL_BWD.launches == before
+
+
+# ---------------------------------------------------------------------------
 # STREAM (K1a-d)
 # ---------------------------------------------------------------------------
 

@@ -37,12 +37,12 @@ def test_serve_main_smoke_on_cpu(arch, capsys):
 
 
 def test_serve_refuses_unported_family():
-    """hubert-xlarge (audio) is the one family left unported.  serve exits
-    on an encoder-only model before it builds one, so the refusal is the
-    model's own."""
+    """hubert-xlarge (audio) is ported for training only: encoder-only, its
+    one entry point is ``Model.loss``.  It has no decode cache, and serve
+    exits on it before it builds a model."""
     cfg = smoke_variant(get_config("hubert-xlarge"))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        Model(cfg, device="cpu")
+    with pytest.raises(ValueError, match="no decode cache"):
+        Model(cfg, device="cpu").make_cache(1, 4)
     with pytest.raises(SystemExit, match="encoder-only"):
         serve.main(["--arch", "hubert-xlarge", "--smoke", "--device", "cpu"])
 
