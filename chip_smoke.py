@@ -23,9 +23,10 @@ Phases; any failure exits non-zero and no phase swallows one:
      wkv at ragged lengths and at the edges of its chunk of steps, both
      decay ranges, and chained bit-exactly, cut inside a chunk and at its
      edge; wkv_bwd (K3b, wkv's backward) against ``wkv_bwd_ref`` at ragged
-     lengths and the edges of its 16-step segment, both decay ranges,
-     the final state's gradient zero and not, D 16/32/64, f32 and bf16,
-     and at the training shape (B 8, T 1,024, H 32, D 64), each output
+     lengths and the edges of its segment, both decay ranges, the final
+     state's gradient zero and not, D 16/32/64, f32 and bf16, at one
+     (batch, head) (a single block) either side of a segment at each
+     D, and at the training shape (B 8, T 1,024, H 32, D 64), each output
      within ``WKV_BWD_TOL`` of its largest element;
      the four STREAM kernels bit for bit (torch.equal) at the reference's
      test shapes, at ragged n and at the probe's size;
@@ -2357,6 +2358,13 @@ def check_wkv_bwd_cases(kw, ref):
                 seed += 1
                 check_wkv_bwd(kw, ref, (BATCH, t, h, d), dtype, decay,
                               i % 2 == 1, seed)
+            # One (batch, head), one block, at each D, below, at and one
+            # above a segment.
+            for hd in kw.HEAD_DIMS_BWD:
+                for i, t in enumerate((seg - 1, seg, seg + 1)):
+                    seed += 1
+                    check_wkv_bwd(kw, ref, (1, t, 1, hd), dtype, decay,
+                                  i == 1, seed)
             check_wkv_bwd(kw, ref, (2, 40, 4, 16), dtype, decay, True,
                           seed + 1)
             check_wkv_bwd(kw, ref, (3, 50, 5, 32), dtype, decay, False,
@@ -2634,8 +2642,7 @@ def wkv_bwd_timing(kw, ref, spec, smi):
     bound = max(t_bytes, t_ops) * 1e3
     by = "bytes" if t_bytes >= t_ops else "operations"
     geo = kw.geometry_bwd(torch.bfloat16, TRAIN_SHAPE)
-    seg = geo["segment"]
-    scratch = 4 * b * h * d * d * (-(-t // seg) + seg)
+    ckpt = 4 * b * h * d * d * kw.checkpoint_shape(TRAIN_SHAPE)[1]
     ms = min(wt["kernel"])
     log(f"wkv_bwd bf16 B{b} T{t} H{h} D{d} on {smi}: kernel {wt['kernel']} "
         f"ms by events (profiler: "
@@ -2643,12 +2650,13 @@ def wkv_bwd_timing(kw, ref, spec, smi):
         f"launch), plain {wt['plain']} ms; bound {bound:.5f} ms by {by} "
         f"({nbytes} B, {flops} FLOP at {spec.peak_fp32_flops / 1e12} "
         f"TFLOP/s fp32) -> {bound / ms:.3f} of the bound; launch "
-        f"{geo['blocks']} blocks x {geo['threads']} threads, segments of "
-        f"{geo['segment']} steps, {geo['key_groups']} key groups of "
-        f"{geo['columns']} columns a thread, {geo['smem_bytes']} B shared "
-        f"memory a block, {geo['blocks_per_sm']} blocks an SM; scratch "
-        f"{scratch / 2**20:.0f} MiB (a state a segment and one segment's "
-        f"states, fp32)")
+        f"{geo['blocks']} blocks (one a (batch, head)) x {geo['threads']} "
+        f"threads, segments of {geo['segment']} steps in shared memory, "
+        f"{geo['keys']} keys x {geo['columns']} columns a thread, "
+        f"{geo['registers']} registers, {geo['smem_bytes']} B shared "
+        f"memory a block, {geo['blocks_per_sm']} blocks an SM; checkpoints "
+        f"{ckpt / 2**20:.0f} MiB (a state at every segment start but the "
+        f"last, fp32)")
     del args, r, k, v, w, u, s0, dy
     torch.cuda.empty_cache()
     return {"ms": ms, "plain_ms": min(wt["plain"]), "bound_ms": bound,

@@ -106,10 +106,12 @@ def wkv(r, k, v, w, u, state, state_out=None):
 #: What ``geometry`` reports, in the order the library writes it.
 GEOMETRY = ("blocks", "threads", "chunk_steps", "key_groups", "columns",
             "smem_bytes", "blocks_per_sm")
-#: What ``geometry_bwd`` reports: the same, with steps a segment (the
-#: checkpoint interval) in place of steps a chunk.
-GEOMETRY_BWD = ("blocks", "threads", "segment", "key_groups", "columns",
-                "smem_bytes", "blocks_per_sm")
+#: What ``geometry_bwd`` reports: blocks (one a (batch, head)), threads a
+#: block, steps a segment, keys and value columns a thread, dynamic shared
+#: bytes a block, blocks an SM of the current device holds at once,
+#: registers a thread.
+GEOMETRY_BWD = ("blocks", "threads", "segment", "keys", "columns",
+                "smem_bytes", "blocks_per_sm", "registers")
 
 
 def _geometry(kernel, names, dtype, shape) -> dict:
@@ -149,14 +151,29 @@ KERNEL_BWD = Kernel("rwkv_wkv_bwd", [
     ctypes.c_void_p, ctypes.c_void_p,                     # dy, ds_T
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,    # dr, dk, dv
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,    # dw, du_part, ds0
-    ctypes.c_void_p, ctypes.c_void_p,                     # ckpt, scratch
+    ctypes.c_void_p,                                      # ckpt
     ctypes.c_int, ctypes.c_int, ctypes.c_int,             # B, T, H
     ctypes.c_void_p])                                     # stream
 
+#: Head dims K3b's source builds (it refuses a launch at any other).
+HEAD_DIMS_BWD = (16, 32, 64)
 #: Steps a segment of K3b (``kSeg`` in the source): it keeps a checkpoint
-#: of the state at every segment's start and recomputes a segment's states
-#: into scratch.  ``geometry_bwd`` reports the built value.
-SEGMENT = 16
+#: of the state at every segment's start but the last and recomputes a
+#: segment's states into shared memory.  ``geometry_bwd`` reports the
+#: built value.
+SEGMENT = 8
+
+
+def checkpoint_shape(shape) -> tuple:
+    """The fp32 checkpoints K3b keeps in device memory for r of ``shape``
+    (B, T, H, D): the state at the start of every segment but the last,
+    (B*H, ceil(T / SEGMENT) - 1, D, D).  Raises for a head dim the source
+    does not build."""
+    b, t, h, d = shape
+    if d not in HEAD_DIMS_BWD:
+        raise ValueError(f"wkv_bwd: no kernel built for head dim {d} "
+                         f"(built: {list(HEAD_DIMS_BWD)})")
+    return (b * h, -(-t // SEGMENT) - 1, d, d)
 
 
 def wkv_bwd(r, k, v, w, u, state, dy, ds_t=None):
@@ -164,8 +181,10 @@ def wkv_bwd(r, k, v, w, u, state, dy, ds_t=None):
     H, D) fp32, u (H, D) fp32, state (B, H, D, D) fp32 (the initial state
     of the forward), dy (B, T, H, D) fp32, ds_t (B, H, D, D) fp32 or None
     (zero).  Returns (dr, dk, dv in r's type, dw (B, T, H, D) fp32, du
-    (H, D) fp32, ds0 (B, H, D, D) fp32).  Launches K3b; du is summed over
-    the batch from one partial a (batch, head)."""
+    (H, D) fp32, ds0 (B, H, D, D) fp32).  Launches K3b, one block a
+    (batch, head); du is summed over the batch from one partial a (batch,
+    head)."""
+    ckpt_shape = checkpoint_shape(r.shape)
     extra = [("dy", dy)] + ([] if ds_t is None else [("ds_t", ds_t)])
     _check(r, k, v, w, u, state, state, who="wkv_bwd", extra=extra)
     if dy.shape != r.shape or (ds_t is not None and
@@ -178,11 +197,7 @@ def wkv_bwd(r, k, v, w, u, state, dy, ds_t=None):
     dw = torch.empty(r.shape, dtype=torch.float32, device=r.device)
     du_part = torch.empty((b, h, d), dtype=torch.float32, device=r.device)
     ds0 = torch.empty_like(state)
-    n_seg = -(-t // SEGMENT)
-    ckpt = torch.empty((b * h, n_seg, d, d), dtype=torch.float32,
-                       device=r.device)
-    scratch = torch.empty((b * h, SEGMENT, d, d), dtype=torch.float32,
-                          device=r.device)
+    ckpt = torch.empty(ckpt_shape, dtype=torch.float32, device=r.device)
     stream = torch.cuda.current_stream(r.device).cuda_stream
     with torch.cuda.device(r.device):
         KERNEL_BWD.launch(
@@ -190,6 +205,6 @@ def wkv_bwd(r, k, v, w, u, state, dy, ds_t=None):
             w.data_ptr(), u.data_ptr(), state.data_ptr(), dy.data_ptr(),
             None if ds_t is None else ds_t.data_ptr(), dr.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), dw.data_ptr(), du_part.data_ptr(),
-            ds0.data_ptr(), ckpt.data_ptr(), scratch.data_ptr(), b, t, h,
-            stream, config=f"head dim {d}")
+            ds0.data_ptr(), ckpt.data_ptr(), b, t, h, stream,
+            config=f"head dim {d}")
     return dr, dk, dv, dw, du_part.sum(dim=0), ds0

@@ -8,6 +8,8 @@ it runs on a machine with only PyTorch:
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 """
 
+import itertools
+
 import pytest
 import torch
 
@@ -424,16 +426,25 @@ def assert_wkv_grads_close(got, want, dtype):
                                    atol=1e-4 * scale, msg=name)
 
 
+SEG = kw.SEGMENT   # steps a segment of K3b
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("decay", ["model", "sigmoid"])
 @pytest.mark.parametrize("ds_t", [False, True], ids=["dsT0", "dsT"])
 @pytest.mark.parametrize("b,t,h,d", [
     (2, 1, 4, 16),          # one step
-    (3, 15, 5, 16),         # a segment's edges (16 steps a segment)
-    (3, 16, 5, 32),
-    (3, 17, 5, 64),
+    (3, SEG - 1, 5, 16),    # a segment's edges
+    (3, SEG, 5, 32),
+    (3, SEG + 1, 5, 64),
     (2, 33, 3, 32),
     (2, 300, 32, 64),       # rwkv6-1.6b's heads, ragged length
+    # one (batch, head), one block, at each D, below, at and one above a
+    # segment
+    (1, SEG - 1, 1, 16), (1, SEG, 1, 16), (1, SEG + 1, 1, 16),
+    (1, SEG - 1, 1, 32), (1, SEG, 1, 32), (1, SEG + 1, 1, 32),
+    (1, SEG - 1, 1, 64), (1, SEG, 1, 64), (1, SEG + 1, 1, 64),
+    (1, 2 * SEG + 1, 1, 64),
 ])
 def test_wkv_bwd_kernel_matches_plain(dtype, decay, ds_t, b, t, h, d):
     _need_card()
@@ -445,12 +456,17 @@ def test_wkv_bwd_kernel_matches_plain(dtype, decay, ds_t, b, t, h, d):
 
 
 def test_wkv_bwd_geometry_reports_the_launch():
+    """One block a (batch, head), the wrapper's segment, whole warps of
+    the tile, the card holding a block."""
     _need_card()
-    for dtype in (torch.float32, torch.bfloat16):
-        geo = kw.geometry_bwd(dtype, (8, 1024, 32, 64))
+    for dtype, d in itertools.product((torch.float32, torch.bfloat16),
+                                      kw.HEAD_DIMS_BWD):
+        geo = kw.geometry_bwd(dtype, (8, 1024, 32, d))
         assert geo["blocks"] == 8 * 32 and geo["segment"] == kw.SEGMENT
-        assert geo["threads"] == 64 // geo["columns"] * geo["key_groups"]
+        assert geo["threads"] % 32 == 0
+        assert geo["threads"] * geo["keys"] * geo["columns"] == d * d
         assert geo["blocks_per_sm"] >= 1 and geo["smem_bytes"] > 0
+        assert 0 < geo["registers"] <= 255
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
