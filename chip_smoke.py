@@ -146,7 +146,23 @@ Phases; any failure exits non-zero and no phase swallows one:
      of each model timed (ms, tokens/s, busy share, peak memory, K3/K3b a
      launch) and K3b timed at the training shape beside its bound and its
      plain version.  Alone: ``python3 -c "import chip_smoke;
-     chip_smoke.train_phase()"``.
+     chip_smoke.train_phase()"``;
+ 11. the multi-device layer (``mesh_phase``): the DES through
+     ``core/shardsim`` with ``devices="auto"`` (every card torch sees)
+     against ``devices=None``, both engines, 74 lanes, histograms bit for
+     bit and each run's scan launches exact (one a chunk a shard); a
+     one-rank NCCL world's (1, 1) mesh (``launch/mesh.make_host_mesh``):
+     stablelm-1.6b at full width in bf16 (batch 8, prompt 1,024, 32
+     steps) with its parameters DTensors by ``decode_rules``, its cache
+     placed by ``cache_shardings`` and the batch activation rule active,
+     through ``distributed/step.make_prefill`` and ``make_serve_step``:
+     exactly 768 decode_attn launches (K2 on each rank's local shards),
+     greedy tokens equal to the same serve on ordinary tensors and logits
+     within the bf16 gate; ``int8_all_reduce`` on that world equal to its
+     own quantize round trip; one dry-run cell (stablelm-1.6b decode_32k
+     on the fake 256-rank (32, 8) world) in a process of its own, its
+     FLOPs a chip printed.  Alone: ``python3 -c "import chip_smoke;
+     chip_smoke.mesh_phase()"``.
 
 The card's nvidia-smi line is printed again just before the JSON object
 ``{"kernels": [...]}``, the line before the last; the last line is
@@ -2735,6 +2751,235 @@ def train_phase(k3b_err=None):
             {"max_abs_err": k3b_err, **row})
 
 
+# --- phase 11: the multi-device layer ---------------------------------------
+
+# The sharded DES: 37 cells x 2 replicas (74 lanes: not a multiple of a
+# card count above 1, nor of the scans' 32-lane blocks) at a budget of a
+# few chunks, each engine with ``devices="auto"`` and with ``devices=None``.
+MESH_DES_CELLS, MESH_DES_REPS, MESH_DES_STEPS = 37, 2, 40_000
+
+
+def world_of_one(backend):
+    """This process as rank 0 of a one-rank world (its store on a port
+    the kernel picks)."""
+    import datetime
+
+    import torch.distributed as dist
+    store = dist.TCPStore("127.0.0.1", 0, world_size=1, is_master=True,
+                          timeout=datetime.timedelta(seconds=120))
+    dist.init_process_group(backend, store=store, rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+    return store
+
+
+def mesh_des_check(kernels, device="cuda"):
+    """The DES through ``core/shardsim``: ``devices="auto"`` (the cards
+    torch sees) against ``devices=None``, both engines, histograms bit for
+    bit, each run's scan launches exact (one a chunk a shard)."""
+    import numpy as np
+
+    from repro_torch.core import memsim, shardsim
+    ndev = shardsim.resolve_devices("auto", device=device)
+    cfgs = [memsim.ChannelConfig(rho=float(r))
+            for r in np.linspace(0.05, 0.93, MESH_DES_CELLS)]
+    lanes = MESH_DES_CELLS * MESH_DES_REPS
+    total = {"memsim_ts_scan": 0, "memsim_event_scan": 0}
+    for engine in memsim.ENGINES:
+        hists = {}
+        for devices, shards in ((None, 1), ("auto", ndev)):
+            for kern in kernels.values():
+                kern.launches = 0
+            t0 = time.perf_counter()
+            stats = memsim.simulate(cfgs, steps=MESH_DES_STEPS, seed=SEED,
+                                    reps=MESH_DES_REPS, engine=engine,
+                                    devices=devices, device=device)
+            ms = (time.perf_counter() - t0) * 1e3
+            got = {k: kern.launches for k, kern in kernels.items()
+                   if k in total}
+            want = {k: v * shards for k, v in memsim_launches(
+                memsim, [(engine, lanes, MESH_DES_STEPS)]).items()}
+            if device == "cuda" and got != want:
+                fail(f"sharded DES ({engine}, devices={devices!r}): scan "
+                     f"launches {got} != {want}")
+            for k in total:
+                total[k] += got.get(k, 0)
+            hists[devices] = stats.hist
+            log(f"sharded DES {engine}, devices={devices!r} ({shards} "
+                f"shard(s)), {lanes} lanes x {MESH_DES_STEPS} steps: "
+                f"{ms:.1f} ms (host clock), launches {got}")
+        if not np.array_equal(hists[None], hists["auto"]):
+            fail(f"sharded DES ({engine}): devices='auto' histograms differ "
+                 f"from devices=None")
+    log(f"sharded DES: devices='auto' is {ndev} device(s); histograms "
+        f"bit-equal to devices=None for both engines")
+    return total
+
+
+def _serve_loop(model, step, prefill, params, prompt, cache, gen, cfg):
+    """Greedy serve: logits of the prefill and of each step, tokens."""
+    logits, tokens = [], []
+    lg, cache = prefill(params, prompt, cache)
+    for _ in range(gen):
+        logits.append(lg)
+        tok = lg.argmax(-1).to(torch.int32)
+        tokens.append(tok)
+        pos = torch.full((tok.shape[0], 1), cache["len"], dtype=torch.int32,
+                         device=model.device)
+        lg, cache = step(params, dict(tokens=tok[:, None], positions=pos),
+                         cache)
+    logits.append(lg)
+    return logits, torch.stack(tokens, dim=1)
+
+
+def mesh_serve(cfg, kernels, device="cuda", backend="nccl", batch=BATCH,
+               prompt_len=PROMPT, gen=GEN, tol=PATH_CHECK[DENSE_ARCH][1]):
+    """``cfg`` served on a one-rank world's (1, 1) host mesh: parameters
+    as DTensors by ``decode_rules``, the cache by ``cache_shardings``, the
+    batch activation rule active, through ``make_prefill`` and
+    ``make_serve_step``; K2's launches counted (exactly ``gen`` x layers),
+    the greedy tokens equal to the same serve on ordinary tensors and the
+    logits within ``tol``.  Then ``int8_all_reduce`` over the world
+    against its own quantize round trip.  Returns the K2 launches."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.data.pipeline import SyntheticDataset
+    from repro_torch.distributed import context
+    from repro_torch.distributed import int8_collectives as i8
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.step import make_prefill, make_serve_step
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.model import Model
+
+    store = world_of_one(backend)
+    try:
+        mesh = make_host_mesh(1, device_type=device)
+        with torch.inference_mode():
+            model = Model(cfg, device=device)
+            params = model.init(SEED)
+            prompt = {k: torch.as_tensor(v, device=device)
+                      for k, v in SyntheticDataset(
+                          cfg, batch, prompt_len, seed=SEED + 1).batch_at(0)
+                      .items() if k not in ("targets", "loss_mask")}
+            s_max = prompt_len + gen
+            runs, wall = {}, {}
+            for how in ("ordinary", "mesh"):
+                for kern in kernels.values():
+                    kern.launches = 0
+                if how == "ordinary":
+                    p, c, b = params, model.make_cache(batch, s_max), prompt
+                    rules = contextlib.nullcontext()
+                else:
+                    p = shd.distribute(params, shd.param_shardings(
+                        model, mesh, shd.decode_rules(mesh, cfg)))
+                    c = model.make_cache(batch, s_max)
+                    c = shd.distribute(c, shd.cache_shardings(cfg, mesh, c))
+                    b = shd.distribute(prompt, shd.batch_shardings(mesh,
+                                                                   prompt))
+                    rules = context.activation_rules(
+                        mesh, {"batch": shd.fsdp_axes(mesh)})
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with rules:
+                    logits, toks = _serve_loop(
+                        model, make_serve_step(model), make_prefill(model),
+                        p, b, c, gen, cfg)
+                    whole = lambda x: x.full_tensor() if isinstance(
+                        x, DTensor) else x
+                    logits, toks = [whole(x) for x in logits], whole(toks)
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                wall[how] = time.perf_counter() - t0
+                runs[how] = (logits, toks, {k: kern.launches for k, kern in
+                                            kernels.items()})
+                del p, c, b
+            k2 = runs["mesh"][2].get("decode_attn", 0)
+            want_k2 = gen * cfg.n_layers if device == "cuda" else 0
+            log(f"{cfg.name} {cfg.dtype} on a (1, 1) {backend} mesh: "
+                f"{batch}x{prompt_len} prompt, {gen} steps: kernel launches "
+                f"{runs['mesh'][2]} (expected decode_attn {want_k2}); "
+                f"{wall['mesh']:.2f} s, ordinary tensors {wall['ordinary']:.2f}"
+                f" s (host clock, prefill and steps)")
+            if k2 != want_k2 or runs["ordinary"][2] != runs["mesh"][2]:
+                fail(f"mesh serve: launches {runs['mesh'][2]}, ordinary "
+                     f"{runs['ordinary'][2]}, want decode_attn {want_k2}")
+            if not torch.equal(runs["mesh"][1], runs["ordinary"][1]):
+                fail("mesh serve: greedy tokens differ from the ordinary "
+                     "serve's")
+            worst = max((a.float() - o.float()).abs().max().item()
+                        for a, o in zip(runs["mesh"][0], runs["ordinary"][0]))
+            log(f"mesh serve: tokens equal the ordinary serve's; max|dlogit| "
+                f"{worst:.4e} over the prefill and {gen} steps (tol {tol})")
+            if not worst <= tol:
+                fail(f"mesh serve: logits differ by {worst} (tol {tol})")
+            gen_ = torch.Generator(device=device).manual_seed(SEED + 11)
+            x = torch.randn((4096, 1031), generator=gen_, device=device)
+            got = i8.int8_all_reduce(x, mesh.get_group("data"))
+            q, scale = i8._quantize(x.reshape(-1))
+            q2, scale2 = i8._quantize(q.float() * scale)
+            want = (q2.float() * scale2).reshape(x.shape)
+            if not torch.equal(got, want):
+                fail(f"int8_all_reduce on one rank differs from its quantize "
+                     f"round trip by {(got - want).abs().max().item()}")
+            log("int8_all_reduce on the one-rank world equals its own "
+                "quantize round trip bit for bit")
+        return k2
+    finally:
+        dist.destroy_process_group()
+        del store
+
+
+def mesh_dryrun_cell():
+    """One dry-run cell, stablelm-1.6b decode_32k on the (32, 8) mesh of a
+    fake 256-rank world, in its own process (the fake world never shares
+    a process with NCCL)."""
+    out = HERE / "dryrun_out"
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         DENSE_ARCH, "--shape", "decode_32k", "--out", str(out)],
+        capture_output=True, text=True, timeout=600, cwd=HERE,
+        env={**__import__("os").environ, "PYTHONPATH": str(HERE / "src")})
+    res = json.loads((out / f"{DENSE_ARCH}__decode_32k__32x8__baseline.json")
+                     .read_text())
+    if run.returncode != 0 or res["status"] != "ok":
+        fail(f"dry run: exit {run.returncode}, {res['status']}: "
+             f"{res['error']}\n{run.stderr[-2000:]}")
+    log(f"dry run {DENSE_ARCH} decode_32k on the fake (32, 8) world: "
+        f"{res['flops_per_chip']:.4e} FLOP a chip, collectives "
+        f"{res['collectives']['total']:.4e} B a chip, argument bytes "
+        f"{res['memory']['argument_bytes'] / 2**30:.2f} GiB a chip, "
+        f"{res['seconds']:.1f} s in the cell, "
+        f"{time.perf_counter() - t0:.1f} s with the process")
+    return res
+
+
+def mesh_phase():
+    """Phase 11, the multi-device layer on the card: the DES through
+    ``core/shardsim`` (``devices="auto"`` against ``None``); stablelm-1.6b
+    served through DTensor on a one-rank NCCL world's (1, 1) mesh against
+    the same serve on ordinary tensors, 768 K2 launches; int8_all_reduce
+    on that world; one dry-run cell in a process of its own.  Returns the
+    launches by kernel.  Alone: ``python3 -c "import chip_smoke;
+    chip_smoke.mesh_phase()"``."""
+    if not torch.cuda.is_available():
+        fail("torch sees no CUDA card; this script runs only on one")
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.kernels import memsim_scan as ms
+    from repro_torch.launch import serve
+    t_phase = time.perf_counter()
+    kernels = dict(serve.PATH_KERNELS["dense"])
+    kernels.update(ms.KERNELS)
+    build.load_all([kern.library for kern in kernels.values()])
+    launches = mesh_des_check(kernels)
+    launches["decode_attn"] = mesh_serve(get_config(DENSE_ARCH), kernels)
+    mesh_dryrun_cell()
+    log(f"phase 11 took {time.perf_counter() - t_phase:.1f} s (host clock)")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch sees no CUDA card; this script runs only on one")
@@ -3080,6 +3325,12 @@ def main():
         "source": "src/repro_torch/kernels/csrc/rwkv_wkv_bwd.cu",
         "replaces": "src/repro/models/rwkv.py:60",
         "launches": trained["wkv_bwd"], **k3b_row})
+
+    # -- phase 11: the multi-device layer -----------------------------------
+    for kname, n in mesh_phase().items():
+        for entry in entries:
+            if entry["name"] == kname:
+                entry["launches"] += n
 
     # The card's line again, so that it stands in the output's tail.
     print(smi, flush=True)

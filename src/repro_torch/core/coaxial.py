@@ -967,7 +967,8 @@ def distribution_sweep(spec: SweepSpec | None = None, *,
     unbound channel field (default: a plain DDR channel at the field
     defaults); ``engine`` picks ``"timestep"`` or ``"event"``;
     ``stream_ids``/``chunk`` pass through to ``memsim.simulate_cells``
-    (the canonical stream contract); ``devices`` must be ``None`` or 1.
+    (the canonical stream contract); ``devices`` splits the DES lanes over
+    that many devices (``core/shardsim``; bit-identical at any count).
 
     Example (doctest-sized step budget, on the CPU)::
 

@@ -44,11 +44,12 @@ PyTorch does not trace, and the scan kernels' launch counters
 (``kernels.memsim_scan.KERNELS``) take that count's place: one launch per
 chunk; :func:`sim_call_count` counts the calls of :func:`simulate_cells`
 (every DES run goes through it), on any device.  Every entry point takes
-``device=`` (default ``"cuda"``; with no card it raises); ``devices`` (the
-reference's lane sharding over host devices) accepts ``None`` or 1 and
-raises ``NotImplementedError`` for more until the port's shardsim lands.
-Results are exactly reproducible per ``(engine, seed, budget, N,
-device)``.
+``device=`` (default ``"cuda"``; with no card it raises) and ``devices``,
+the reference's lane sharding: stage B's lanes split over that many
+devices of ``device``'s type, one scan launch a shard a chunk
+(``core/shardsim``; on the CPU, logical host devices).  Results are
+exactly reproducible per ``(engine, seed, budget, N, device)``, whatever
+``devices`` is.
 """
 
 from __future__ import annotations
@@ -59,7 +60,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.core import hw, threefry
+from repro_torch.core import hw, shardsim, threefry
 from repro_torch.core import xlamath as xm
 from repro_torch.core.workloads import resolve_device
 from repro_torch.kernels import ops
@@ -247,16 +248,6 @@ def _check_engine(engine: str) -> str:
     return engine
 
 
-def _check_devices(devices) -> None:
-    """The port simulates on one device; the reference's lane sharding
-    over several (``devices > 1``, ``"auto"``) is ROADMAP.md item 9,
-    shardsim.  It changes no value, only wall-clock."""
-    if devices is None or (not isinstance(devices, str)
-                           and int(devices) == 1):
-        return
-    raise NotImplementedError(
-        f"devices={devices!r}: the port simulates on one device; sharding "
-        f"the lanes over several is ROADMAP.md item 9 (shardsim)")
 
 
 def _host(v) -> np.ndarray:
@@ -411,28 +402,63 @@ def _ts_terms(c: ChannelArrays, t: dict):
     return torch.stack([terms[k] for k in TS_TERMS]).contiguous()
 
 
-def _run_timestep(c, t, steps, seed, warmup, lanes, chunk, hactive):
+class _Shards:
+    """Stage B's lanes split over ``ndev`` devices (``core/shardsim``):
+    ``split`` pads a ``(..., n)`` array to the shards' total width with a
+    constant and hands each shard its slice on its device; ``merge`` puts
+    the shards' histogram rows back in lane order and drops the padding.
+    One device is the unsplit batch itself, with no copy."""
+
+    def __init__(self, n: int, ndev: int, device):
+        self.n, self.device = n, device
+        self.pad = shardsim.pad_width(n, ndev)
+        self.parts = shardsim.shards(n + self.pad, ndev, device)
+
+    def split(self, x, value):
+        if x is None or (len(self.parts) == 1 and self.pad == 0):
+            return [x] * len(self.parts)
+        x = shardsim.pad_lanes(x, self.pad, value)
+        return [x[..., sl].to(dev).contiguous() for sl, dev in self.parts]
+
+    def hists(self):
+        return [torch.zeros((sl.stop - sl.start, N_BINS), dtype=torch.int32,
+                            device=dev) for sl, dev in self.parts]
+
+    def merge(self, hists):
+        if len(hists) == 1 and self.pad == 0:
+            return hists[0]
+        return torch.cat([h.to(self.device) for h in hists])[:self.n]
+
+
+def _run_timestep(c, t, steps, seed, warmup, lanes, chunk, hactive,
+                  ndev=1):
     n = lanes.shape[0]
     device = lanes.device
     chunk = _ts_chunk_len(n) if chunk is None else int(chunk)
     n_chunks = -(-steps // chunk)
     ckeys = threefry.split(threefry.prng_key(seed, device), n_chunks)
-    terms = _ts_terms(c, t)
-    carry = torch.stack([torch.zeros(n), torch.ones(n), torch.zeros(n)]
-                        ).to(device)               # backlog, in_burst, lent
-    hist = torch.zeros((n, N_BINS), dtype=torch.int32, device=device)
+    sh = _Shards(n, ndev, device)
+    terms = sh.split(_ts_terms(c, t), float("nan"))
+    n_tot = n + sh.pad
+    carry = sh.split(torch.stack([torch.zeros(n_tot), torch.ones(n_tot),
+                                  torch.zeros(n_tot)]).to(device),
+                     0.0)                          # backlog, in_burst, lent
+    hist = sh.hists()
     for k in range(n_chunks):
-        sw, au, jit_ns, svc = _ts_draws(c, t, lanes, ckeys[k], chunk)
+        sw, au, jit_ns, svc = (sh.split(x, 0.0) for x in
+                               _ts_draws(c, t, lanes, ckeys[k], chunk))
         # Unharvested batches pass no harvest draws: the chain then reads
         # zeros, which with h_enter = 0 or h_scale = 1 is value-identical.
-        hu = _ts_harvest_u(lanes, ckeys[k], chunk) if hactive else None
+        hu = sh.split(_ts_harvest_u(lanes, ckeys[k], chunk)
+                      if hactive else None, 0.0)
         # Step j of this chunk is recorded iff warmup <= k*chunk + j < steps.
         t0 = k * chunk
         rec_lo = min(max(warmup - t0, 0), chunk)
         rec_hi = min(max(steps - t0, 0), chunk)
-        ops.ts_scan(terms, carry, sw, au, jit_ns, svc, hu, rec_lo, rec_hi,
-                    hist)
-    return hist
+        for i in range(ndev):
+            ops.ts_scan(terms[i], carry[i], sw[i], au[i], jit_ns[i], svc[i],
+                        hu[i], rec_lo, rec_hi, hist[i])
+    return sh.merge(hist)
 
 
 # ---------------------------------------------------------------------------
@@ -552,7 +578,7 @@ def _event_terms(c: ChannelArrays, t: dict):
     return torch.stack([terms[k] for k in EVENT_TERMS]).contiguous()
 
 
-def _run_event(c, t, warmup, events, seed, lanes, chunk, hactive):
+def _run_event(c, t, warmup, events, seed, lanes, chunk, hactive, ndev=1):
     n = lanes.shape[0]
     device = lanes.device
     chunk = _event_chunk_len(n) if chunk is None else int(chunk)
@@ -561,10 +587,11 @@ def _run_event(c, t, warmup, events, seed, lanes, chunk, hactive):
     phase_key, chunk_root = threefry.split(threefry.prng_key(seed, device), 2)
     keys = threefry.split(chunk_root, n_chunks)
     tabs = _event_tables(c, t, lanes, phase_key, n_sojourns)
-    terms = _event_terms(c, t)
+    sh = _Shards(n, ndev, device)
+    terms = sh.split(_event_terms(c, t), float("nan"))
     state_a = (torch.zeros(n, device=device), torch.zeros(n, device=device))
-    W = torch.zeros(n, device=device)
-    hist = torch.zeros((n, N_BINS), dtype=torch.int32, device=device)
+    W = sh.split(torch.zeros(n, device=device), 0.0)
+    hist = sh.hists()
     if hactive:
         htabs = _event_harvest_tabs(c, lanes, phase_key, n_sojourns)
         h_scale = _harvest_terms(c)["h_scale"]
@@ -574,8 +601,12 @@ def _run_event(c, t, warmup, events, seed, lanes, chunk, hactive):
             c, t, state_a, lanes, keys[k], tabs, warmup, chunk)
         if hactive:
             svc = _event_harvest_scale(svc, gaps, t_prev, htabs, h_scale)
-        ops.event_scan(terms, W, gaps, svc, rec_time, hist)
-    return hist
+        gaps, svc, rec_time = (sh.split(gaps, 1.0), sh.split(svc, 0.0),
+                               sh.split(rec_time, False))
+        for i in range(ndev):
+            ops.event_scan(terms[i], W[i], gaps[i], svc[i], rec_time[i],
+                           hist[i])
+    return sh.merge(hist)
 
 
 # ---------------------------------------------------------------------------
@@ -729,7 +760,10 @@ def simulate_cells(cha: ChannelArrays, *, overrides=None,
     each lane's streams by the caller's id and ``chunk`` pins the chunk
     schedule (:func:`canonical_chunk`), which together make a cell's
     histogram independent of the other cells in the batch.  ``devices``
-    must be ``None`` or 1 (see the module note).
+    splits the flattened ``(cells x reps)`` lanes of stage B over that
+    many devices of ``device``'s type (``None`` consults
+    ``$REPRO_DES_DEVICES``, default 1; ``"auto"`` uses all of them;
+    ``core/shardsim``); the histograms are bit-identical at any count.
     """
     _check_engine(engine)
     n = int(np.shape(cha.rho)[0])
@@ -743,8 +777,8 @@ def simulate_cells(cha: ChannelArrays, *, overrides=None,
     if events is not None and engine != "event":
         raise ValueError("events is an event-engine budget; use steps "
                          "for the timestep engine")
-    _check_devices(devices)
     device = resolve_device(device)
+    ndev = shardsim.resolve_devices(devices, device)
     _SIM_CALLS[0] += 1
 
     def tile(v):
@@ -765,12 +799,12 @@ def simulate_cells(cha: ChannelArrays, *, overrides=None,
     t = _channel_terms(c)
     if engine == "timestep":
         hist = _host(_run_timestep(c, t, int(steps), seed, warmup, lanes,
-                                   chunk, hactive)).astype(np.float64)
+                                   chunk, hactive, ndev)).astype(np.float64)
     else:
         events = (events_for_steps(steps) if events is None
                   else max(1, int(events)))
         hist = _host(_run_event(c, t, warmup, events, seed, lanes, chunk,
-                                hactive)).astype(np.float64)
+                                hactive, ndev)).astype(np.float64)
         # Jitter is additive observation noise: convolve its exact uniform
         # distribution into the histogram (per-lane effective width).
         sj = ov_host.get("service_jitter_ns")

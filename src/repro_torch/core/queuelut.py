@@ -375,8 +375,8 @@ def build_queue_lut(*, rho=DEFAULT_RHO_GRID, kappa=DEFAULT_KAPPA_GRID,
     parameters) donates every cell it covers and only the missing cells
     are simulated -- bit-identical to a build from scratch.  ``harvest``
     (a duty grid in [0, 1)) grows the optional 5th axis, the base channel
-    lending ``harvest_bw_gbps`` while lent.  ``devices`` must be None or
-    1 (``memsim``'s note).
+    lending ``harvest_bw_gbps`` while lent.  ``devices`` splits the build's
+    DES lanes over devices (``core/shardsim``; the tables are the same).
 
     Example (tiny grid, doctest-sized budget, on the CPU)::
 

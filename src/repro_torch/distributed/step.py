@@ -1,12 +1,15 @@
-"""The train step on one card.
+"""Train and serve step factories.
 
-Port of ``repro/distributed/step.py`` (the file name kept, so that a
-reader finds the counterpart): ``make_train_step`` wires the loss and its
-gradients (``torch.autograd``) -> optional int8 error-feedback gradient
-compression -> AdamW, with gradient accumulation over ``microbatch``
-slices of the batch in float32, as the reference's.  The reference's
-``make_serve_step`` and ``make_prefill`` only wrap the model for
-multi-card sharding and are not ported.
+Port of ``repro/distributed/step.py``: ``make_train_step`` wires the loss
+and its gradients (``torch.autograd``) -> optional int8 error-feedback
+gradient compression -> AdamW, with gradient accumulation over
+``microbatch`` slices of the batch in float32, as the reference's.
+``make_serve_step`` is the one-token decode step the ``decode_*`` /
+``long_*`` dry-run cells run, and ``make_prefill`` the prompt pass.  The
+reference compiles them under ``pjit`` with shardings from the rules; the
+port's steps are plain functions that take whatever their caller hands
+them: tensors on one card, or DTensors laid out by
+``distributed/sharding`` on a mesh (``launch/dryrun``, ``chip_smoke.py``).
 
 The step writes the new parameters and optimizer state into the tensors
 of the state it is given (``optim/adamw``'s note) and returns the state.
@@ -117,3 +120,17 @@ def make_train_step(model: Model, step_cfg: TrainStepConfig):
         return new_state, {**metrics, **opt_metrics}
 
     return train_step
+
+
+def make_serve_step(model: Model):
+    def serve_step(params, step_batch, cache):
+        return model.decode_step(params, step_batch, cache)
+
+    return serve_step
+
+
+def make_prefill(model: Model):
+    def prefill(params, batch, cache):
+        return model.prefill(params, batch, cache)
+
+    return prefill

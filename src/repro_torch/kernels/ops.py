@@ -4,16 +4,36 @@ Port of ``repro/kernels/ops.py``, whose ``on_tpu()`` / ``_interp()`` chose
 between the compiled Pallas kernel and interpret mode.  Here:
 
 * every input on the CPU -> the plain PyTorch version in ``ref.py``;
+* every input on the ``meta`` device (shapes without data: the dry run's
+  model of the card) -> a stand-in that returns the kernel's outputs'
+  shapes and charges the kernel's work to the dry run's cost meter
+  (``core/hloparse.charge``);
 * every input on CUDA    -> the hand kernel, which counts the launch;
   ``wkv``'s gradient is a kernel too (K3b), through ``torch.autograd``;
 * anything else (mixed devices, or a dtype, shape or layout the kernel
   does not take) raises.  Nothing falls back.
+
+DTensors (a model on a mesh, ``distributed/``): on the CPU the plain
+version runs through DTensor's own propagation (the tensors it makes
+itself count as replicated), so a sequence-sharded
+cache takes the channelized math in torch ops, as the reference's
+``kv_partials`` path does.  On CUDA and on ``meta`` ``decode_attn`` (K2)
+and ``wkv`` (K3, and K3b under autograd) run the kernel, or its meta
+stand-in, on each rank's local shard (:func:`_per_shard`) when only batch
+or head axes are sharded over a mesh dimension of more than one rank.  A
+kernel sees whole rows only: a cache whose sequence axis, or a ``wkv``
+input whose time axis, is sharded over more than one rank raises
+(``ROADMAP.md`` lists K2's partials for such a cache as later work), on
+the card and in the dry run alike; nothing is gathered behind the
+caller's back.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from repro_torch.distributed.layout import replicate_plain_tensors
 from repro_torch.kernels import decode_attn as _da
 from repro_torch.kernels import memsim_scan as _ms
 from repro_torch.kernels import ref
@@ -21,9 +41,12 @@ from repro_torch.kernels import rwkv_wkv as _wkv
 from repro_torch.kernels import stream as _stream
 
 
-def _all_on_cpu(*tensors) -> bool:
+def _all_on_cpu(*tensors, meta: bool = False) -> bool:
+    """True for CPU tensors (and with ``meta``, for ``meta`` ones: shapes
+    without data, the dry run's), which take the plain version; False for
+    CUDA ones."""
     kinds = {t.device.type for t in tensors}
-    if kinds == {"cpu"}:
+    if kinds == {"cpu"} or (meta and kinds == {"meta"}):
         return True
     if kinds == {"cuda"}:
         return False
@@ -59,11 +82,150 @@ def stream_triad(a, b, alpha):
     return _stream.stream_triad(a, b, alpha)
 
 
+def _per_shard(fn, lead, args: dict, out_roles: tuple, what: str,
+               written=()):
+    """Run ``fn`` on the local shards of DTensor ``args`` and wrap what
+    it returns as DTensors on their mesh.
+
+    ``args`` maps each argument to ``(tensor or None, {role: dim})``; the
+    roles are "batch", "head" and "whole" (a dimension the kernel must
+    see whole: a split one raises).  ``lead`` names the argument whose
+    layout decides: each mesh dimension of more than one rank keeps its
+    "batch" or "head" split and is otherwise replicated; every argument
+    is laid out to match (a cheap redistribute of the query or the state
+    where it differs).
+    ``out_roles`` gives each output's {role: dim}; an argument named in
+    ``written`` is written in place and must already be laid out so."""
+    x, dims = args[lead]
+    mesh = x.device_mesh
+    role_of = {d: r for r, d in dims.items()}
+    roles = []
+    for i, p in enumerate(x.placements):
+        role = role_of.get(p.dim) if isinstance(p, Shard) else None
+        if mesh.size(i) > 1 and role == "whole":
+            raise ValueError(
+                f"{what}: {lead} is laid out {x.placements} on {mesh}; the "
+                f"kernel sees whole rows, and its dimension {p.dim} is split "
+                f"over {mesh.size(i)} ranks (ROADMAP.md section 1, item 4)")
+        # Any other layout but a batch or head split (a pending sum, a
+        # split feature axis) is made whole (replicated) first.
+        roles.append(role if mesh.size(i) > 1 and role in ("batch", "head")
+                     else None)
+    for name in written:
+        # What is written in place keeps its layout: a split it lacks is
+        # not made.
+        t, dim_map = args[name]
+        if t is not None:
+            roles = [r if r in dim_map and t.placements[i] == Shard(
+                dim_map[r]) else None for i, r in enumerate(roles)]
+
+    def layout(dim_map, own=None):
+        # A mesh dimension of one rank holds the whole tensor whatever its
+        # placement says: an input keeps its own there.
+        return tuple(
+            own[i] if own and mesh.size(i) == 1 else
+            Shard(dim_map[r]) if r in dim_map else Replicate()
+            for i, r in enumerate(roles))
+
+    local = {}
+    for name, (t, dim_map) in args.items():
+        if t is None:
+            local[name] = None
+            continue
+        if not isinstance(t, DTensor):
+            # A tensor the model made itself (a zero state) counts as
+            # replicated, as it does beside DTensors anywhere in a model.
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        want = layout(dim_map, t.placements)
+        if tuple(t.placements) != want:
+            if name in written:
+                raise ValueError(f"{what}: {name} is written in place and "
+                                 f"is laid out {t.placements}, not {want}")
+            t = t.redistribute(mesh, want)
+        local[name] = t.to_local()
+    out = fn(**local)
+    outs = out if isinstance(out, tuple) else (out,)
+    wrapped = tuple(DTensor.from_local(o, mesh, layout(r), run_check=False)
+                    for o, r in zip(outs, out_roles))
+    return wrapped if isinstance(out, tuple) else wrapped[0]
+
+
+def _query_like_cache(q, k):
+    """The query (B, Hq, D) laid out as the cache (B, S, Hk, D) is: its
+    batch and heads split where the cache's are, whole where the cache's
+    sequence is split (each rank scores all heads of its keys), so that
+    no product flattens two split dimensions together."""
+    role = {0: Shard(0), 2: Shard(1)}
+    want = tuple(role.get(p.dim, Replicate()) if p.is_shard() else
+                 Replicate() for p in k.placements)
+    return q if tuple(q.placements) == want else q.redistribute(
+        q.device_mesh, want)
+
+
+def _decode_attn_meta(q, k, v, length: int):
+    """decode_attn on ``meta`` tensors (the dry run): its output's shape,
+    with K2's work charged to the cost meter: two products of each query
+    head with the ``length`` valid keys, 4 B Hq length D FLOP, and each
+    input's valid part read once, the output written once."""
+    from repro_torch.core import hloparse
+    b, hq, d = q.shape
+    hk = k.shape[2]
+    out = torch.empty_like(q)
+    kv = 2 * b * length * hk * d * k.element_size()
+    hloparse.charge(4.0 * b * hq * length * d,
+                    kv + 2 * q.numel() * q.element_size())
+    return out
+
+
 def decode_attn(q, k, v, length: int):
     """q: (B, Hq, D); k/v: (B, S, Hk, D); length: int -> (B, Hq, D)."""
-    if _all_on_cpu(q, k, v):
-        return ref.decode_attn_ref(q, k, v, length)
+    meta = k.device.type == "meta"
+    on_cpu = _all_on_cpu(q, k, v, meta=True)
+    if isinstance(k, DTensor) and (meta or not on_cpu):
+        cache = {"batch": 0, "whole": 1, "head": 2}
+        return _per_shard(
+            lambda q, k, v: decode_attn(q, k, v, length), "k",
+            {"q": (q, {"batch": 0, "head": 1}), "k": (k, cache),
+             "v": (v, cache)},
+            ({"batch": 0, "head": 1},), "decode_attn")
+    if meta:
+        return _decode_attn_meta(q, k, v, length)
+    if on_cpu:
+        if isinstance(k, DTensor):
+            q = _query_like_cache(q, k)
+        with replicate_plain_tensors():
+            return ref.decode_attn_ref(q, k, v, length)
     return _da.decode_attn(q, k, v, length)
+
+
+def _wkv_meta(r, k, v, w, u, state, state_out=None):
+    """wkv on ``meta`` tensors (the dry run): its outputs' shapes, with
+    the cost the reference's scan counts charged to the cost meter: two
+    products over each (head, D x D) state a step, 4 B T H D^2 FLOP."""
+    from repro_torch.core import hloparse
+    b, t, h, d = r.shape
+    y = torch.empty((b, t, h, d), dtype=torch.float32, device=r.device)
+    s = torch.empty_like(state) if state_out is None else state_out
+    nbytes = sum(x.numel() * x.element_size() for x in
+                 (r, k, v, w, u, state, y, s))
+    hloparse.charge(4.0 * b * t * h * d * d, nbytes)
+    return y, s
+
+
+def _wkv_bwd_meta(r, k, v, w, u, state, dy, ds_t):
+    """wkv's backward on ``meta`` tensors: the input gradients' shapes,
+    and twice the forward's products charged (JAX's transpose of them)."""
+    from repro_torch.core import hloparse
+    b, t, h, d = r.shape
+    grads = (torch.empty_like(r), torch.empty_like(k), torch.empty_like(v),
+             torch.empty_like(w, dtype=torch.float32),
+             torch.empty_like(u, dtype=torch.float32),
+             torch.empty_like(state, dtype=torch.float32))
+    nbytes = sum(x.numel() * x.element_size() for x in
+                 (r, k, v, w, u, state, dy, *grads))
+    hloparse.charge(8.0 * b * t * h * d * d, nbytes)
+    return grads
 
 
 class _Wkv(torch.autograd.Function):
@@ -73,11 +235,15 @@ class _Wkv(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, plain, r, k, v, w, u, state):
-        ctx.plain = plain or _all_on_cpu(r, k, v, w, u, state)
+        ctx.meta = r.device.type == "meta"
+        ctx.plain = plain or _all_on_cpu(r, k, v, w, u, state, meta=True)
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(r, k, v, w, u, state)
+        if ctx.meta:
+            return _wkv_meta(r, k, v, w, u, state)
         if ctx.plain:
-            return ref.wkv_ref(r, k, v, w, u, state)
+            with replicate_plain_tensors():
+                return ref.wkv_ref(r, k, v, w, u, state)
         return _wkv.wkv(r, k, v, w, u, state)
 
     @staticmethod
@@ -87,8 +253,10 @@ class _Wkv(torch.autograd.Function):
             if dy is None else dy.float().contiguous()
         if ds_t is not None:
             ds_t = ds_t.float().contiguous()
-        bwd = ref.wkv_bwd_ref if ctx.plain else _wkv.wkv_bwd
-        return (None, *bwd(r, k, v, w, u, state, dy, ds_t))
+        bwd = (_wkv_bwd_meta if ctx.meta else
+               ref.wkv_bwd_ref if ctx.plain else _wkv.wkv_bwd)
+        with replicate_plain_tensors():
+            return (None, *bwd(r, k, v, w, u, state, dy, ds_t))
 
 
 def wkv(r, k, v, w, u, state, state_out=None, plain: bool = False):
@@ -100,15 +268,29 @@ def wkv(r, k, v, w, u, state, state_out=None, plain: bool = False):
     in-place update, which has no gradient and raises if one is asked for.
     ``plain`` takes the plain versions on any device (path comparison)."""
     extra = () if state_out is None else (state_out,)
-    on_cpu = _all_on_cpu(r, k, v, w, u, state, *extra)
+    on_cpu = _all_on_cpu(r, k, v, w, u, state, *extra, meta=True)
+    meta = r.device.type == "meta"
+    if isinstance(r, DTensor) and (meta or not on_cpu):
+        seq = {"batch": 0, "whole": 1, "head": 2}
+        st = {"batch": 0, "head": 1}
+        return _per_shard(
+            lambda r, k, v, w, u, state, state_out: wkv(
+                r, k, v, w, u, state, state_out, plain),
+            "r", {"r": (r, seq), "k": (k, seq), "v": (v, seq),
+                  "w": (w, seq), "u": (u, {"head": 0}),
+                  "state": (state, st), "state_out": (state_out, st)},
+            (seq, st), "wkv", written=("state_out",))
     if state_out is None:
         return _Wkv.apply(plain, r, k, v, w, u, state)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (r, k, v, w, u, state)):
         raise RuntimeError("wkv: the in-place state update (state_out) has "
                            "no gradient; call it under torch.no_grad()")
+    if meta:
+        return _wkv_meta(r, k, v, w, u, state, state_out)
     if plain or on_cpu:
-        return ref.wkv_ref(r, k, v, w, u, state, state_out)
+        with replicate_plain_tensors():
+            return ref.wkv_ref(r, k, v, w, u, state, state_out)
     return _wkv.wkv(r, k, v, w, u, state, state_out)
 
 

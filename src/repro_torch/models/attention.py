@@ -3,8 +3,13 @@ uncached attention and cache attention.
 
 Port of ``repro/models/attention.py``.  Tensors keep the reference's
 ``(B, S, H, D)`` layout.  The reference's sharding hooks
-(``context.use_params`` / ``flag`` / ``constrain``) are no-ops without an
-active rule set and are dropped here.
+(``context.use_params`` / ``flag`` / ``constrain``) stand where it has
+them and return their input without an active rule set.  With the
+``kv_partials`` flag and a cache whose sequence axis is sharded over
+``model``, ``decode_attention``'s logits, probabilities and output are
+pinned to that sharding: each rank scores its own keys, and DTensor's
+softmax and product combine the partial (max, sum, acc) terms with small
+collectives, the channelized read of the reference.
 
 ``flash_attention`` is the uncached pass over more than 256 tokens (the
 training path, hubert's every pass): an online softmax over KV chunks, so
@@ -20,6 +25,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.distributed import context
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Spec, apply_rope
 
@@ -41,13 +47,19 @@ def attn_specs(cfg: ModelConfig, layered: bool = True,
     }
 
 
+ATTN_USE_SPECS = {"wq": (None, "model"), "wk": (None, "model"),
+                  "wv": (None, "model"), "wo": ("model", None)}
+
+
 def qkv_project(cfg: ModelConfig, p: dict, x, positions):
     """x: (B, S, D) -> q (B, S, Hq, hd), k/v (B, S, Hk, hd), roped."""
+    p = context.use_params(p, ATTN_USE_SPECS)
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, hd)
-    k = (x @ p["wk"]).reshape(b, s, cfg.n_kv_heads, hd)
-    v = (x @ p["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
+    heads = lambda t, n: context.whole_heads(t, n).reshape(b, s, n, hd)
+    q = heads(x @ p["wq"], cfg.n_heads)
+    k = heads(x @ p["wk"], cfg.n_kv_heads)
+    v = heads(x @ p["wv"], cfg.n_kv_heads)
     q, k = apply_rope(q, k, positions, hd, cfg.rope_theta,
                       cfg.mrope_sections)
     return q, k, v
@@ -132,6 +144,9 @@ def decode_attention(q, k_cache, v_cache, cache_len, q_start=None):
     # rounded to q.dtype before the product.
     qg = (q * scale).reshape(b, sq, hk, groups, d)
     logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k_cache).float()
+    if context.flag("kv_partials"):
+        logits = context.constrain(
+            logits, ("batch", "none", "none", "none", "kv_seq"))
     k_pos = torch.arange(k_cache.shape[1], device=q.device)
     mask = k_pos[None, :] < cache_len[:, None]              # (B, Sk)
     mask = mask[:, None, None, None, :]                     # (B,1,1,1,Sk)
@@ -142,5 +157,11 @@ def decode_attention(q, k_cache, v_cache, cache_len, q_start=None):
     logits = torch.where(mask, logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     del logits
+    if context.flag("kv_partials"):
+        probs = context.constrain(
+            probs, ("batch", "none", "none", "none", "kv_seq"))
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v_cache)
-    return out.reshape(b, sq, hq, d)                         # (B,Sq,Hq,D)
+    out = out.reshape(b, sq, hq, d)                          # (B,Sq,Hq,D)
+    if context.flag("kv_partials"):
+        out = context.constrain(out, ("batch", "none", "none", "none"))
+    return out

@@ -9,8 +9,10 @@ module's init.  The draws differ from the reference's threefry streams;
 tests carry the reference's parameters across with ``convert.params_from_jax``.
 
 Matrices keep the reference's ``(d_in, d_out)`` layout, applied as ``x @ W``.
-The reference's sharding hooks (``context.use_params``) are no-ops on one
-card and are dropped.
+The reference's sharding hooks (``distributed/context``) stand where the
+reference has them; they return their input unless a launcher activates
+rules and the tensors are DTensors.  ``logical_axes`` returns the axes
+tree that ``distributed/sharding`` maps onto a mesh.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import context
 from repro_torch.models.config import ModelConfig
 
 
@@ -108,6 +111,14 @@ def init_params(spec_tree, seed: int, dtype, device):
     return unflatten_tree(
         (path, _materialize(spec, seed, path, dtype, device))
         for path, spec in flatten_tree(spec_tree))
+
+
+def logical_axes(spec_tree):
+    return map_tree(lambda s: s.axes, spec_tree)
+
+
+def shapes(spec_tree):
+    return map_tree(lambda s: s.shape, spec_tree)
 
 
 def param_count(spec_tree) -> int:
@@ -207,7 +218,12 @@ def mlp_specs(cfg: ModelConfig, layered: bool = True) -> dict:
     }
 
 
+MLP_USE_SPECS = {"wi": (None, "model"), "wg": (None, "model"),
+                 "wo": ("model", None)}
+
+
 def mlp_apply(cfg: ModelConfig, p: dict, x):
+    p = context.use_params(p, MLP_USE_SPECS)
     if cfg.activation == "swiglu":
         h = F.silu(x @ p["wg"]) * (x @ p["wi"])
     elif cfg.activation == "gelu":
@@ -232,6 +248,10 @@ def embed_specs(cfg: ModelConfig) -> dict:
 
 
 def embed_apply(cfg: ModelConfig, p: dict, token_ids):
+    # A sharded table is gathered whole first: DTensor's lookup into a
+    # vocab-sharded table leaves a masked partial sum that its later
+    # reduction mis-shapes.
+    p = context.gather_params(p, {"tokens": (None, None)})
     return F.embedding(token_ids, p["tokens"])
 
 

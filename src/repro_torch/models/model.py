@@ -12,7 +12,9 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.distributed.tensor import DTensor
 
+from repro_torch.distributed import context
 from repro_torch.models import layers, transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import forward, init_cache
@@ -51,6 +53,9 @@ class Model:
         return layers.init_params(self.specs(), seed, self.dtype,
                                   self.device)
 
+    def logical_axes(self):
+        return layers.logical_axes(self.specs())
+
     def param_count(self) -> int:
         return layers.param_count(self.specs())
 
@@ -65,16 +70,24 @@ class Model:
         batch = self._to_batch(batch)
         h, _ = forward(cfg, params, batch, training=True,
                        plain_kernels=plain_kernels)
-        w_head = transformer.as_dtype(
-            layers.unembed_matrix(cfg, params["embed"]), h.dtype)
+        h = context.constrain(h, transformer.ACTIVATION_AXES)
+        w_head = layers.unembed_matrix(cfg, params["embed"])
+        w_head = context.use_params({"w": w_head},
+                                    {"w": (None, "model")})["w"]
+        # A sharded head is gathered whole: DTensor's gather of the target
+        # logit from vocab-sharded logits mis-shapes its masked partial.
+        w_head = transformer.as_dtype(context.gather_params(
+            {"w": w_head}, {"w": (None, None)})["w"], h.dtype)
         loss = layers.chunked_ce_loss(h, w_head, batch["targets"],
                                       batch["loss_mask"].float())
         return loss, {"loss": loss}
 
     # -- serving ------------------------------------------------------------
     def _to_batch(self, batch: dict) -> dict:
-        """Move a batch of numpy arrays or tensors to this model's device."""
-        return {k: torch.as_tensor(v, device=self.device)
+        """Move a batch of numpy arrays or tensors to this model's device
+        (DTensors stay where their mesh put them)."""
+        return {k: v if isinstance(v, DTensor) else
+                torch.as_tensor(v, device=self.device)
                 for k, v in batch.items()}
 
     def make_cache(self, batch_size: int, max_len: int):
@@ -126,3 +139,45 @@ class Model:
             return torch.empty((tok.shape[0], 0), dtype=torch.int32,
                                device=self.device), cache
         return torch.stack(toks, dim=1), cache
+
+
+# ---------------------------------------------------------------------------
+# Batch construction helpers (shared by the data pipeline and the dry run).
+# ---------------------------------------------------------------------------
+
+def _meta(shape, dtype):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def batch_spec(cfg: ModelConfig, batch: int, seq: int) -> dict:
+    """One training batch of this architecture as ``meta`` tensors (shapes
+    and dtypes, no storage): the reference's ShapeDtypeStructs."""
+    i32 = torch.int32
+    specs = {}
+    if cfg.family == "audio":
+        specs["frames"] = _meta((batch, seq, transformer.FRONTEND_DIM),
+                                DTYPES[cfg.dtype])
+    else:
+        specs["tokens"] = _meta((batch, seq), i32)
+    if cfg.mrope_sections:
+        specs["positions"] = _meta((batch, seq, 3), i32)
+    else:
+        specs["positions"] = _meta((batch, seq), i32)
+    if cfg.family == "vlm":
+        specs["vision_embeds"] = _meta(
+            (batch, seq, transformer.FRONTEND_DIM), DTYPES[cfg.dtype])
+        specs["vision_mask"] = _meta((batch, seq), torch.bool)
+    specs["targets"] = _meta((batch, seq), i32)
+    specs["loss_mask"] = _meta((batch, seq), i32)
+    return specs
+
+
+def decode_batch_spec(cfg: ModelConfig, batch: int) -> dict:
+    """A one-token decode step's batch as ``meta`` tensors."""
+    i32 = torch.int32
+    specs = {"tokens": _meta((batch, 1), i32)}
+    if cfg.mrope_sections:
+        specs["positions"] = _meta((batch, 1, 3), i32)
+    else:
+        specs["positions"] = _meta((batch, 1), i32)
+    return specs

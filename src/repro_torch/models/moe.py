@@ -6,8 +6,8 @@ the standard Switch/GShard-style capacity discipline: overflow tokens fall
 back to the residual path.  Every expert's ``(capacity, D)`` buffer is
 computed, empty slots included, by grouped products (``torch.bmm``), as
 the reference's einsums do outside any Pallas kernel.  The reference's
-sharding hook (``context.use_params``) is a no-op without a rule set and
-is dropped.
+sharding hook (``context.use_params``) stands where it has it; on a mesh
+the tokens are gathered before routing (``moe_apply``).
 
 Two details carry the reference's exact order:
   * ``jax.lax.top_k`` puts the lower index first among equal values, and
@@ -21,6 +21,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from torch.distributed.tensor import DTensor
+
+from repro_torch.distributed import context
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Spec
 
@@ -66,7 +69,14 @@ def moe_apply(cfg: ModelConfig, p: dict, x, return_aux: bool = False):
     b, s, d = x.shape
     t = b * s
     e, k = cfg.n_experts, cfg.top_k
-    xf = x.reshape(t, d)
+    p = context.use_params(p, {"router": (None, None),
+                               "wi": ("model", None, None),
+                               "wg": ("model", None, None),
+                               "wo": ("model", None, None)})
+    # Routing ranks every token of the batch against every other: on a
+    # mesh the tokens are gathered first, so capacity and ranks are the
+    # whole batch's, as on one device.
+    xf = context.constrain(x.reshape(t, d), ("tokens", "embed"))
     gate_logits, gates, topw, topi = route(cfg, p["router"], xf)
 
     cap = capacity(cfg, t)
@@ -90,7 +100,12 @@ def moe_apply(cfg: ModelConfig, p: dict, x, return_aux: bool = False):
     # every sum holds one value and zeros, so it is exact in any order.
     upd = xf.repeat_interleave(k, dim=0) * (w_disp != 0)[:, None]
     buf = torch.zeros((e, cap, d), dtype=x.dtype, device=x.device)
-    buf.view(e * cap, d).index_add_(0, eid * cap + sid, upd)
+    if isinstance(upd, DTensor):
+        # DTensor writes no DTensor into a plain buffer in place.
+        buf = buf.view(e * cap, d).index_add(0, eid * cap + sid,
+                                             upd).view(e, cap, d)
+    else:
+        buf.view(e * cap, d).index_add_(0, eid * cap + sid, upd)
 
     # Expert computation: grouped products over the E axis.
     if cfg.activation == "swiglu":

@@ -11,8 +11,8 @@ carried as an (H, hd, hd) fp32 state per head.  The recurrence is
 ``kernels.ops.wkv``: the hand ``wkv`` kernel on the card (and K3b, its
 backward, under autograd), their plain versions on the CPU;
 ``plain_kernels=True`` sends it to the plain versions on any device, to
-compare the two paths.  The reference's
-``context.use_params`` sharding hints have no counterpart on one card.
+compare the two paths.  The reference's ``context.use_params`` sharding
+hooks stand where it has them (no-ops without active rules).
 
 Channel-mix: token-shift + squared-ReLU MLP with a sigmoid receptance gate.
 
@@ -27,6 +27,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import context
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Spec
@@ -79,34 +80,42 @@ def time_mix(cfg: ModelConfig, p: dict, x, shift_state, wkv_state,
              plain_kernels: bool = False, state_out=None):
     """x: (B, S, D) -> (y, (new_shift, new_wkv)).  The new WKV state is
     written into ``state_out`` when given (it may be ``wkv_state``)."""
+    p = context.use_params(p, {"wr": (None, "model"), "wk": (None, "model"),
+                               "wv": (None, "model"), "wg": (None, "model"),
+                               "wo": ("model", None)})
     b, s, d = x.shape
     h, hd = cfg.rwkv_heads, cfg.rwkv_head_dim
     xx = _token_shift(x, shift_state)
     delta = xx - x
 
     # Data-dependent lerp (ddlerp): one shared low-rank tower -> 5 mixes.
-    lora = torch.tanh(x @ p["mix_w1"]).reshape(b, s, 5, -1)
+    # Replicated over the mesh before the reshape splits its last axis
+    # (DTensor cannot unflatten a sharded axis into 5 mixes).
+    lora = context.constrain(torch.tanh(x @ p["mix_w1"]),
+                             ("batch", "seq", "rank")).reshape(b, s, 5, -1)
     mixes = p["mix_base"][None, None] + torch.einsum(
         "bsmr,mrd->bsmd", lora, p["mix_w2"])    # (B,S,5,D)
     xr, xk, xv, xw, xg = (x + delta * torch.sigmoid(mixes[:, :, i])
                           for i in range(5))
 
-    r = (xr @ p["wr"]).reshape(b, s, h, hd)
-    k = (xk @ p["wk"]).reshape(b, s, h, hd)
-    v = (xv @ p["wv"]).reshape(b, s, h, hd)
+    # (On a mesh, each shard of a channel axis split into heads holds
+    # whole heads.)
+    heads = lambda t: context.whole_heads(t, h).reshape(b, s, h, hd)
+    r = heads(xr @ p["wr"])
+    k = heads(xk @ p["wk"])
+    v = heads(xv @ p["wv"])
     g = F.silu(xg @ p["wg"])
 
     # Data-dependent per-channel decay in (0, 1).
     dd = p["decay_base"] + torch.tanh(xw @ p["decay_w1"]) @ p["decay_w2"]
-    w = torch.exp(-torch.exp(dd.float() - 3.0))              # near 1.0 init
-    w = w.reshape(b, s, h, hd)
-    u = p["bonus_u"].reshape(h, hd).float()
+    w = heads(torch.exp(-torch.exp(dd.float() - 3.0)))       # near 1.0 init
+    u = context.whole_heads(p["bonus_u"], h).reshape(h, hd).float()
 
     y, new_state = _wkv_scan(r, k, v, w, u, wkv_state, plain_kernels,
                              state_out)
     y = y.reshape(b, s, d).to(x.dtype)
     # Group norm over heads (ln_x) then output gate + projection.
-    yh = y.reshape(b, s, h, hd).float()
+    yh = heads(y).float()
     var = yh.square().mean(dim=-1, keepdim=True)
     mu = yh.mean(dim=-1, keepdim=True)
     yh = (yh - mu) * torch.rsqrt(var - mu.square() + cfg.norm_eps)
@@ -116,6 +125,9 @@ def time_mix(cfg: ModelConfig, p: dict, x, shift_state, wkv_state,
 
 
 def channel_mix(cfg: ModelConfig, p: dict, x, shift_state):
+    p = context.use_params(p, {"cm_wk": (None, "model"),
+                               "cm_wr": (None, "model"),
+                               "cm_wv": ("model", None)})
     xx = _token_shift(x, shift_state)
     delta = xx - x
     xk = x + delta * torch.sigmoid(p["cm_mix"][0])[None, None]

@@ -7,7 +7,7 @@ reference scans the chunks with ``jax.lax.scan``; here a Python loop takes
 one step a chunk (16 at 1,024 tokens).  Decode is the plain recurrent
 update.  The SSD and the decode step are ``jnp`` code in the reference, not
 Pallas, so they stay torch ops; the reference's ``context.use_params``
-sharding hint has no counterpart on one card.
+sharding hook stands where it has it (a no-op without active rules).
 
 Layout conventions: x (B, S, D); inner activations (B, S, H, P) with
 H = d_inner / P heads; B/C projections are shared across heads (one group).
@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import xlamath
+from repro_torch.distributed import context
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Spec
 
@@ -157,6 +158,8 @@ def mamba_apply(cfg: ModelConfig, p: dict, x, state=None, conv_state=None):
     """
     bsz, s, _ = x.shape
     di, n, h, pdim = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    p = context.use_params(p, {"in_proj": (None, None),
+                               "out_proj": (None, None)})
     proj = x @ p["in_proj"]
     z, xc, bmat, cmat, dt = _split_proj(cfg, proj)
 

@@ -65,6 +65,16 @@ prefix, cast to the activations' dtype (a one-token pass so runs the
 decode kernel's float32 build).  A pass without vision rows stays in the
 model dtype and casts nothing.
 
+On a mesh (DTensor parameters, batch and cache, under
+``distributed/context.activation_rules``) the reference's hooks stand
+where it has them: the residual stream is constrained at layer boundaries
+(``ACTIVATION_AXES``), each layer gathers its FSDP-sharded weights at
+their use site, and a decode step writes its K/V by a positional select
+(:func:`_select_update`, the reference's ``kv_select_update``; a DTensor
+cache always, since a slice write into one whose sequence is sharded
+would land in a gathered copy).  Without active rules every hook returns
+its input and a pass is what it is without them.
+
 ``plain_kernels=True`` sends every hand kernel on the pass (the decode
 step's ``decode_attn``, every layer's ``wkv`` and, under autograd, its
 backward) to its plain version; it exists only to compare the two paths.
@@ -76,8 +86,11 @@ import functools
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate
 from torch.utils import checkpoint as _ckpt
 
+from repro_torch.distributed import context
 from repro_torch.kernels import ops
 from repro_torch.models import attention, layers, moe, rwkv, ssm
 from repro_torch.models.config import ModelConfig
@@ -85,6 +98,9 @@ from repro_torch.models.layers import Spec
 
 #: Stub modality-frontend feature width (audio frames / vision patches).
 FRONTEND_DIM = 512
+
+#: Logical axes of the residual stream, the layer boundaries' constraint.
+ACTIVATION_AXES = ("batch", "seq", "embed")
 
 PORTED_FAMILIES = ("dense", "vlm", "moe", "audio", "hybrid", "ssm")
 
@@ -200,6 +216,8 @@ def _attn_block(cfg: ModelConfig, pl, x, positions, causal, kv_cache,
     """kv_cache is None (no cache) or (k_cache, v_cache, cache_len) with
     (B, S_max, Hk, hd) caches that this block writes in place."""
     q, k, v = attention.qkv_project(cfg, pl["attn"], x, positions)
+    # On a mesh, each shard of the query heads holds whole KV-head groups.
+    q = context.whole_heads(q, cfg.n_kv_heads, dim=2)
     b, s = x.shape[:2]
     if kv_cache is None:
         attend = (attention.reference_attention if s <= 256 else
@@ -207,8 +225,13 @@ def _attn_block(cfg: ModelConfig, pl, x, positions, causal, kv_cache,
         o = attend(q, k, v, causal=causal)
     else:
         k_cache, v_cache, cache_len = kv_cache
-        k_cache[:, cache_len:cache_len + s] = k
-        v_cache[:, cache_len:cache_len + s] = v
+        if isinstance(k_cache, DTensor) or (
+                s == 1 and context.flag("kv_select_update")):
+            _select_update(k_cache, k, cache_len)
+            _select_update(v_cache, v, cache_len)
+        else:
+            k_cache[:, cache_len:cache_len + s] = k
+            v_cache[:, cache_len:cache_len + s] = v
         if q.dtype != k_cache.dtype:
             # float32 queries (vision rows) meet the model dtype's cache
             # upcast, as the reference's einsum does: its valid prefix.
@@ -223,7 +246,34 @@ def _attn_block(cfg: ModelConfig, pl, x, positions, causal, kv_cache,
                               device=x.device)
             o = attention.decode_attention(q, k_cache, v_cache, lens,
                                            q_start=cache_len)
-    return o.reshape(b, s, -1) @ pl["attn"]["wo"]
+    wo = context.use_params(pl["attn"], attention.ATTN_USE_SPECS)["wo"]
+    return o.reshape(b, s, -1) @ wo
+
+
+def _select_update(cache, new, start: int):
+    """Write ``new`` (B, s, Hk, hd) into ``cache`` (B, S_max, Hk, hd) at
+    positions ``start`` on by a positional select: elementwise, so a cache
+    whose sequence axis is sharded is written where it lies.  (A slice
+    write into a DTensor sharded along the slice would land in a gathered
+    copy, not in the cache.)"""
+    s, s_max = new.shape[1], cache.shape[1]
+    pos = torch.arange(s_max, device=new.device)
+    at = ((pos >= start) & (pos < start + s))[None, :, None, None]
+    placed = new.to(cache.dtype)
+    if s > 1:
+        # A block of new rows padded to their positions (a decode step's
+        # one row broadcasts as it is).
+        placed = F.pad(placed, (0, 0, 0, 0, start, s_max - start - s))
+    if isinstance(placed, DTensor):
+        # Laid out as the cache (a local slice of the new rows, or a
+        # gather of them, never of the cache), so that the select runs
+        # shard by shard; one broadcast row is whole where the cache's
+        # sequence is split.
+        want = tuple(Replicate() if s == 1 and p.is_shard(1) else p
+                     for p in cache.placements)
+        if tuple(placed.placements) != want:
+            placed = placed.redistribute(cache.device_mesh, want)
+    cache.copy_(torch.where(at, placed, cache))
 
 
 def _dense_body(cfg, x, pl, positions, causal, kv_cache,
@@ -339,7 +389,8 @@ def _dense_stack(cfg, params, x, positions, cache, plain_kernels,
                         None, plain_kernels)
         layer = _maybe_remat(cfg, layer, training)
         for i in range(cfg.n_layers):
-            x = layer(x, layer_params(params["layers"], i))
+            x = layer(context.constrain(x, ACTIVATION_AXES),
+                      layer_params(params["layers"], i))
         return x, None
     cache_len = cache["len"]
     for i in range(cfg.n_layers):
@@ -366,7 +417,8 @@ def _hybrid_stack(cfg, params, x, positions, cache, plain_kernels,
             cfg, xx, sp, positions, True, None, plain_kernels), training)
         for g in range(cfg.n_layers // per):
             for i in range(g * per, (g + 1) * per):
-                x = mamba(x, layer_params(params["layers"], i))
+                x = mamba(context.constrain(x, ACTIVATION_AXES),
+                          layer_params(params["layers"], i))
             x = block(x, shared)
         return x, None
     cache_len = cache["len"]

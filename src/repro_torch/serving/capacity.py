@@ -308,9 +308,9 @@ def plan_capacity(archs, trace: Trace, *, slo_p99_ms: float,
     run the true two-state chain; LUT mode queries the harvest axis at
     the reference-bandwidth ``duty_eff`` reduction.
 
-    Everything runs on ``device``: the solve, the DES (``devices`` must
-    be None or 1, as ``memsim``'s), the LUT's build on a store miss and
-    its lookup.
+    Everything runs on ``device``: the solve, the DES (its lanes split
+    over ``devices`` devices, as ``memsim``'s), the LUT's build on a
+    store miss and its lookup.
     """
     if isinstance(archs, str):
         archs = (archs,)

@@ -868,3 +868,75 @@ def test_memsim_solve_card_within_1e_5_of_cpu():
         step = np.where(moving, np.abs(getattr(nxt, f) - a), 0.0)
         assert np.isfinite(a).all(), f
         assert (np.abs(a - b) <= 1e-5 * np.abs(b) + step).all(), f
+
+
+# --- the multi-device layer ---------------------------------------------------
+
+def _need_cards(n):
+    _need_card()
+    if torch.cuda.device_count() < n:
+        pytest.skip(f"needs {n} CUDA cards; torch sees "
+                    f"{torch.cuda.device_count()}")
+
+
+def test_sharded_des_asks_for_no_more_cards_than_there_are():
+    _need_card()
+    from repro_torch.core import memsim, shardsim
+    n = torch.cuda.device_count()
+    assert shardsim.resolve_devices("auto", device="cuda") == n
+    with pytest.raises(ValueError, match="exceeds"):
+        memsim.simulate([memsim.ChannelConfig(rho=0.5)], steps=2_000,
+                        devices=n + 1)
+
+
+@pytest.mark.parametrize("engine", ["timestep", "event"])
+def test_sharded_des_on_two_cards_is_bit_identical(engine):
+    _need_cards(2)
+    import numpy as np
+
+    from repro_torch.core import memsim
+    cfgs = [memsim.ChannelConfig(rho=r) for r in (0.3, 0.5, 0.7, 0.8, 0.9)]
+    kw = dict(steps=20_000, seed=2, reps=3, engine=engine)
+    one = memsim.simulate(cfgs, devices=1, **kw)
+    two = memsim.simulate(cfgs, devices=2, **kw)
+    np.testing.assert_array_equal(one.hist, two.hist)
+
+
+def test_kernels_run_on_local_shards_of_a_one_rank_mesh():
+    """K2 and K3 take DTensors of a (1, 1) NCCL mesh: one launch each on
+    the local shards, equal to their plain versions."""
+    _need_card()
+    import datetime
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    from repro_torch.launch.mesh import make_host_mesh
+    store = dist.TCPStore("127.0.0.1", 0, world_size=1, is_master=True,
+                          timeout=datetime.timedelta(seconds=60))
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        mesh = make_host_mesh(1, device_type="cuda")
+        q, k, v = _qkv(8, 32, 32, 64, 1056, torch.bfloat16, seed=4)
+        before = da.KERNEL.launches
+        got = ops.decode_attn(
+            distribute_tensor(q, mesh, (Shard(0), Shard(1))),
+            distribute_tensor(k, mesh, (Shard(0), Shard(1))),
+            distribute_tensor(v, mesh, (Shard(0), Shard(1))), 1000)
+        assert da.KERNEL.launches == before + 1
+        torch.testing.assert_close(got.full_tensor().float(), ref.decode_attn_ref(
+            q, k, v, 1000).float(), **TOL[torch.bfloat16])
+        r, kk, vv, w, u, s0 = _wkv_inputs(2, 40, 4, 64, torch.bfloat16)
+        dt = lambda x, *pl: distribute_tensor(x, mesh, pl)
+        seq, st = (Shard(0), Shard(2)), (Shard(0), Shard(1))
+        before = kw.KERNEL.launches
+        y, s = ops.wkv(dt(r, *seq), dt(kk, *seq), dt(vv, *seq),
+                       dt(w, *seq), dt(u, Shard(0), Shard(0)),
+                       dt(s0, *st))
+        assert kw.KERNEL.launches == before + 1
+        want_y, want_s = ref.wkv_ref(r, kk, vv, w, u, s0)
+        torch.testing.assert_close(y.full_tensor(), want_y, **WKV_TOL)
+        torch.testing.assert_close(s.full_tensor(), want_s, **WKV_TOL)
+    finally:
+        dist.destroy_process_group()

@@ -29,6 +29,7 @@ import torch
 
 from repro.core import memsim as R
 from repro_torch.core import memsim as P
+from repro_torch.core import shardsim
 from repro_torch.kernels import ops
 
 # Stage-A arrays that are not bit-equal to the reference's, measured on
@@ -445,8 +446,13 @@ def test_validation_errors_as_reference(kwargs):
 
 
 @pytest.mark.parametrize("devices", [2, 4, "auto"])
-def test_several_devices_raise(devices):
-    with pytest.raises(NotImplementedError, match="shardsim"):
+def test_several_devices_raise(devices, monkeypatch):
+    """More devices than the CPU's logical host devices raise, as the
+    reference's "exceeds" ("auto": one more than it resolves to)."""
+    monkeypatch.setenv(shardsim.ENV_HOST_DEVICES, "1")
+    if devices == "auto":
+        devices = shardsim.resolve_devices("auto", device="cpu") + 1
+    with pytest.raises(ValueError, match="exceeds"):
         P.simulate([P.ChannelConfig(rho=0.5)], steps=2_000, devices=devices,
                    device="cpu")
 

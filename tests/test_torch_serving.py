@@ -29,7 +29,7 @@ from repro.serving import demand as jdemand
 from repro.serving import plan as jplan
 from repro.serving import traffic as jtraffic
 from repro_torch.core import coaxial, cpu_model, memsim, planner, queuelut
-from repro_torch.core import workloads
+from repro_torch.core import shardsim, workloads
 from repro_torch.serving import capacity, demand, plan, traffic
 
 RTOL = 1e-5
@@ -269,7 +269,7 @@ def test_plan_capacity_lut_equals_reference(lut, ref_lut):
     assert got.engine == "lut"
 
 
-def test_plan_capacity_impossible_slo_and_bad_source(lut):
+def test_plan_capacity_impossible_slo_and_bad_source(lut, monkeypatch):
     trace = traffic.synthetic_diurnal(n_epochs=1)
     kw = dict(PLAN, slo_p99_ms=1e-6, channels=(2,), tier_splits=(0.0,),
               include_measured=False, peak_util=0.5)
@@ -281,7 +281,11 @@ def test_plan_capacity_impossible_slo_and_bad_source(lut):
     with pytest.raises(ValueError, match="p99_source"):
         capacity.plan_capacity("stablelm-1.6b", trace, **kw,
                                p99_source="formula", device="cpu")
-    with pytest.raises(NotImplementedError):
+    # More DES devices than the CPU's logical host devices (one unless
+    # $REPRO_DES_HOST_DEVICES says more) raise, as the reference's
+    # "exceeds".
+    monkeypatch.delenv(shardsim.ENV_HOST_DEVICES, raising=False)
+    with pytest.raises(ValueError, match="exceeds"):
         capacity.plan_capacity("stablelm-1.6b", trace, **kw, devices=2,
                                device="cpu")
 

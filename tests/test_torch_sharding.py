@@ -1,0 +1,391 @@
+"""The port's multi-device layer (``distributed/{sharding,context}``,
+``launch/mesh``, the models' sharding hooks and the kernels' DTensor
+dispatch) against the reference, on the CPU.
+
+* Spec tuples: every parameter, cache and batch leaf of the six families,
+  at smoke size on host meshes and at full size on the reference's TPU
+  meshes and the port's H100 meshes (objects with a mesh's names and
+  sizes; the reference's side an ``AbstractMesh``), equal to the
+  reference's ``PartitionSpec``s.
+* Local shards: each rank's shard of every parameter on 4-rank meshes
+  (a fake process group, one rank at a time) starts where the reference's
+  ``devices_indices_map`` puts that device's, ``("pod", "data")`` pod
+  major.
+* The kernel layer imports no model (``distributed/layout`` is a leaf),
+  and plain tensors count as replicated through nested blocks.
+* A real 4-rank gloo world (spawned once, ``torch_mesh_worker``): the
+  smoke models' loss and gradients under ``train_rules`` against the
+  one-process port and the reference; a served prompt under
+  ``decode_rules`` with a channelized cache against the one-process serve;
+  the kernels' DTensor dispatch.
+"""
+
+import subprocess
+import sys
+import types
+
+import jax
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+from jax.sharding import AbstractMesh, Mesh, NamedSharding
+from torch.distributed.device_mesh import init_device_mesh
+from torch.distributed.tensor._utils import \
+    compute_local_shape_and_global_offset
+
+import torch_mesh_worker
+from repro.configs import SHAPES
+from repro.configs import get_config as jget_config
+from repro.data.pipeline import SyntheticDataset as JSyntheticDataset
+from repro.distributed import sharding as jshd
+from repro.models import Model as JModel
+from repro.models import model as jmodel
+from repro.models.config import smoke_variant as jsmoke
+from repro_torch.configs import get_config
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed import step as pstep
+from repro_torch.kernels import ref
+from repro_torch.models import Model, layers, smoke_variant
+from repro_torch.models import model as pmodel
+from repro_torch.models.convert import params_from_jax
+from repro_torch.models.transformer import init_cache
+
+FAMILIES = ["stablelm-1.6b", "olmoe-1b-7b", "rwkv6-1.6b", "zamba2-2.7b",
+            "qwen2-vl-72b", "hubert-xlarge"]
+#: (name, axis sizes) of the meshes the specs are held on.
+FULL_MESHES = [("tpu-16x16", {"data": 16, "model": 16}),
+               ("tpu-2x16x16", {"pod": 2, "data": 16, "model": 16}),
+               ("h100-32x8", {"data": 32, "model": 8}),
+               ("h100-2x32x8", {"pod": 2, "data": 32, "model": 8})]
+HOST_MESHES = [("2x2", {"data": 2, "model": 2}),
+               ("2x2x1", {"pod": 2, "data": 2, "model": 1})]
+# The 4-rank world against one process, float32: the same products in
+# other orders of summation (a contraction split over ranks).
+RTOL, ATOL = 1e-5, 1e-6
+
+
+def _meshes(sizes):
+    names = tuple(sizes)
+    port = types.SimpleNamespace(mesh_dim_names=names,
+                                 shape=tuple(sizes.values()))
+    return port, AbstractMesh(tuple(sizes.values()), names)
+
+
+def _spec(p, nd):
+    """A reference PartitionSpec as the port's per-dimension tuple."""
+    parts = tuple(p)
+    return parts + (None,) * (nd - len(parts))
+
+
+def _leaves(tree, is_leaf):
+    return dict(layers.flatten_tree(tree, is_leaf=is_leaf))
+
+
+def _jleaves(tree):
+    flat = jax.tree_util.tree_flatten_with_path(
+        tree, is_leaf=lambda x: isinstance(x, NamedSharding))[0]
+    return {"/".join(str(getattr(k, "key", k)) for k in path): leaf
+            for path, leaf in flat}
+
+
+def _cfgs(arch, smoke):
+    if smoke:
+        return smoke_variant(get_config(arch)), jsmoke(jget_config(arch))
+    return get_config(arch), jget_config(arch)
+
+
+def _check_params(cfg, jcfg, pmesh, jmesh):
+    for rules_of in ("train_rules", "decode_rules"):
+        got = shd.param_shardings(Model(cfg, device="cpu"), pmesh,
+                                  getattr(shd, rules_of)(pmesh, cfg))
+        want = jshd.param_shardings(JModel(jcfg), jmesh,
+                                    getattr(jshd, rules_of)(jmesh, jcfg))
+        got = _leaves(got, lambda x: isinstance(x, shd.Sharding))
+        want = _jleaves(want)
+        assert got.keys() == want.keys()
+        for path, sh in got.items():
+            assert sh.spec == _spec(want[path].spec, len(sh.spec)), \
+                (rules_of, path)
+
+
+def _check_batches(cfg, jcfg, pmesh, jmesh, batch, seq):
+    for p_tree, j_tree in (
+            (pmodel.batch_spec(cfg, batch, seq),
+             jmodel.batch_spec(jcfg, batch, seq)),
+            (pmodel.decode_batch_spec(cfg, batch),
+             jmodel.decode_batch_spec(jcfg, batch))):
+        assert {k: (tuple(v.shape), str(v.dtype).split(".")[-1])
+                for k, v in p_tree.items()} == {
+            k: (v.shape, str(v.dtype)) for k, v in j_tree.items()}
+        got = shd.batch_shardings(pmesh, p_tree)
+        want = jshd.batch_shardings(jmesh, j_tree)
+        for name, sh in got.items():
+            assert sh.spec == _spec(want[name].spec, len(sh.spec)), name
+
+
+def _check_cache(cfg, jcfg, pmesh, jmesh, batch, seq):
+    if not cfg.has_decode:
+        return
+    cache = init_cache(cfg, batch, seq, pmodel.DTYPES[cfg.dtype], "meta")
+    jcache = jax.eval_shape(lambda: JModel(jcfg).make_cache(batch, seq))
+    for kv_channels in (True, False):
+        got = shd.cache_shardings(cfg, pmesh, cache, kv_channels)
+        want = jshd.cache_shardings(jcfg, jmesh, jcache, kv_channels)
+        assert got.keys() == want.keys()
+        assert got["len"] is None and tuple(want["len"].spec) == ()
+        for name, sh in got.items():
+            if name != "len":
+                assert tuple(cache[name].shape) == jcache[name].shape
+                assert sh.spec == _spec(want[name].spec, len(sh.spec)), name
+
+
+@pytest.mark.parametrize("mesh_name,sizes", HOST_MESHES)
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_smoke_specs_equal_reference(arch, mesh_name, sizes):
+    cfg, jcfg = _cfgs(arch, smoke=True)
+    pmesh, jmesh = _meshes(sizes)
+    _check_params(cfg, jcfg, pmesh, jmesh)
+    _check_batches(cfg, jcfg, pmesh, jmesh, 4, 16)
+    _check_cache(cfg, jcfg, pmesh, jmesh, 4, 16)
+
+
+@pytest.mark.parametrize("mesh_name,sizes", FULL_MESHES)
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_full_size_specs_equal_reference(arch, mesh_name, sizes):
+    cfg, jcfg = _cfgs(arch, smoke=False)
+    pmesh, jmesh = _meshes(sizes)
+    _check_params(cfg, jcfg, pmesh, jmesh)
+    for shape in SHAPES:
+        if shape.kind == "decode":
+            if shape.seq_len <= 32768:
+                _check_cache(cfg, jcfg, pmesh, jmesh, shape.global_batch,
+                             shape.seq_len)
+        else:
+            _check_batches(cfg, jcfg, pmesh, jmesh, shape.global_batch,
+                           shape.seq_len)
+
+
+def test_rules_as_reference():
+    pmesh, jmesh = _meshes({"pod": 2, "data": 32, "model": 8})
+    for arch in FAMILIES:
+        cfg, jcfg = _cfgs(arch, smoke=False)
+        assert shd.train_rules(pmesh, cfg) == jshd.train_rules(jmesh, jcfg)
+        assert shd.decode_rules(pmesh, cfg) == jshd.decode_rules(jmesh,
+                                                                 jcfg)
+    moe = get_config("olmoe-1b-7b")
+    assert shd.train_rules(pmesh, moe)["mlp"] is None
+    assert shd.decode_rules(pmesh, moe)["embed"] is None
+    assert shd.fsdp_axes(pmesh) == ("pod", "data")
+    assert shd.axis_size(pmesh, ("pod", "data")) == 64
+
+
+def test_placements_fold_pod_and_data_pod_major():
+    from torch.distributed.tensor import Replicate, Shard
+    pmesh, _ = _meshes({"pod": 2, "data": 32, "model": 8})
+    assert shd.placements(pmesh, (("pod", "data"), "model")) == (
+        Shard(0), Shard(0), Shard(1))
+    assert shd.placements(pmesh, (None, None)) == (Replicate(),) * 3
+
+
+def test_kernel_layer_imports_no_model():
+    """``kernels/ops``, and ``core/memsim`` through it, take DTensor's
+    layout helpers from the leaf ``distributed/layout``: importing them
+    loads neither the model package nor the sharding rules."""
+    code = ("import sys, repro_torch.kernels.ops, repro_torch.core.memsim; "
+            "print(sorted(m for m in sys.modules if m.startswith(("
+            "'repro_torch.models', 'repro_torch.distributed.sharding', "
+            "'repro_torch.distributed.context'))))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, check=True)
+    assert out.stdout.strip() == "[]", out.stdout
+
+
+def test_plain_tensors_count_as_replicated_in_nested_blocks():
+    from torch.distributed.tensor import DTensor
+    from repro_torch.distributed.layout import replicate_plain_tensors
+    on = lambda: DTensor._op_dispatcher._allow_implicit_replication
+    assert not on()
+    with replicate_plain_tensors():
+        with replicate_plain_tensors():
+            assert on()
+        assert on()
+    assert not on()
+
+
+@pytest.mark.parametrize("mesh_name,sizes", HOST_MESHES)
+def test_local_shards_equal_reference_devices_indices_map(mesh_name, sizes):
+    """Each rank's shard offsets and lengths, rank r on the reference's
+    device r (both lay the ranks out row major over the mesh)."""
+    names, shape = tuple(sizes), tuple(sizes.values())
+    jmesh = Mesh(np.array(jax.devices()[:4]).reshape(shape), names)
+    cases = []
+    for arch in FAMILIES:
+        cfg, jcfg = _cfgs(arch, smoke=True)
+        want = _jleaves(jshd.param_shardings(
+            JModel(jcfg), jmesh, jshd.train_rules(jmesh, jcfg)))
+        specs = _leaves(Model(cfg, device="cpu").specs(), layers.is_spec)
+        cases += [(path, spec.shape, want[path]) for path, spec in
+                  specs.items()]
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    assert not dist.is_initialized()
+    try:
+        for rank in range(4):
+            dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                                    world_size=4)
+            mesh = init_device_mesh("cpu", shape, mesh_dim_names=names)
+            for path, dims, jsh in cases:
+                spec = _spec(jsh.spec, len(dims))
+                local, offset = compute_local_shape_and_global_offset(
+                    dims, mesh, shd.placements(mesh, spec))
+                index = jsh.devices_indices_map(dims)[jax.devices()[rank]]
+                assert tuple(offset) == tuple(s.start or 0 for s in index), \
+                    (rank, path)
+                assert tuple(local) == tuple(
+                    len(range(*s.indices(n))) for s, n in zip(index, dims)), \
+                    (rank, path)
+            dist.destroy_process_group()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# The 4-rank gloo world.
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCHS = ("stablelm-1.6b", "olmoe-1b-7b")
+SERVE_STEPS = 3
+
+
+def _jpair(arch):
+    cfg, jcfg = _cfgs(arch, smoke=True)
+    jm = JModel(jcfg)
+    jparams = jm.init(jax.random.PRNGKey(0))
+    params = params_from_jax(cfg, jax.tree_util.tree_map(np.asarray,
+                                                         jparams), "cpu")
+    return jm, jparams, Model(cfg, device="cpu"), params
+
+
+def _numpy(tree):
+    return layers.map_tree(lambda t: t.detach().numpy(), tree)
+
+
+@pytest.fixture(scope="module")
+def world():
+    """One spawn of the world for the module: its inputs, rank 0's
+    results, and the reference's and the one-process port's values."""
+    payload = {"train": {}}
+    want = {}
+    for arch in TRAIN_ARCHS:
+        jm, jparams, m, params = _jpair(arch)
+        batch = JSyntheticDataset(jm.cfg, 4, 16, seed=3).batch_at(0)
+        (jloss, _), jgrads = jax.jit(jax.value_and_grad(
+            jm.loss, has_aux=True))(jparams, batch)
+        for _, p in layers.flatten_tree(params, torch.is_tensor):
+            p.requires_grad_(True)
+        loss, _ = m.loss(params, batch)
+        grads = pstep._grads(loss, params)
+        payload["train"][arch] = dict(
+            params=_numpy(params), batch={k: np.asarray(v) for k, v in
+                                          batch.items()})
+        want[arch] = dict(
+            ref_loss=float(jloss), loss=loss.item(), grads=_numpy(grads),
+            ref_grads=jax.tree_util.tree_map(np.asarray, jgrads))
+    # The served prompt: the one-process port's greedy steps.
+    _, _, m, params = _jpair("stablelm-1.6b")
+    prompt = {k: np.asarray(v) for k, v in JSyntheticDataset(
+        m.cfg, 4, 8, seed=5).batch_at(0).items()
+        if k in ("tokens", "positions")}
+    cache = m.make_cache(4, 16)
+    lg, cache = m.prefill(params, prompt, cache)
+    serve = [lg.numpy()]
+    for _ in range(SERVE_STEPS):
+        tok = lg.argmax(-1).to(torch.int32)
+        sb = dict(tokens=tok[:, None], positions=torch.full(
+            (4, 1), cache["len"], dtype=torch.int32))
+        lg, cache = m.decode_step(params, sb, cache)
+        serve.append(lg.numpy())
+    payload["serve"] = dict(arch="stablelm-1.6b", params=_numpy(params),
+                            cache=(4, 16), prompt=prompt, steps=SERVE_STEPS)
+    want["serve"] = serve
+    gen = np.random.default_rng(0)
+    rn = lambda *shape: gen.standard_normal(shape).astype(np.float32)
+    kernels = dict(q=rn(4, 4, 16), k=rn(4, 16, 2, 16), v=rn(4, 16, 2, 16),
+                   length=11, r=rn(2, 5, 2, 8), wk=rn(2, 5, 2, 8),
+                   wv=rn(2, 5, 2, 8), u=rn(2, 8),
+                   w=gen.uniform(0.5, 0.99, (2, 5, 2, 8)).astype(np.float32),
+                   s0=rn(2, 2, 8, 8))
+    got = torch_mesh_worker.run_world(
+        "sharding", 4, {"model": payload, "kernels": kernels})
+    return dict(got=got, want=want, kernels=kernels)
+
+
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_loss_and_grads_on_4_ranks_equal_one_process(world, arch):
+    got, want = world["got"][arch], world["want"][arch]
+    np.testing.assert_allclose(got["loss"], want["loss"], rtol=RTOL,
+                               atol=ATOL)
+    g = _leaves(got["grads"], lambda x: isinstance(x, np.ndarray))
+    w = _leaves(want["grads"], lambda x: isinstance(x, np.ndarray))
+    assert g.keys() == w.keys()
+    for path in g:
+        np.testing.assert_allclose(g[path], w[path], rtol=RTOL, atol=ATOL,
+                                   err_msg=path)
+
+
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_loss_and_grads_on_4_ranks_equal_reference(world, arch):
+    got, want = world["got"][arch], world["want"][arch]
+    np.testing.assert_allclose(got["loss"], want["ref_loss"], rtol=RTOL,
+                               atol=ATOL)
+    g = _leaves(got["grads"], lambda x: isinstance(x, np.ndarray))
+    w = dict(layers.flatten_tree(want["ref_grads"],
+                                 is_leaf=lambda x: not isinstance(x, dict)))
+    assert g.keys() == w.keys()
+    for path in g:
+        np.testing.assert_allclose(g[path], np.asarray(w[path]), rtol=RTOL,
+                                   atol=ATOL, err_msg=path)
+
+
+def test_serve_on_4_ranks_with_channelized_cache_equals_one_process(world):
+    got = world["got"]["serve"]
+    # The cache: batch over data, sequence over model.
+    assert got["placements"] == "(Shard(dim=1), Shard(dim=2))"
+    assert len(got["logits"]) == len(world["want"]["serve"])
+    for step, (g, w) in enumerate(zip(got["logits"], world["want"]["serve"])):
+        np.testing.assert_allclose(g, w, rtol=RTOL, atol=1e-5,
+                                   err_msg=step)
+        np.testing.assert_array_equal(g.argmax(-1), w.argmax(-1))
+
+
+def _decode_want(kw):
+    q, k, v = (torch.from_numpy(kw[n]) for n in ("q", "k", "v"))
+    return ref.decode_attn_ref(q, k, v, kw["length"]).numpy()
+
+
+def test_kernel_runs_on_local_shards_of_batch_and_heads(world):
+    got, placements = world["got"]["kernels"]["per_shard"]
+    assert placements == "(Shard(dim=0), Shard(dim=1))"
+    np.testing.assert_allclose(got, _decode_want(world["kernels"]),
+                               rtol=1e-6, atol=1e-6)
+
+
+def test_kernel_refuses_a_sequence_sharded_cache(world):
+    msg = world["got"]["kernels"]["seq_sharded"]
+    assert "sees whole rows" in msg and "ROADMAP.md" in msg, msg
+
+
+def test_plain_decode_runs_channelized_on_a_sequence_sharded_cache(world):
+    np.testing.assert_allclose(world["got"]["kernels"]["channelized"],
+                               _decode_want(world["kernels"]), rtol=1e-5,
+                               atol=1e-6)
+
+
+def test_plain_wkv_on_batch_and_head_sharded_inputs(world):
+    kw = world["kernels"]
+    t = lambda n: torch.from_numpy(kw[n])
+    y, s = ref.wkv_ref(t("r"), t("wk"), t("wv"), t("w"), t("u"), t("s0"))
+    got_y, got_s = world["got"]["kernels"]["wkv"]
+    np.testing.assert_allclose(got_y, y.numpy(), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(got_s, s.numpy(), rtol=1e-5, atol=1e-6)

@@ -1,0 +1,238 @@
+"""A real multi-process world on the CPU for the port's mesh tests (not a
+test file: the ``test_torch_*`` files import it).
+
+``run_world(job, world, payload)`` spawns ``world`` processes joined by a
+``gloo`` process group, runs ``JOBS[job](rank, payload)`` in each and
+returns rank 0's result.  The rendezvous store listens on a port the
+kernel picks (port 0), every join has its own timeout, and a rank that
+fails or hangs fails the call.  The workers import torch and
+``repro_torch`` only; what the reference computes comes in ``payload``
+(numpy) from the test process.
+"""
+
+from __future__ import annotations
+
+import datetime
+import multiprocessing
+import os
+import pickle
+import tempfile
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+JOIN_TIMEOUT_S = 240
+
+
+def run_world(job: str, world: int, payload: dict):
+    """Rank 0's result of ``JOBS[job]`` over a ``world``-rank gloo world."""
+    store = dist.TCPStore("127.0.0.1", 0, is_master=True,
+                          wait_for_workers=False,
+                          timeout=datetime.timedelta(seconds=JOIN_TIMEOUT_S))
+    ctx = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        src, dst = os.path.join(tmp, "payload.pkl"), os.path.join(tmp, "out")
+        with open(src, "wb") as f:
+            pickle.dump(payload, f)
+        procs = [ctx.Process(target=_entry, args=(job, rank, world,
+                                                  store.port, src, dst))
+                 for rank in range(world)]
+        for p in procs:
+            p.start()
+        try:
+            for p in procs:
+                p.join(JOIN_TIMEOUT_S)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join(10)
+        codes = [p.exitcode for p in procs]
+        if codes != [0] * world:
+            raise RuntimeError(f"{job}: ranks exited {codes}")
+        with open(dst, "rb") as f:
+            return pickle.load(f)
+
+
+def _entry(job, rank, world, port, src, dst):
+    torch.set_num_threads(1)
+    store = dist.TCPStore("127.0.0.1", port, is_master=False,
+                          timeout=datetime.timedelta(seconds=JOIN_TIMEOUT_S))
+    dist.init_process_group(
+        "gloo", store=store, rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=JOIN_TIMEOUT_S))
+    try:
+        with open(src, "rb") as f:
+            payload = pickle.load(f)
+        out = JOBS[job](rank, payload)
+        dist.barrier()
+        if rank == 0:
+            with open(dst, "wb") as f:
+                pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# Jobs.
+# ---------------------------------------------------------------------------
+
+def _full(x):
+    from torch.distributed.tensor import DTensor
+    x = x.full_tensor() if isinstance(x, DTensor) else x
+    return x.detach().numpy()
+
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        return {k: _tensors(v) for k, v in tree.items()}
+    return torch.from_numpy(np.asarray(tree))
+
+
+def _host_mesh():
+    from repro_torch.launch.mesh import make_host_mesh
+    return make_host_mesh(model_axis=2, device_type="cpu")
+
+
+def model_job(rank, payload):
+    """Loss and gradients of each smoke model under ``train_rules`` on a
+    (2, 2) mesh, and a served prompt under ``decode_rules`` with a
+    channelized cache, all as whole tensors."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import context
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.step import (_grads, make_prefill,
+                                              make_serve_step)
+    from repro_torch.models import Model, smoke_variant
+    from repro_torch.models import layers as L
+
+    mesh = _host_mesh()
+    out = {}
+    for arch, case in payload["train"].items():
+        cfg = smoke_variant(get_config(arch))
+        model = Model(cfg, device="cpu")
+        params = shd.distribute(_tensors(case["params"]),
+                                shd.param_shardings(model, mesh,
+                                                    shd.train_rules(mesh, cfg)))
+        for _, p in L.flatten_tree(params, torch.is_tensor):
+            p.requires_grad_(True)
+        batch = _tensors(case["batch"])
+        batch = shd.distribute(batch, shd.batch_shardings(mesh, batch))
+        with context.activation_rules(mesh, {"batch": shd.fsdp_axes(mesh)}):
+            loss, _ = model.loss(params, batch)
+            grads = _grads(loss, params)
+        out[arch] = dict(loss=float(_full(loss)),
+                         grads=L.map_tree(_full, grads))
+    serve = payload["serve"]
+    cfg = smoke_variant(get_config(serve["arch"]))
+    model = Model(cfg, device="cpu")
+    params = shd.distribute(_tensors(serve["params"]), shd.param_shardings(
+        model, mesh, shd.decode_rules(mesh, cfg)))
+    cache = model.make_cache(*serve["cache"])
+    cache = shd.distribute(cache, shd.cache_shardings(cfg, mesh, cache))
+    prompt = _tensors(serve["prompt"])
+    rules = {"batch": shd.fsdp_axes(mesh), "kv_select_update": True,
+             "kv_partials": True, "kv_seq": "model"}
+    logits = []
+    with context.activation_rules(mesh, rules):
+        lg, cache = make_prefill(model)(
+            params, shd.distribute(prompt, shd.batch_shardings(mesh, prompt)),
+            cache)
+        step = make_serve_step(model)
+        for _ in range(serve["steps"]):
+            logits.append(_full(lg))
+            tok = torch.from_numpy(logits[-1].argmax(-1).astype(np.int32))
+            sb = dict(tokens=tok[:, None], positions=torch.full(
+                (len(tok), 1), cache["len"], dtype=torch.int32))
+            lg, cache = step(params, shd.distribute(
+                sb, shd.batch_shardings(mesh, sb)), cache)
+        logits.append(_full(lg))
+    out["serve"] = dict(logits=logits,
+                        placements=str(cache["k"].placements))
+    return out
+
+
+def kernel_job(rank, payload):
+    """The hand kernels' DTensor dispatch (``ops._per_shard``) with their
+    plain versions standing in for the kernels, and the plain paths'
+    DTensor propagation (a sequence-sharded cache included)."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.kernels import ops, ref
+
+    mesh = _host_mesh()
+    q, k, v = (torch.from_numpy(payload[n]) for n in ("q", "k", "v"))
+    length = payload["length"]
+    dt = lambda x, *pl: distribute_tensor(x, mesh, pl)
+    out = {}
+    # Batch over data, heads over model: the kernel runs on local shards.
+    got = ops._per_shard(
+        lambda q, k, v: ref.decode_attn_ref(q, k, v, length), "k",
+        {"q": (dt(q, Replicate(), Replicate()), {"batch": 0, "head": 1}),
+         "k": (dt(k, Shard(0), Shard(2)), {"batch": 0, "whole": 1,
+                                           "head": 2}),
+         "v": (dt(v, Shard(0), Shard(2)), {"batch": 0, "whole": 1,
+                                           "head": 2})},
+        ({"batch": 0, "head": 1},), "decode_attn")
+    out["per_shard"] = (_full(got), str(got.placements))
+    # The cache's sequence over model: the kernel refuses it.
+    try:
+        ops._per_shard(
+            lambda q, k, v: ref.decode_attn_ref(q, k, v, length), "k",
+            {"q": (dt(q, Shard(0), Replicate()), {"batch": 0, "head": 1}),
+             "k": (dt(k, Shard(0), Shard(1)), {"batch": 0, "whole": 1,
+                                               "head": 2}),
+             "v": (dt(v, Shard(0), Shard(1)), {"batch": 0, "whole": 1,
+                                               "head": 2})},
+            ({"batch": 0, "head": 1},), "decode_attn")
+        out["seq_sharded"] = "no error"
+    except ValueError as e:
+        out["seq_sharded"] = str(e)
+    # On CPU DTensors ops.decode_attn takes the plain version through
+    # DTensor's propagation: a sequence-sharded cache's channelized math.
+    got = ops.decode_attn(dt(q, Shard(0), Replicate()),
+                          dt(k, Shard(0), Shard(1)),
+                          dt(v, Shard(0), Shard(1)), length)
+    out["channelized"] = _full(got)
+    r, kk, vv, w = (torch.from_numpy(payload[n]) for n in
+                    ("r", "wk", "wv", "w"))
+    u, s0 = torch.from_numpy(payload["u"]), torch.from_numpy(payload["s0"])
+    seq = (Shard(0), Shard(2))
+    y, s = ops.wkv(dt(r, *seq), dt(kk, *seq), dt(vv, *seq), dt(w, *seq),
+                   dt(u, Replicate(), Shard(0)), dt(s0, Shard(0), Shard(1)))
+    out["wkv"] = (_full(y), _full(s))
+    return out
+
+
+def int8_job(rank, payload):
+    """Gradient trees reduced over ``data`` of a (4, 1) mesh by the int8
+    and the float32 reducer, under the cost meter: the same tree on every
+    rank ("same") and each rank its own ("distinct": rank r takes row r
+    of every array)."""
+    from repro_torch.core import hloparse
+    from repro_torch.distributed import int8_collectives as i8
+    from repro_torch.launch.mesh import make_host_mesh
+
+    mesh = make_host_mesh(model_axis=1, device_type="cpu")
+    out = {}
+    for case, trees in payload.items():
+        grads = {name: torch.from_numpy(x if case == "same" else x[rank])
+                 for name, x in trees.items()}
+        for mode in ("int8", "f32"):
+            reducer = i8.make_reducer(mesh, axis="data",
+                                      int8=(mode == "int8"))
+            with hloparse.Meter() as meter:
+                reduced = reducer(grads)
+            out[case, mode] = dict(
+                tree={k: x.numpy() for k, x in reduced.items()},
+                coll=dict(meter.cost.coll))
+    return out
+
+
+def sharding_job(rank, payload):
+    return dict(model_job(rank, payload["model"]),
+                kernels=kernel_job(rank, payload["kernels"]))
+
+
+JOBS = {"sharding": sharding_job, "int8": int8_job}
