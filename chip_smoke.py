@@ -19,7 +19,14 @@ Phases; any failure exits non-zero and no phase swallows one:
      the parts the full cache is split into, the same and more lengths
      with the keys either side of each boundary dominant (so that one key
      dropped or counted twice shows), and calls at alternating shapes
-     queued back to back, each held again;
+     queued back to back, each held again; decode_attn_partials (K2's
+     partial build, a rank's slice of a channelized cache) at each served
+     decode shape, one rank's slice of the mistral layer on (32, 8) and the
+     layer itself, lengths 0 (no key: m -1e30, l 0, acc 0 exactly) to S, m
+     and acc / l within the kernel tolerance and l within its rtol; then
+     the layer cut into 2, 4 and 8 slices, each slice's partials merged by
+     ``ops.merge_partials``, against one decode_attn launch over the whole
+     cache (at 20,000 of 32,768 keys the last three of 8 slices are empty);
      wkv at ragged lengths and at the edges of its chunk of steps, both
      decay ranges, and chained bit-exactly, cut inside a chunk and at its
      edge; wkv_bwd (K3b, wkv's backward) against ``wkv_bwd_ref`` at ragged
@@ -67,7 +74,9 @@ Phases; any failure exits non-zero and no phase swallows one:
      cache, in a CUDA graph (the card's time, no host) and by CUDA events
      around back-to-back calls (the call's), with the launch it made
      (parts = cluster size, blocks, threads, the ring's stages, tile and
-     bytes); wkv's lines give the launch it made (blocks x
+     bytes), and decode_attn_partials on one rank's 4,096-key slice of
+     the mistral layer beside SDPA over the same keys and the whole-cache
+     decode_attn; wkv's lines give the launch it made (blocks x
      threads, steps a chunk, the tile of key groups x columns, shared
      bytes) and the profiler's share of the bound at the prefill and the
      decode shape;
@@ -147,7 +156,8 @@ Phases; any failure exits non-zero and no phase swallows one:
      launch) and K3b timed at the training shape beside its bound and its
      plain version.  Alone: ``python3 -c "import chip_smoke;
      chip_smoke.train_phase()"``;
- 11. the multi-device layer (``mesh_phase``): the DES through
+ 11. the multi-device layer (``mesh_phase``; ``partials_phase`` runs
+     K2's partial build's part of phases 2 and 5 alone): the DES through
      ``core/shardsim`` with ``devices="auto"`` (every card torch sees)
      against ``devices=None``, both engines, 74 lanes, histograms bit for
      bit and each run's scan launches exact (one a chunk a shard); a
@@ -159,9 +169,17 @@ Phases; any failure exits non-zero and no phase swallows one:
      exactly 768 decode_attn launches (K2 on each rank's local shards),
      greedy tokens equal to the same serve on ordinary tensors and logits
      within the bf16 gate; ``int8_all_reduce`` on that world equal to its
-     own quantize round trip; one dry-run cell (stablelm-1.6b decode_32k
-     on the fake 256-rank (32, 8) world) in a process of its own, its
-     FLOPs a chip printed.  Alone: ``python3 -c "import chip_smoke;
+     own quantize round trip; the channelized decode (``channel_serve``):
+     two gloo ranks, each a process on the one card, a (1, 2) mesh,
+     stablelm-1.6b at full width with its cache's sequence over ``model``,
+     the ordinary serve's tokens fed through ``make_prefill`` and
+     ``make_serve_step``: exactly 192 decode_attn_partials launches on
+     rank 0 (8 steps x 24 layers, each rank's slice merged by two
+     all-reduces) and none of decode_attn, logits within the bf16 gate of
+     the ordinary serve's; two dry-run cells (stablelm-1.6b decode_32k,
+     channelized, and train_4k on the fake 256-rank (32, 8) world), each
+     in a process of its own, their FLOPs, collective bytes and argument
+     GiB a chip printed.  Alone: ``python3 -c "import chip_smoke;
      chip_smoke.mesh_phase()"``.
 
 The card's nvidia-smi line is printed again just before the JSON object
@@ -251,6 +269,10 @@ PATH_CHECK = {DENSE_ARCH: (torch.bfloat16, 0.125),
 # decoding at 32k context, batch 8, 96 query heads over 8 KV heads of 128
 # (G 12), the study's decode plan (launch/coaxial_study.DECODE_PLAN).
 PLAN_LAYER_SHAPE = (8, 96, 8, 128, 32768)
+# One model rank's slice of that layer's cache when its sequence is split
+# over the 8 ranks of (32, 8) (the channelized cache): K2's partial build
+# reads it (phases 2 and 5).
+PIECE_SHAPE = PLAN_LAYER_SHAPE[:-1] + (PLAN_LAYER_SHAPE[-1] // 8,)
 # STREAM: the probe's elements an array (268 MB in float32, more than 4x
 # the 50 MB L2), its timed launches, and a scalar that bf16 cannot hold
 # exactly, so that the kernels must round it as the plain versions do.
@@ -520,6 +542,100 @@ def split_edges(da, shape):
                               (cut.parts - 1) * cut.part_keys)
              for dx in (-1, 0, 1)}
     return cut, sorted(n for n in edges if 1 <= n <= s)
+
+
+def check_partials(da, ref, shape, dtype, lengths, seed):
+    """K2's partial build against ``decode_attn_partials_ref`` on the card,
+    at each length (0 included: no key).  m is held within ``KERNEL_TOL``,
+    l within its rtol of the plain l, and acc through the output it
+    normalizes to, acc / l, within ``KERNEL_TOL``: the bf16 build rounds
+    the probabilities to bf16 before P V (as the ordinary build does), so
+    acc, a sum of up to ``length`` terms, moves by a share of its own size
+    that the output's tolerance bounds.  At length 0 the terms must be
+    exactly m -1e30, l 0, acc 0.  Returns the largest |error| of the
+    normalized output."""
+    b, hq, hk, d, s = shape
+    q, k, v = rand_qkv(b, hq, hk, d, s, dtype, seed)
+    tol = KERNEL_TOL[dtype]
+    worst = 0.0
+    for length in lengths:
+        m, l, acc = da.decode_attn_partials(q, k, v, length)
+        wm, wl, wacc = ref.decode_attn_partials_ref(q, k, v, length)
+        torch.cuda.synchronize()
+        if length == 0:
+            ok = (torch.equal(m, torch.full_like(m, -1e30)) and
+                  not l.any().item() and not acc.any().item())
+            err = 0.0
+        else:
+            out, want = acc / l[..., None], wacc / wl[..., None]
+            err = (out - want).abs().max().item()
+            ok = (torch.allclose(m, wm, **tol) and
+                  torch.allclose(l, wl, rtol=tol["rtol"], atol=0.0) and
+                  torch.allclose(out, want, **tol))
+        worst = max(worst, err)
+        log(f"  decode_attn_partials {dtype} B{b} Hq{hq} Hk{hk} D{d} S{s} "
+            f"length {length}: max|dm| {(m - wm).abs().max().item():.3e}, "
+            f"max|dl|/l {((l - wl).abs() / wl.clamp(min=1e-30)).max().item():.3e},"
+            f" max|d(acc/l)| {err:.3e} {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"decode_attn_partials disagrees with its plain version at "
+                 f"{shape}, {dtype}, length {length}")
+    return worst
+
+
+def check_partial_merge(da, ops, shape, dtype, pieces, lengths, seed):
+    """The cache cut into ``pieces`` sequence slices, K2's partial build run
+    on each (a slice past the length gets length 0) and the terms merged by
+    ``ops.merge_partials`` over the stacked slices: equal to one K2 launch
+    over the whole cache within ``KERNEL_TOL``, as the ranks of a
+    channelized cache merge by all-reduce.  Returns the largest |error|."""
+    b, hq, hk, d, s = shape
+    q, k, v = rand_qkv(b, hq, hk, d, s, dtype, seed)
+    w = s // pieces
+    slices = [(k[:, i * w:(i + 1) * w].contiguous(),
+               v[:, i * w:(i + 1) * w].contiguous()) for i in range(pieces)]
+    worst = 0.0
+    for length in lengths:
+        local = [min(max(length - i * w, 0), w) for i in range(pieces)]
+        terms = [da.decode_attn_partials(q, ks, vs, n)
+                 for (ks, vs), n in zip(slices, local)]
+        m, l, acc = (torch.stack(x) for x in zip(*terms))
+        got = ops.merge_partials(m, l, acc, q.dtype,
+                                 lambda x: x.amax(0, keepdim=True),
+                                 lambda x: x.sum(0))
+        want = da.decode_attn(q, k, v, length)
+        err = (got.float() - want.float()).abs().max().item()
+        worst = max(worst, err)
+        ok = torch.allclose(got.float(), want.float(), **KERNEL_TOL[dtype])
+        log(f"  {pieces} slices of {w} keys, lengths {local}, merged, against "
+            f"one K2 launch over {s} keys at length {length}, {dtype}: "
+            f"max|err| {err:.3e} {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"the merge of {pieces} slices' partials disagrees with one "
+                 f"K2 launch at {shape}, {dtype}, length {length}")
+    return worst
+
+
+def check_all_partials(da, ops, ref, served):
+    """Phase 2 for K2's partial build, bf16 and f32: each served decode
+    shape, one rank's slice of the mistral layer on (32, 8) and the layer
+    itself, from no key to all of them; then the layer cut into 2, 4 and 8
+    slices and merged, against one launch over it, at the whole cache and
+    at 20,000 keys (at 8 slices the last three are empty).  Returns the
+    largest bf16 |error| of the normalized output."""
+    plan_s = PLAN_LAYER_SHAPE[-1]
+    worst = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        for seed, shape in enumerate(served + [PIECE_SHAPE,
+                                               PLAN_LAYER_SHAPE], 31):
+            err = check_partials(da, ref, shape, dtype,
+                                 [0, 1, 333, shape[-1] - 1, shape[-1]], seed)
+            if dtype == torch.bfloat16:
+                worst = max(worst, err)
+        for pieces in (2, 4, 8):
+            check_partial_merge(da, ops, PLAN_LAYER_SHAPE, dtype, pieces,
+                                [plan_s, 20_000], seed=40 + pieces)
+    return worst
 
 
 def check_back_to_back(da, ref, cases, dtype, seed):
@@ -1916,14 +2032,16 @@ def serving_phase():
     log(f"phase 9 took {time.perf_counter() - t_phase:.1f} s (host clock)")
 
 
-def decode_attn_timing(da, ref, shape, length, seed, spec):
+def decode_attn_timing(da, ref, shape, length, seed, spec, partials=False):
     """Phase 5 for K2 at one shape (B, Hq, Hk, D, S) in bf16, attending
     ``length`` keys: the kernel, its plain version and SDPA (with
     ``enable_gqa``, on (B, Hk, L, D) views of the same cache) in turns,
     and the bound.  Each call takes the next of as many copies of the
     cache as exceed twice the L2 together, so that it finds its cache cold
-    as a decode step finds a layer's.  Returns the JSON line's time fields
-    and the launch's geometry."""
+    as a decode step finds a layer's.  With ``partials`` the kernel is
+    K2's partial build and the plain version its own (SDPA computes the
+    normalized output of the same keys), and the bound counts the float32
+    terms written.  Returns the JSON line's time fields."""
     b, hq, hk, d, s = shape
     item = torch.finfo(torch.bfloat16).bits // 8
     cache_bytes = 2 * b * s * hk * d * item
@@ -1931,7 +2049,8 @@ def decode_attn_timing(da, ref, shape, length, seed, spec):
     n_copies = max(1, -(-2 * l2 // cache_bytes))
     copies = [rand_qkv(b, hq, hk, d, s, torch.bfloat16, seed=seed + i)
               for i in range(n_copies)]
-    io_bytes = 2 * b * length * hk * d * item + 2 * b * hq * d * item
+    out_bytes = 4 * b * hq * (d + 2) if partials else b * hq * d * item
+    io_bytes = 2 * b * length * hk * d * item + b * hq * d * item + out_bytes
     flops = 4 * b * hq * length * d
     t_bytes, t_ops = io_bytes / spec.hbm_bw, flops / spec.peak_bf16_flops
     bound_ms = max(t_bytes, t_ops) * 1e3
@@ -1946,8 +2065,12 @@ def decode_attn_timing(da, ref, shape, length, seed, spec):
 
     library = turns(lambda i: F.scaled_dot_product_attention(
         *views[i], enable_gqa=True))
-    plain = turns(lambda i: ref.decode_attn_ref(*copies[i], length))
-    kernel = turns(lambda i: da.decode_attn(*copies[i], length))
+    plain_fn, kernel_fn, name = (
+        (ref.decode_attn_partials_ref, da.decode_attn_partials,
+         "decode_attn_partials") if partials else
+        (ref.decode_attn_ref, da.decode_attn, "decode_attn"))
+    plain = turns(lambda i: plain_fn(*copies[i], length))
+    kernel = turns(lambda i: kernel_fn(*copies[i], length))
     want = ref.decode_attn_ref(*copies[0], length).float()
     lib_err = (F.scaled_dot_product_attention(*views[0], enable_gqa=True)[
         :, :, 0].float() - want).abs().max().item()
@@ -1963,7 +2086,7 @@ def decode_attn_timing(da, ref, shape, length, seed, spec):
     best = {key: min(dev[key]) for key in dev}
     ms = best["kernel"]
     geo = da.geometry(torch.bfloat16, shape, length)
-    log(f"decode_attn bf16 B{b} Hq{hq} Hk{hk} D{d} G{hq // hk} S{s} length "
+    log(f"{name} bf16 B{b} Hq{hq} Hk{hk} D{d} G{hq // hk} S{s} length "
         f"{length}: in a CUDA graph kernel {dev['kernel']} ms, plain "
         f"{dev['plain']} ms, SDPA {dev['library']} ms; by events a call "
         f"kernel {times['kernel']} ms, plain {times['plain']} ms, SDPA "
@@ -2930,23 +3053,213 @@ def mesh_serve(cfg, kernels, device="cuda", backend="nccl", batch=BATCH,
         del store
 
 
-def mesh_dryrun_cell():
-    """One dry-run cell, stablelm-1.6b decode_32k on the (32, 8) mesh of a
-    fake 256-rank world, in its own process (the fake world never shares
-    a process with NCCL)."""
+# The channelized decode on the card: a gloo world of this many ranks,
+# each a process on the one card, the cache's sequence over its model axis;
+# a shorter prompt and fewer steps than phase 3's serve (DTensor's host
+# cost: ~2 s a step on two ranks of one H100 80GB HBM3 at 700 W).
+CHANNEL_RANKS, CHANNEL_PROMPT, CHANNEL_GEN = 2, 256, 8
+
+
+def _blocking_all_gather(self, gather_dim, group, tag=""):
+    """DTensor's all-gather (``funcol.all_gather_single``) through the
+    blocking ``dist.all_gather_into_tensor``: the same values.  On torch
+    2.11 gloo's functional all-gather of CUDA tensors crashes (a
+    segmentation fault in ``wait_tensor``; its all-reduces and the blocking
+    all-gather run), so the channelized serve's world issues it so."""
+    import torch.distributed as dist
+    if isinstance(group, tuple):
+        pg = group[0].get_group(group[1])
+    elif hasattr(group, "get_group"):
+        pg = group.get_group()
+    else:
+        raise TypeError(f"all-gather over {group!r}")
+    n = dist.get_world_size(pg)
+    x = self.contiguous()
+    out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
+    dist.all_gather_into_tensor(out, x, group=pg)
+    return out if gather_dim == 0 else torch.cat(out.chunk(n), dim=gather_dim)
+
+
+@contextlib.contextmanager
+def blocking_all_gathers():
+    """Inside the block DTensor's all-gathers take :func:`_blocking_all_gather`."""
+    import torch.distributed._functional_collectives as funcol
+    names = [n for n in ("all_gather_single", "all_gather_tensor")
+             if hasattr(funcol, n)]
+    saved = {n: getattr(funcol, n) for n in names}
+    for n in names:
+        setattr(funcol, n, _blocking_all_gather)
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(funcol, n, fn)
+
+
+def _channel_serve(rank, world):
+    """One rank of :func:`channel_serve`: the ordinary serve's greedy
+    tokens, then the same prompt and tokens through DTensor with the
+    channelized cache; returns rank 0's record."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticDataset
+    from repro_torch.distributed import context
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.step import make_prefill, make_serve_step
+    from repro_torch.kernels import decode_attn as da
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import Model
+
+    cfg = get_config(DENSE_ARCH)
+    mesh = make_host_mesh(world, device_type="cuda")
+    # Every rank makes the same weights from the seed, so each takes its
+    # own shard of them with no scatter.
+    local = lambda tree, sh: L.map_tree(
+        lambda t, h: t if h is None else distribute_tensor(
+            t, h.mesh, h.placements, src_data_rank=None), tree, sh)
+    full = lambda x: x.full_tensor() if isinstance(x, DTensor) else x
+    with torch.inference_mode(), blocking_all_gathers():
+        model = Model(cfg, device="cuda")
+        params = model.init(SEED)
+        prompt = {k: torch.as_tensor(v, device="cuda") for k, v in
+                  SyntheticDataset(cfg, BATCH, CHANNEL_PROMPT, seed=SEED + 1)
+                  .batch_at(0).items() if k not in ("targets", "loss_mask")}
+        s_max = CHANNEL_PROMPT + CHANNEL_GEN
+        want, toks = _serve_loop(model, make_serve_step(model),
+                                 make_prefill(model), params, prompt,
+                                 model.make_cache(BATCH, s_max), CHANNEL_GEN,
+                                 cfg)
+        p = local(params, shd.param_shardings(model, mesh,
+                                              shd.decode_rules(mesh, cfg)))
+        cache = model.make_cache(BATCH, s_max)
+        c = local(cache, shd.cache_shardings(cfg, mesh, cache))
+        rules = {"batch": shd.fsdp_axes(mesh), "kv_select_update": True,
+                 "kv_partials": True, "kv_seq": "model"}
+        da.KERNEL.launches = da.PARTIALS.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with context.activation_rules(mesh, rules):
+            lg, c = make_prefill(model)(
+                p, local(prompt, shd.batch_shardings(mesh, prompt)), c)
+            got = [full(lg)]
+            for i in range(CHANNEL_GEN):
+                sb = dict(tokens=toks[:, i:i + 1], positions=torch.full(
+                    (BATCH, 1), c["len"], dtype=torch.int32, device="cuda"))
+                lg, c = make_serve_step(model)(
+                    p, local(sb, shd.batch_shardings(mesh, sb)), c)
+                got.append(full(lg))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        worst = max((a.float() - b.float()).abs().max().item()
+                    for a, b in zip(got, want))
+        agree = sum(torch.equal(a.argmax(-1), b.argmax(-1))
+                    for a, b in zip(got, want))
+        return dict(partials=da.PARTIALS.launches, k2=da.KERNEL.launches,
+                    worst=worst, agree=agree, steps=len(got), wall=wall,
+                    cache=str(c["k"].placements), mesh=str(mesh))
+
+
+def _channel_entry(rank, world, port, out):
+    import datetime
+
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    store = dist.TCPStore("127.0.0.1", port, is_master=False,
+                          timeout=datetime.timedelta(seconds=600))
+    dist.init_process_group("gloo", store=store, rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=600))
+    try:
+        res = _channel_serve(rank, world)
+        dist.barrier()
+        if rank == 0:
+            Path(out).write_text(json.dumps(res))
+    finally:
+        dist.destroy_process_group()
+
+
+def channel_serve(ranks=CHANNEL_RANKS, tol=PATH_CHECK[DENSE_ARCH][1]):
+    """The channelized decode on the card: ``ranks`` processes on the one
+    card joined by gloo, a (1, ``ranks``) mesh, stablelm-1.6b at full
+    width in bf16 (batch 8, a ``CHANNEL_PROMPT``-token prompt,
+    ``CHANNEL_GEN`` steps) with its parameters by ``decode_rules`` and its
+    cache by
+    ``cache_shardings`` (the sequence over ``model``: each rank holds
+    1/``ranks`` of every layer's keys), the reference's decode activation
+    rules.  The prompt and the ordinary serve's greedy tokens go through
+    ``make_prefill`` and ``make_serve_step``: each decode step's attention
+    runs K2's partial build on each rank's slice and merges the ranks'
+    terms by two all-reduces.  Rank 0's partial launches must be exactly
+    steps x layers (and no ordinary K2 launch), its logits within the
+    bf16 path gate of the ordinary serve's.  Returns those launches."""
+    import datetime
+    import multiprocessing
+    import tempfile
+
+    import torch.distributed as dist
+    store = dist.TCPStore("127.0.0.1", 0, is_master=True,
+                          wait_for_workers=False,
+                          timeout=datetime.timedelta(seconds=600))
+    ctx = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "rank0.json"
+        procs = [ctx.Process(target=_channel_entry,
+                             args=(r, ranks, store.port, str(out)))
+                 for r in range(ranks)]
+        t0 = time.perf_counter()
+        for proc in procs:
+            proc.start()
+        try:
+            for proc in procs:
+                proc.join(900)
+        finally:
+            for proc in procs:
+                if proc.is_alive():
+                    proc.kill()
+                    proc.join(10)
+        codes = [proc.exitcode for proc in procs]
+        if codes != [0] * ranks or not out.exists():
+            fail(f"channelized serve: ranks exited {codes}")
+        res = json.loads(out.read_text())
+    from repro_torch.configs import get_config
+    want = CHANNEL_GEN * get_config(DENSE_ARCH).n_layers
+    log(f"channelized serve {DENSE_ARCH} bf16 on {ranks} gloo ranks of one "
+        f"card, mesh {res['mesh']}, cache {res['cache']}: "
+        f"{BATCH}x{CHANNEL_PROMPT} prompt and {CHANNEL_GEN} steps on the "
+        f"ordinary serve's "
+        f"tokens: rank 0 launched decode_attn_partials {res['partials']} "
+        f"times (expected {want}), decode_attn {res['k2']}; max|dlogit| "
+        f"{res['worst']:.4e} against the ordinary serve (tol {tol}), argmax "
+        f"equal in {res['agree']} of {res['steps']} steps; {res['wall']:.2f} s"
+        f" (host clock, prefill and steps), "
+        f"{time.perf_counter() - t0:.1f} s with the processes")
+    if res["partials"] != want or res["k2"] != 0:
+        fail(f"channelized serve: launches {res['partials']} partial, "
+             f"{res['k2']} ordinary; want {want} and 0")
+    if not res["worst"] <= tol:
+        fail(f"channelized serve: logits differ by {res['worst']} (tol {tol})")
+    return res["partials"]
+
+
+def mesh_dryrun_cell(shape="decode_32k"):
+    """One dry-run cell of stablelm-1.6b on the (32, 8) mesh of a fake
+    256-rank world, in its own process (the fake world never shares a
+    process with NCCL); decode cells lay the cache out channelized."""
     out = HERE / "dryrun_out"
     t0 = time.perf_counter()
     run = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-         DENSE_ARCH, "--shape", "decode_32k", "--out", str(out)],
+         DENSE_ARCH, "--shape", shape, "--out", str(out)],
         capture_output=True, text=True, timeout=600, cwd=HERE,
         env={**__import__("os").environ, "PYTHONPATH": str(HERE / "src")})
-    res = json.loads((out / f"{DENSE_ARCH}__decode_32k__32x8__baseline.json")
+    res = json.loads((out / f"{DENSE_ARCH}__{shape}__32x8__baseline.json")
                      .read_text())
     if run.returncode != 0 or res["status"] != "ok":
         fail(f"dry run: exit {run.returncode}, {res['status']}: "
              f"{res['error']}\n{run.stderr[-2000:]}")
-    log(f"dry run {DENSE_ARCH} decode_32k on the fake (32, 8) world: "
+    log(f"dry run {DENSE_ARCH} {shape} on the fake (32, 8) world: "
         f"{res['flops_per_chip']:.4e} FLOP a chip, collectives "
         f"{res['collectives']['total']:.4e} B a chip, argument bytes "
         f"{res['memory']['argument_bytes'] / 2**30:.2f} GiB a chip, "
@@ -2955,13 +3268,43 @@ def mesh_dryrun_cell():
     return res
 
 
+def partials_phase():
+    """K2's partial build alone: its phase-2 checks (:func:`check_all_partials`
+    at the served decode shapes) and its phase-5 time on one rank's slice
+    of the mistral layer beside the whole-cache K2.  Alone: ``python3 -c
+    "import chip_smoke; chip_smoke.partials_phase()"``."""
+    if not torch.cuda.is_available():
+        fail("torch sees no CUDA card; this script runs only on one")
+    from repro_torch.configs import get_config
+    from repro_torch.core import hw
+    from repro_torch.kernels import decode_attn as da
+    from repro_torch.kernels import ops, ref
+    served = []
+    for arch in (DENSE_ARCH, MOE_ARCH, HYBRID_ARCH, VLM_ARCH):
+        cfg = get_config(arch)
+        served.append((BATCH, cfg.n_heads, cfg.n_kv_heads,
+                       cfg.resolved_head_dim, PROMPT + GEN))
+    err = check_all_partials(da, ops, ref, served + [(8, 24, 2, 128, 4096)])
+    spec = hw.spec_for(torch.cuda.get_device_name(0))
+    whole = decode_attn_timing(da, ref, PLAN_LAYER_SHAPE,
+                               PLAN_LAYER_SHAPE[-1], 9, spec)
+    piece = decode_attn_timing(da, ref, PIECE_SHAPE, PIECE_SHAPE[-1], 19,
+                               spec, partials=True)
+    log(f"decode_attn_partials on one rank's slice ({PIECE_SHAPE[-1]} keys): "
+        f"{piece['ms']:.5f} ms against the whole-cache K2's "
+        f"{whole['ms']:.5f} ms, {piece['bound_ms'] / piece['ms']:.3f} of its "
+        f"bound; max|err| {err:.3e}")
+    return err, piece
+
+
 def mesh_phase():
     """Phase 11, the multi-device layer on the card: the DES through
     ``core/shardsim`` (``devices="auto"`` against ``None``); stablelm-1.6b
     served through DTensor on a one-rank NCCL world's (1, 1) mesh against
     the same serve on ordinary tensors, 768 K2 launches; int8_all_reduce
-    on that world; one dry-run cell in a process of its own.  Returns the
-    launches by kernel.  Alone: ``python3 -c "import chip_smoke;
+    on that world; the channelized decode on two gloo ranks of the card
+    (:func:`channel_serve`, 192 partial launches); two dry-run cells, each
+    in a process of its own.  Returns the launches by kernel.  Alone: ``python3 -c "import chip_smoke;
     chip_smoke.mesh_phase()"``."""
     if not torch.cuda.is_available():
         fail("torch sees no CUDA card; this script runs only on one")
@@ -2975,7 +3318,9 @@ def mesh_phase():
     build.load_all([kern.library for kern in kernels.values()])
     launches = mesh_des_check(kernels)
     launches["decode_attn"] = mesh_serve(get_config(DENSE_ARCH), kernels)
-    mesh_dryrun_cell()
+    launches["decode_attn_partials"] = channel_serve()
+    for shape in ("decode_32k", "train_4k"):
+        mesh_dryrun_cell(shape)
     log(f"phase 11 took {time.perf_counter() - t_phase:.1f} s (host clock)")
     return launches
 
@@ -2986,7 +3331,7 @@ def main():
 
     from repro_torch.configs import get_config
     from repro_torch.core import hw
-    from repro_torch.kernels import build, ref
+    from repro_torch.kernels import build, ops, ref
     from repro_torch.core import memsim, threefry
     from repro_torch.kernels import decode_attn as da
     from repro_torch.kernels import memsim_scan as ms
@@ -3014,6 +3359,7 @@ def main():
         kernels.update(family)
     kernels.update(ks.KERNELS)
     kernels.update(ms.KERNELS)
+    kernels["decode_attn_partials"] = da.PARTIALS
     t0 = time.time()
     build.load_all([kern.library for kern in kernels.values()])
     log(f"built the kernels {sorted(kernels)} in {time.time() - t0:.1f} s")
@@ -3086,6 +3432,10 @@ def main():
             (PLAN_LAYER_SHAPE, [plan_s, 2]),
             (hybrid_shape, [PROMPT + 16, 65]),
             (vlm_shape, [PROMPT + 16, 300])], dtype, seed=20)
+
+    path_err["decode_attn_partials"] = check_all_partials(
+        da, ops, ref, [slice_shape, moe_shape, hybrid_shape, vlm_shape,
+                       gqa_shape])
     h, hd = ssm.rwkv_heads, ssm.rwkv_head_dim
     path_err["wkv"] = 0.0
     seed = 10
@@ -3168,13 +3518,26 @@ def main():
         log(f"decode_attn on {arch}'s decode steps of phase 4: "
             f"{'not measured' if dev is None else f'{dev:.5f} ms a launch'}")
     plan_k2 = decode_attn_timing(da, ref, PLAN_LAYER_SHAPE, plan_s, 9, spec)
+    # The partial build on one rank's slice of that layer: what each of the
+    # 8 model ranks of (32, 8) reads of a channelized cache.
+    piece = decode_attn_timing(da, ref, PIECE_SHAPE, PIECE_SHAPE[-1], 19,
+                               spec, partials=True)
+    log(f"decode_attn_partials on one rank's slice ({PIECE_SHAPE[-1]} keys): "
+        f"{piece['ms']:.5f} ms against the whole-cache K2's "
+        f"{plan_k2['ms']:.5f} ms ({plan_k2['ms'] / piece['ms']:.2f}x), "
+        f"{piece['bound_ms'] / piece['ms']:.3f} of its bound")
     entries = [{
         "name": "decode_attn", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/decode_attn.cu",
         "replaces": "src/repro/kernels/decode_attn.py:34",
         "launches": launches["decode_attn"],
         "max_abs_err": path_err["decode_attn"],
-        **k2}]
+        **k2}, {
+        "name": "decode_attn_partials", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/decode_attn.cu",
+        "replaces": "src/repro/kernels/decode_attn.py:34",
+        "launches": 0, "max_abs_err": path_err["decode_attn_partials"],
+        **piece}]
 
     # wkv at the prefill shape (the JSON line's numbers) and at a decode
     # step.  The plain version at T = PROMPT is a Python loop over time:
@@ -3320,7 +3683,7 @@ def main():
     for entry in entries:
         if entry["name"] == "wkv":
             entry["launches"] += trained["wkv"]
-    entries.insert(2, {
+    entries.insert(3, {
         "name": "wkv_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/rwkv_wkv_bwd.cu",
         "replaces": "src/repro/models/rwkv.py:60",

@@ -27,8 +27,11 @@ and picks layouts for the partial sums that it cannot always take back
 (the multi-pod ``prefill_32k`` cell, whose batch of 32 does not divide its
 64 data ranks, fails in the backward without the gather).  So the port
 has no ``fsdp_gather`` rule.  ``gather_params`` lays out any named weights
-as asked: the port calls it where DTensor's own propagation goes wrong
-(the embedding lookup and the loss's head; notes at the call sites).
+as asked (an embedding table whose vocabulary is not split, before its
+lookup).  A table or head whose vocabulary is split over ``model`` is used
+in place, vocab-parallel (``models/layers.embed_apply`` and
+``chunked_ce_loss``): DTensor's own masked lookup leaves a partial sum
+that its later reduction mis-shapes.
 
 Nothing here changes a value: with no active rules every path is
 numerically exactly what it is without this module.

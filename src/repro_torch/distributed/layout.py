@@ -8,6 +8,9 @@ layer does not depend on the model package.
 * :func:`axis_sizes` and :func:`placements`: a mesh's axis sizes by name,
   and a per-dimension spec tuple (``None``, one mesh axis name, or a tuple
   of names, as the reference's ``PartitionSpec``) as DTensor placements.
+* :func:`shard_start`: where this rank's shard of a split dimension
+  begins; :func:`all_reduce_local`: a local tensor all-reduced over some
+  mesh dimensions, by DTensor.
 * :func:`replicate_plain_tensors`: inside the block a plain tensor that
   meets a DTensor counts as replicated.
 """
@@ -17,7 +20,7 @@ from __future__ import annotations
 import contextlib
 import threading
 
-from torch.distributed.tensor import Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import implicit_replication
 
 
@@ -40,6 +43,35 @@ def placements(mesh, spec) -> tuple:
         for a in ((part,) if isinstance(part, str) else part):
             out[mesh.mesh_dim_names.index(a)] = Shard(dim)
     return tuple(out)
+
+
+def shard_start(x, dim: int) -> int:
+    """The first index of this rank's shard of DTensor ``x``'s dimension
+    ``dim``, split evenly over the mesh dimensions that shard it (the
+    first of them major, as DTensor lays such a dimension out); an uneven
+    split raises."""
+    mesh, coord = x.device_mesh, x.device_mesh.get_coordinate()
+    index, n = 0, 1
+    for i, p in enumerate(x.placements):
+        if p.is_shard(dim):
+            n *= mesh.size(i)
+            index = index * mesh.size(i) + coord[i]
+    if x.shape[dim] % n:
+        raise ValueError(f"dimension {dim} of {x.shape[dim]} split unevenly "
+                         f"over {n} ranks")
+    return index * (x.shape[dim] // n)
+
+
+def all_reduce_local(x, mesh, dims, placements, op: str):
+    """Local tensor ``x`` all-reduced (``op`` "sum" or "max") over the mesh
+    dimensions ``dims``: wrapped as a pending ``op`` there and laid out
+    whole, so that DTensor issues the collective (and its gradient, for a
+    sum).  ``placements`` are ``x``'s on the other mesh dimensions."""
+    pending = [Partial(op) if i in dims else p
+               for i, p in enumerate(placements)]
+    whole = [Replicate() if i in dims else p for i, p in enumerate(placements)]
+    return DTensor.from_local(x, mesh, pending, run_check=False).redistribute(
+        mesh, whole).to_local()
 
 
 _LOCK = threading.Lock()

@@ -63,7 +63,18 @@
 // share a key, each lane a 16-byte slice of the K and V rows, with a
 // per-key online softmax, then the same warp, block and cluster merges.
 //
-// Plain C interface, loaded with ctypes.  decode_attn_launch returns a
+// The partial build (decode_attn_partials_launch).  A rank that holds one
+// slice of a cache whose sequence is split over several cards (the
+// channelized layout) needs the softmax terms of its own keys, not their
+// normalized output: the same launch, cut and merged the same way, writes
+// the cluster's merged (m, l, acc) -- running max of the scaled scores,
+// sum of exponentials, output before the division by l -- as float32
+// (B, Hq), (B, Hq) and (B, Hq, D) in place of acc / l, and the caller
+// merges the ranks' triples (kernels/ops.merge_partials).  Its length may
+// be 0 (a slice wholly past the valid prefix): every part is empty and it
+// writes m = -1e30, l = 0, acc = 0, the terms of no key.
+//
+// Plain C interface, loaded with ctypes.  Each launcher returns a
 // cudaError_t (0 on success), or -1 for a shape this file does not
 // instantiate; it launches on the given stream and allocates nothing.
 
@@ -112,12 +123,26 @@ __device__ __forceinline__ void store(bf16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
+// Where the partial build writes the merged terms of one (b, h)'s G rows:
+// m and l (G floats each) and acc (G x D floats); m is null in the
+// ordinary build, which writes acc / l at `out` instead.
+struct Partials {
+  float* m;
+  float* l;
+  float* acc;
+
+  __device__ Partials at(size_t row0, int D) const {
+    return m ? Partials{m + row0, l + row0, acc + row0 * D} : Partials{};
+  }
+};
+
 // The warps' partials (wm, wl, wacc, written by the body) -> the block's
 // (bm, bl, bacc) -> the cluster's result, each block writing its slice of
-// the (G, D) rows at `out`.  A block that is the only part of its (b, h)
-// writes its result itself.
+// the (G, D) rows at `out` (or, in the partial build, of the un-divided
+// terms at `part`).  A block that is the only part of its (b, h) writes
+// its result itself.
 template <typename T, int D, int G>
-__device__ void merge_and_store(float* sm, T* out) {
+__device__ void merge_and_store(float* sm, T* out, Partials part) {
   using M = Merge<D, G>;
   const int tid = threadIdx.x;
   __syncthreads();
@@ -134,6 +159,10 @@ __device__ void merge_and_store(float* sm, T* out) {
     }
     sm[M::kBm + tid] = mx;
     sm[M::kBl + tid] = den;
+    if (gridDim.x == 1 && part.m) {
+      part.m[tid] = mx;
+      part.l[tid] = den;
+    }
   }
   __syncthreads();
   for (int idx = tid; idx < G * D; idx += kThreads) {
@@ -142,10 +171,12 @@ __device__ void merge_and_store(float* sm, T* out) {
 #pragma unroll
     for (int w = 0; w < kWarps; ++w)
       a += sm[M::kWw + w * G + g] * sm[M::kWacc + w * G * D + idx];
-    if (gridDim.x == 1)
-      store(out + idx, (1.f / sm[M::kBl + g]) * a);
-    else
+    if (gridDim.x > 1)
       sm[M::kBacc + idx] = a;
+    else if (part.m)
+      part.acc[idx] = a;
+    else
+      store(out + idx, (1.f / sm[M::kBl + g]) * a);
   }
   if (gridDim.x == 1) return;   // one part: no peers
 
@@ -163,7 +194,12 @@ __device__ void merge_and_store(float* sm, T* out) {
       sm[M::kCw + r * G + tid] = e;
       den += *cluster.map_shared_rank(sm + M::kBl + tid, r) * e;
     }
-    for (int r = 0; r < parts; ++r) sm[M::kCw + r * G + tid] /= den;
+    if (!part.m) {
+      for (int r = 0; r < parts; ++r) sm[M::kCw + r * G + tid] /= den;
+    } else if (rank == 0) {
+      part.m[tid] = mx;
+      part.l[tid] = den;
+    }
   }
   __syncthreads();
   const int per = (G * D + parts - 1) / parts;
@@ -174,7 +210,10 @@ __device__ void merge_and_store(float* sm, T* out) {
     for (int r = 0; r < parts; ++r)
       a += sm[M::kCw + r * G + g] *
            *cluster.map_shared_rank(sm + M::kBacc + idx, r);
-    store(out + idx, a);
+    if (part.m)
+      part.acc[idx] = a;
+    else
+      store(out + idx, a);
   }
   cluster.sync();   // peers keep their shared memory until all have read
 }
@@ -255,8 +294,8 @@ struct Ring {
 template <int D, int G>
 __global__ void __launch_bounds__(kThreads)
 decode_attn_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, bf16* __restrict__ out, int S,
-                int Hk, int length, int part_keys) {
+                const bf16* __restrict__ v, bf16* __restrict__ out,
+                Partials terms, int S, int Hk, int length, int part_keys) {
   static_assert(D % 16 == 0 && G <= 16, "bad shape");
   using Rg = Ring<D>;
   constexpr int kRow = Rg::kRow, kChunks = D / 8, kSteps = D / 16;
@@ -405,7 +444,7 @@ decode_attn_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
     }
   }
-  merge_and_store<bf16, D, G>(sm, out + q_row0 * D);
+  merge_and_store<bf16, D, G>(sm, out + q_row0 * D, terms.at(q_row0, D));
 }
 
 // -- fp32: lanes on the CUDA cores -----------------------------------------
@@ -445,8 +484,8 @@ __device__ __forceinline__ void unpack(const typename Raw<E * 4>::type& raw,
 template <int D, int G>
 __global__ void __launch_bounds__(kThreads)
 decode_attn_lanes(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, float* __restrict__ out, int S,
-                  int Hk, int length, int part_keys) {
+                  const float* __restrict__ v, float* __restrict__ out,
+                  Partials terms, int S, int Hk, int length, int part_keys) {
   using C = Lanes<D, G>;
   constexpr int E = C::E, TPK = C::TPK, KPW = C::KPW;
   using R = typename C::R;
@@ -570,7 +609,7 @@ decode_attn_lanes(const float* __restrict__ q, const float* __restrict__ k,
         sm[M::kWacc + (warp * G + g) * D + d0 + i] = acc[g][i];
     }
   }
-  merge_and_store<float, D, G>(sm, out + q_row0 * D);
+  merge_and_store<float, D, G>(sm, out + q_row0 * D, terms.at(q_row0, D));
 }
 
 // -- launch ------------------------------------------------------------------
@@ -635,8 +674,8 @@ cudaLaunchConfig_t launch_config(int parts, int Hk, int B, int smem,
 
 template <typename T, int D, int G>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int B, int S, int Hk, int length, int parts,
-                   int part_keys, cudaStream_t stream) {
+                   Partials part, int B, int S, int Hk, int length,
+                   int parts, int part_keys, cudaStream_t stream) {
   using K = Traits<T, D, G>;
   cudaError_t err = configure<T, D, G>();
   if (err != cudaSuccess) return err;
@@ -645,7 +684,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
       launch_config(parts, Hk, B, K::kSmem, stream, &attr);
   err = cudaLaunchKernelEx(&cfg, K::kernel(), static_cast<const T*>(q),
                            static_cast<const T*>(k), static_cast<const T*>(v),
-                           static_cast<T*>(out), S, Hk, length, part_keys);
+                           static_cast<T*>(out), part, S, Hk, length,
+                           part_keys);
   if (err != cudaSuccess) cudaGetLastError();   // reported here, not later
   return err;
 }
@@ -705,26 +745,54 @@ int dispatch(int is_bf16, int D, int G, F&& f) {
   return is_bf16 ? switch_d<bf16>(D, G, f) : switch_d<float>(D, G, f);
 }
 
+// The checks both launchers share: the split covers [0, length) in whole
+// tiles.
+bool bad_split(int length, int parts, int part_keys) {
+  return parts < 1 || parts > kMaxParts || part_keys < kTileKeys ||
+         part_keys % kTileKeys != 0 || length < 0 ||
+         static_cast<long long>(parts) * part_keys < length;
+}
+
+int launch_any(int is_bf16, int D, int G, const void* q, const void* k,
+               const void* v, void* out, Partials part, int B, int S, int Hk,
+               int length, int parts, int part_keys, void* stream) {
+  const auto st = static_cast<cudaStream_t>(stream);
+  return dispatch(is_bf16, D, G, [&](auto t, auto d, auto g) {
+    using T = typename decltype(t)::type;
+    return static_cast<int>(launch<T, decltype(d)::value, decltype(g)::value>(
+        q, k, v, out, part, B, S, Hk, length, parts, part_keys, st));
+  });
+}
+
 }  // namespace
 
 extern "C" {
 
 // is_bf16: 1 for bfloat16, 0 for float32.  parts (1..16) blocks a (b, h),
-// one cluster, each taking part_keys keys (a multiple of the tile).
+// one cluster, each taking part_keys keys (a multiple of the tile);
+// length in [1, S].
 int decode_attn_launch(int is_bf16, int D, int G, const void* q,
                        const void* k, const void* v, void* out, int B, int S,
                        int Hk, int length, int parts, int part_keys,
                        void* stream) {
-  if (parts < 1 || parts > kMaxParts || part_keys < kTileKeys ||
-      part_keys % kTileKeys != 0 ||
-      static_cast<long long>(parts) * part_keys < length)
+  if (length < 1 || bad_split(length, parts, part_keys))
     return cudaErrorInvalidValue;
-  const auto st = static_cast<cudaStream_t>(stream);
-  return dispatch(is_bf16, D, G, [&](auto t, auto d, auto g) {
-    using T = typename decltype(t)::type;
-    return static_cast<int>(launch<T, decltype(d)::value, decltype(g)::value>(
-        q, k, v, out, B, S, Hk, length, parts, part_keys, st));
-  });
+  return launch_any(is_bf16, D, G, q, k, v, out, Partials{}, B, S, Hk, length,
+                    parts, part_keys, stream);
+}
+
+// The partial build: as decode_attn_launch, but writes the merged float32
+// terms m (B, Hq), l (B, Hq) and acc (B, Hq, D) and no output; length in
+// [0, S].
+int decode_attn_partials_launch(int is_bf16, int D, int G, const void* q,
+                                const void* k, const void* v, float* m,
+                                float* l, float* acc, int B, int S, int Hk,
+                                int length, int parts, int part_keys,
+                                void* stream) {
+  if (!m || !l || !acc || bad_split(length, parts, part_keys))
+    return cudaErrorInvalidValue;
+  return launch_any(is_bf16, D, G, q, k, v, nullptr, Partials{m, l, acc}, B,
+                    S, Hk, length, parts, part_keys, stream);
 }
 
 // out[8]: threads a block, keys a tile, ring stages (0: no ring), ring

@@ -13,6 +13,13 @@ The source note gives the ring of tiles and the tensor-core products.
 ``decode_attn`` here launches the kernel on CUDA tensors only and raises on
 anything it does not take.  Its plain version is ``ref.decode_attn_ref``;
 ``ops.decode_attn`` picks between the two by the tensors' device.
+
+``decode_attn_partials`` launches the partial build of the same source:
+the same cut and cluster merge, but it writes the merged float32 terms
+(m, l, acc) of the keys ``[0, length)`` in place of their normalized
+output, for a rank that holds one slice of a sequence-split cache (the
+channelized decode, ``ops.decode_attn``); ``length`` may be 0.  Its plain
+version is ``ref.decode_attn_partials_ref``.
 """
 
 from __future__ import annotations
@@ -43,6 +50,16 @@ KERNEL = Kernel("decode_attn", [
     ctypes.c_int, ctypes.c_int,                           # parts, part_keys
     ctypes.c_void_p])                                     # stream
 
+#: The partial build: one library with :data:`KERNEL`, its own launch count.
+PARTIALS = Kernel("decode_attn_partials", [
+    ctypes.c_int, ctypes.c_int, ctypes.c_int,             # is_bf16, D, G
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,    # q, k, v
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,    # m, l, acc
+    ctypes.c_int, ctypes.c_int,                           # B, S
+    ctypes.c_int, ctypes.c_int,                           # Hk, length
+    ctypes.c_int, ctypes.c_int,                           # parts, part_keys
+    ctypes.c_void_p], library=KERNEL.library)             # stream
+
 
 class Split(NamedTuple):
     """``parts`` blocks a (batch, KV head), each taking ``part_keys`` keys
@@ -60,8 +77,9 @@ class Split(NamedTuple):
 
 
 def split(parts: int, length: int) -> Split:
-    """``length`` keys in ``parts`` parts of whole tiles."""
-    tiles = -(-length // TILE_KEYS)
+    """``length`` keys in ``parts`` parts of whole tiles (at least one
+    tile a part: a length of 0 leaves every part empty)."""
+    tiles = max(1, -(-length // TILE_KEYS))
     return Split(parts, -(-tiles // parts) * TILE_KEYS)
 
 
@@ -87,7 +105,7 @@ def _sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _check(q, k, v, length):
+def _check(q, k, v, length, least: int = 1):
     if q.dim() != 3 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"decode_attn: want q (B,Hq,D), k=v (B,S,Hk,D); got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
@@ -110,8 +128,9 @@ def _check(q, k, v, length):
     if isinstance(length, bool) or not isinstance(length, int):
         raise TypeError(f"decode_attn: length must be a host int, got "
                         f"{type(length).__name__}")
-    if not 1 <= length <= s:
-        raise ValueError(f"decode_attn: length {length} outside [1, {s}]")
+    if not least <= length <= s:
+        raise ValueError(f"decode_attn: length {length} outside "
+                         f"[{least}, {s}]")
 
 
 def decode_attn(q, k, v, length: int):
@@ -140,6 +159,37 @@ def _launch(q, k, v, length: int, cut: Split):
                       length, cut.parts, cut.part_keys, stream,
                       config=f"head dim {d}, group {hq // hk}")
     return out
+
+
+def decode_attn_partials(q, k, v, length: int):
+    """q: (B, Hq, D); k/v: (B, S, Hk, D); length: int in [0, S] -> the
+    float32 terms of the keys ``[0, length)``: m (B, Hq), the largest
+    scaled score (-1e30 for no key); l (B, Hq), the sum of exp(score - m);
+    acc (B, Hq, D), the sum of exp(score - m) v.  Launches the partial
+    build of the CUDA kernel, split by :func:`partition`."""
+    _check(q, k, v, length, least=0)
+    cut = partition(q.shape[0], k.shape[2], length, _sms(q.device.index))
+    return _launch_partials(q, k, v, length, cut)
+
+
+def _launch_partials(q, k, v, length: int, cut: Split):
+    """:func:`_launch` of the partial build."""
+    if not 1 <= cut.parts <= MAX_PARTS:
+        raise ValueError(f"decode_attn_partials: parts {cut.parts} outside "
+                         f"[1, {MAX_PARTS}]")
+    b, hq, d = q.shape
+    _, s, hk, _ = k.shape
+    m = torch.empty((b, hq), dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    acc = torch.empty((b, hq, d), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        PARTIALS.launch(DTYPES[q.dtype], d, hq // hk, q.data_ptr(),
+                        k.data_ptr(), v.data_ptr(), m.data_ptr(),
+                        l.data_ptr(), acc.data_ptr(), b, s, hk, length,
+                        cut.parts, cut.part_keys, stream,
+                        config=f"head dim {d}, group {hq // hk}")
+    return m, l, acc
 
 
 #: What the library's geometry reports, in its order.

@@ -13,19 +13,20 @@ between the compiled Pallas kernel and interpret mode.  Here:
 * anything else (mixed devices, or a dtype, shape or layout the kernel
   does not take) raises.  Nothing falls back.
 
-DTensors (a model on a mesh, ``distributed/``): on the CPU the plain
-version runs through DTensor's own propagation (the tensors it makes
-itself count as replicated), so a sequence-sharded
-cache takes the channelized math in torch ops, as the reference's
-``kv_partials`` path does.  On CUDA and on ``meta`` ``decode_attn`` (K2)
-and ``wkv`` (K3, and K3b under autograd) run the kernel, or its meta
-stand-in, on each rank's local shard (:func:`_per_shard`) when only batch
-or head axes are sharded over a mesh dimension of more than one rank.  A
-kernel sees whole rows only: a cache whose sequence axis, or a ``wkv``
-input whose time axis, is sharded over more than one rank raises
-(``ROADMAP.md`` lists K2's partials for such a cache as later work), on
-the card and in the dry run alike; nothing is gathered behind the
-caller's back.
+DTensors (a model on a mesh, ``distributed/``): on CUDA and on ``meta``
+``decode_attn`` (K2) and ``wkv`` (K3, and K3b under autograd) run the
+kernel, or its meta stand-in, on each rank's local shard
+(:func:`_per_shard`) when batch or head axes are sharded over a mesh
+dimension of more than one rank.  A cache whose sequence axis is split
+over such a dimension (the reference's channelized layout) takes the
+partial route on every device: each rank runs K2's partial build (on the
+CPU ``ref.decode_attn_partials_ref``, on ``meta`` its stand-in) over its
+own keys up to the valid length, and :func:`merge_partials` combines the
+ranks' (m, l, acc) by two all-reduces over that dimension's group, which
+DTensor issues.  Other CPU DTensors run the plain version through
+DTensor's own propagation (the tensors it makes itself count as
+replicated).  A ``wkv`` input whose time axis is split raises: K3 sees
+whole rows, and nothing is gathered behind the caller's back.
 """
 
 from __future__ import annotations
@@ -33,7 +34,9 @@ from __future__ import annotations
 import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
-from repro_torch.distributed.layout import replicate_plain_tensors
+from repro_torch.distributed.layout import (all_reduce_local,
+                                           replicate_plain_tensors,
+                                           shard_start)
 from repro_torch.kernels import decode_attn as _da
 from repro_torch.kernels import memsim_scan as _ms
 from repro_torch.kernels import ref
@@ -83,34 +86,42 @@ def stream_triad(a, b, alpha):
 
 
 def _per_shard(fn, lead, args: dict, out_roles: tuple, what: str,
-               written=()):
+               written=(), partials=None):
     """Run ``fn`` on the local shards of DTensor ``args`` and wrap what
     it returns as DTensors on their mesh.
 
     ``args`` maps each argument to ``(tensor or None, {role: dim})``; the
-    roles are "batch", "head" and "whole" (a dimension the kernel must
-    see whole: a split one raises).  ``lead`` names the argument whose
+    roles are "batch", "head", "seq" and "whole" (a dimension the kernel
+    must see whole: a split one raises).  ``lead`` names the argument whose
     layout decides: each mesh dimension of more than one rank keeps its
-    "batch" or "head" split and is otherwise replicated; every argument
-    is laid out to match (a cheap redistribute of the query or the state
-    where it differs).
+    "batch", "head" or "seq" split and is otherwise replicated; every
+    argument is laid out to match (a cheap redistribute of the query or
+    the state where it differs).
     ``out_roles`` gives each output's {role: dim}; an argument named in
-    ``written`` is written in place and must already be laid out so."""
+    ``written`` is written in place and must already be laid out so.
+
+    A "seq" split (only where the caller gives ``partials``) runs
+    ``partials(offset, reduce, **local)`` in place of ``fn``: ``offset``
+    is the first position of this rank's slice of the lead's "seq"
+    dimension, and ``reduce(x, op)`` all-reduces a local tensor laid out
+    by the first output's roles over the "seq" mesh dimensions ("max" or
+    "sum"); the outputs are replicated over those dimensions."""
     x, dims = args[lead]
     mesh = x.device_mesh
     role_of = {d: r for r, d in dims.items()}
+    split = ("batch", "head", "seq") if partials else ("batch", "head")
     roles = []
     for i, p in enumerate(x.placements):
         role = role_of.get(p.dim) if isinstance(p, Shard) else None
-        if mesh.size(i) > 1 and role == "whole":
+        if mesh.size(i) > 1 and role in ("whole", "seq") and \
+                role not in split:
             raise ValueError(
                 f"{what}: {lead} is laid out {x.placements} on {mesh}; the "
                 f"kernel sees whole rows, and its dimension {p.dim} is split "
-                f"over {mesh.size(i)} ranks (ROADMAP.md section 1, item 4)")
-        # Any other layout but a batch or head split (a pending sum, a
-        # split feature axis) is made whole (replicated) first.
-        roles.append(role if mesh.size(i) > 1 and role in ("batch", "head")
-                     else None)
+                f"over {mesh.size(i)} ranks")
+        # Any other layout but a batch, head or sequence split (a pending
+        # sum, a split feature axis) is made whole (replicated) first.
+        roles.append(role if mesh.size(i) > 1 and role in split else None)
     for name in written:
         # What is written in place keeps its layout: a split it lacks is
         # not made.
@@ -144,17 +155,41 @@ def _per_shard(fn, lead, args: dict, out_roles: tuple, what: str,
                                  f"is laid out {t.placements}, not {want}")
             t = t.redistribute(mesh, want)
         local[name] = t.to_local()
-    out = fn(**local)
+    if "seq" in roles:
+        seq = [i for i, r in enumerate(roles) if r == "seq"]
+        out = partials(shard_start(x, dims["seq"]), lambda t, op: (
+            all_reduce_local(t, mesh, seq, layout(out_roles[0]), op)),
+            **local)
+    else:
+        out = fn(**local)
     outs = out if isinstance(out, tuple) else (out,)
     wrapped = tuple(DTensor.from_local(o, mesh, layout(r), run_check=False)
                     for o, r in zip(outs, out_roles))
     return wrapped if isinstance(out, tuple) else wrapped[0]
 
 
+def merge_partials(m, l, acc, dtype, max_all=None, sum_all=None):
+    """The softmax terms of several slices of one cache merged into the
+    attention output: with M = max_r m_r and w_r = exp(m_r - M), the
+    output is sum_r w_r acc_r / sum_r w_r l_r, cast to ``dtype``.
+
+    ``max_all(m)`` gives M (broadcastable against ``m``); ``sum_all(x)``
+    sums ``x`` = (w l, w acc) packed as (..., D + 1) over the slices.  The
+    caller chooses them: all-reduces over the ranks that each hold one
+    slice (``decode_attn`` on a sequence-split cache), or reductions over
+    a leading axis of slices stacked in one process.  By default the
+    terms are one slice's own."""
+    big = m if max_all is None else max_all(m)
+    w = torch.exp(m - big)
+    packed = torch.cat([(w * l)[..., None], w[..., None] * acc], dim=-1)
+    if sum_all is not None:
+        packed = sum_all(packed)
+    return (packed[..., 1:] / packed[..., :1]).to(dtype)
+
+
 def _query_like_cache(q, k):
     """The query (B, Hq, D) laid out as the cache (B, S, Hk, D) is: its
-    batch and heads split where the cache's are, whole where the cache's
-    sequence is split (each rank scores all heads of its keys), so that
+    batch and heads split where the cache's are, whole elsewhere, so that
     no product flattens two split dimensions together."""
     role = {0: Shard(0), 2: Shard(1)}
     want = tuple(role.get(p.dim, Replicate()) if p.is_shard() else
@@ -178,17 +213,61 @@ def _decode_attn_meta(q, k, v, length: int):
     return out
 
 
+def _decode_attn_partials_meta(q, k, v, length: int):
+    """decode_attn_partials on ``meta`` tensors (the dry run): the float32
+    terms' shapes, with the partial build's work charged: 4 B Hq length D
+    FLOP over this slice's ``length`` valid keys, their bytes and the
+    query read once, the terms written once."""
+    from repro_torch.core import hloparse
+    b, hq, d = q.shape
+    hk = k.shape[2]
+    m = torch.empty((b, hq), dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    acc = torch.empty((b, hq, d), dtype=torch.float32, device=q.device)
+    kv = 2 * b * length * hk * d * k.element_size()
+    hloparse.charge(4.0 * b * hq * length * d,
+                    kv + q.numel() * q.element_size() +
+                    4 * (m.numel() + l.numel() + acc.numel()))
+    return m, l, acc
+
+
+def decode_attn_partials(q, k, v, length: int):
+    """q: (B, Hq, D); k/v: (B, S, Hk, D); length in [0, S] -> float32
+    (m, l, acc) of the keys ``[0, length)`` (``ref.decode_attn_partials_ref``
+    says what they are): the partial build of K2 on CUDA, its plain version
+    on the CPU, its stand-in on ``meta``."""
+    if k.device.type == "meta":
+        return _decode_attn_partials_meta(q, k, v, length)
+    if _all_on_cpu(q, k, v):
+        return ref.decode_attn_partials_ref(q, k, v, length)
+    return _da.decode_attn_partials(q, k, v, length)
+
+
+def _seq_split(k) -> bool:
+    """A DTensor cache whose sequence axis is split over more than one
+    rank."""
+    return any(p.is_shard(1) and k.device_mesh.size(i) > 1
+               for i, p in enumerate(k.placements))
+
+
 def decode_attn(q, k, v, length: int):
     """q: (B, Hq, D); k/v: (B, S, Hk, D); length: int -> (B, Hq, D)."""
     meta = k.device.type == "meta"
     on_cpu = _all_on_cpu(q, k, v, meta=True)
-    if isinstance(k, DTensor) and (meta or not on_cpu):
-        cache = {"batch": 0, "whole": 1, "head": 2}
+    if isinstance(k, DTensor) and (meta or not on_cpu or _seq_split(k)):
+        cache = {"batch": 0, "seq": 1, "head": 2}
+
+        def partials(offset, reduce, q, k, v):
+            part = decode_attn_partials(
+                q, k, v, min(max(length - offset, 0), k.shape[1]))
+            return merge_partials(*part, q.dtype,
+                                  lambda x: reduce(x, "max"),
+                                  lambda x: reduce(x, "sum"))
         return _per_shard(
             lambda q, k, v: decode_attn(q, k, v, length), "k",
             {"q": (q, {"batch": 0, "head": 1}), "k": (k, cache),
              "v": (v, cache)},
-            ({"batch": 0, "head": 1},), "decode_attn")
+            ({"batch": 0, "head": 1},), "decode_attn", partials=partials)
     if meta:
         return _decode_attn_meta(q, k, v, length)
     if on_cpu:

@@ -61,6 +61,31 @@ def decode_attn_ref(q, k, v, length):
     return out.reshape(b, hq, d).to(q.dtype)
 
 
+def decode_attn_partials_ref(q, k, v, length):
+    """The softmax terms of ``decode_attn_ref``'s valid keys, before they
+    are normalized (the partial build's plain version).
+
+    q: (B, Hq, D); k/v: (B, S, Hk, D); length in [0, S].  Returns float32
+    m (B, Hq), the largest scaled score of the keys ``[0, length)``, or
+    -1e30 if there is none; l (B, Hq), the sum of exp(score - m); acc (B,
+    Hq, D), the sum of exp(score - m) v.  ``acc / l`` is
+    ``decode_attn_ref``'s output before its cast.
+    """
+    b, hq, d = q.shape
+    s, hk = k.shape[1], k.shape[2]
+    g = hq // hk
+    qg = q.reshape(b, hk, g, d)
+    logits = torch.einsum("bhgd,bshd->bhgs", qg.float(),
+                          k.float()) * (d ** -0.5)
+    mask = torch.arange(s, device=q.device)[None, None, None, :] < length
+    logits = torch.where(mask, logits, -1e30)
+    m = logits.amax(dim=-1)
+    p = torch.where(mask, torch.exp(logits - m[..., None]), 0.0)
+    acc = torch.einsum("bhgs,bshd->bhgd", p, v.float())
+    return (m.reshape(b, hq), p.sum(dim=-1).reshape(b, hq),
+            acc.reshape(b, hq, d))
+
+
 # --- RWKV6 WKV recurrence ---------------------------------------------------
 
 def wkv_ref(r, k, v, w, u, state, state_out=None):

@@ -33,13 +33,14 @@ the step itself, eagerly, in a world that costs nothing:
      (``--out``, default ``dryrun_out/`` at the repository's root, which
      git ignores).
 
-The decode cache is laid out as the port's kernel path runs it: batch
-over the data axes, the sequence whole on every rank
-(``cache_shardings(kv_channels=False)``).  The reference's default, the
-channelized cache with its sequence split over ``model``, needs K2 to
-emit (max, sum, acc) partials, which it does not yet (``ROADMAP.md``
-section 1); ``--kv-channels`` asks for that layout, and its decode cells
-are recorded ``error`` where K2 refuses it.  The reference's
+The decode cache is laid out as the reference's default: batch over the
+data axes and the sequence over ``model``, the channelized cache
+(``cache_shardings(kv_channels=True)``): each ``model`` rank holds and
+reads 1/8 of the context, K2's partial build runs on its slice (its
+stand-in here), and two small all-reduces over ``model`` merge the
+ranks' (max, sum, acc) (``kernels/ops.decode_attn``).
+``--no-kv-channels`` lays the whole sequence on every ``model`` rank
+instead, as the reference's flag of that name does.  The reference's
 ``--fsdp-gather`` has no counterpart: the port always gathers a layer's
 weights at use (``distributed/context``).  The layouts are the port's,
 DTensor's strategy for each op among them; its choices differ between
@@ -55,7 +56,7 @@ collective and their total.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch stablelm-1.6b --shape train_4k \\
-      [--multi-pod] [--kv-channels] [--remat dots]
+      [--multi-pod] [--no-kv-channels] [--remat dots]
   python -m repro_torch.launch.dryrun --all [--multi-pod]   # every cell
   python -m repro_torch.launch.dryrun --collective-proof [--multi-pod]
 """
@@ -206,12 +207,12 @@ def _decode_cell(model, mesh, shape, kv_channels):
     return make_serve_step(model), (params, batch, cache)
 
 
-def run_step(cfg, shape, mesh, res: CellResult, *, kv_channels=False,
+def run_step(cfg, shape, mesh, res: CellResult, *, kv_channels=True,
              compress_grads=False, act_shard="none", microbatch=1,
              kv_select_update=False) -> CellResult:
     """One cell's step on ``mesh`` (a mesh of the current world) under the
     meter, its costs written into ``res``.  ``kv_channels`` lays a decode
-    cache's sequence over ``model``, which K2 refuses (module note)."""
+    cache's sequence over ``model`` (module note)."""
     act_rules = {"batch": shd.fsdp_axes(mesh)}
     if act_shard == "seq":
         act_rules["seq"] = "model"
@@ -323,9 +324,9 @@ def main(argv=None):
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--remat", default=None)
-    ap.add_argument("--kv-channels", action="store_true",
-                    help="split the decode cache's sequence over model "
-                    "(K2 refuses it: the cell errors)")
+    ap.add_argument("--no-kv-channels", action="store_true",
+                    help="keep the decode cache's whole sequence on every "
+                    "model rank")
     ap.add_argument("--compress-grads", action="store_true")
     ap.add_argument("--act-shard", default="none", choices=["none", "seq"])
     ap.add_argument("--microbatch", type=int, default=1)
@@ -351,7 +352,7 @@ def main(argv=None):
         for arch, shape in cells:
             res = run_cell(arch, shape, multi_pod=args.multi_pod,
                            remat=args.remat,
-                           kv_channels=args.kv_channels,
+                           kv_channels=not args.no_kv_channels,
                            compress_grads=args.compress_grads,
                            act_shard=args.act_shard,
                            microbatch=args.microbatch,

@@ -7,9 +7,12 @@ Port of ``repro/models/attention.py``.  Tensors keep the reference's
 them and return their input without an active rule set.  With the
 ``kv_partials`` flag and a cache whose sequence axis is sharded over
 ``model``, ``decode_attention``'s logits, probabilities and output are
-pinned to that sharding: each rank scores its own keys, and DTensor's
-softmax and product combine the partial (max, sum, acc) terms with small
-collectives, the channelized read of the reference.
+pinned to that sharding (a prefill into the channelized cache): each rank
+scores its own keys, and DTensor's softmax and product combine the
+partial (max, sum, acc) terms with small collectives, the channelized
+read of the reference.  The one-token decode step on such a cache runs
+K2's partial build on each rank's keys and merges the ranks' terms
+(``kernels/ops.decode_attn``).
 
 ``flash_attention`` is the uncached pass over more than 256 tokens (the
 training path, hubert's every pass): an online softmax over KV chunks, so

@@ -23,8 +23,10 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate
 
 from repro_torch.distributed import context
+from repro_torch.distributed.layout import all_reduce_local, shard_start
 from repro_torch.models.config import ModelConfig
 
 
@@ -247,12 +249,71 @@ def embed_specs(cfg: ModelConfig) -> dict:
     return out
 
 
+def _vocab_dims(w, dim: int) -> list:
+    """The mesh dimensions of more than one rank that split dimension
+    ``dim`` (the vocabulary) of a DTensor ``w``; none for a plain tensor."""
+    if not isinstance(w, DTensor):
+        return []
+    return [i for i, p in enumerate(w.placements)
+            if p.is_shard(dim) and w.device_mesh.size(i) > 1]
+
+
+def _laid_out(x, mesh, want):
+    """``x`` as a DTensor laid out by ``want`` (a plain tensor counts as
+    replicated)."""
+    if not isinstance(x, DTensor):
+        x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
+    return x if tuple(x.placements) == tuple(want) else x.redistribute(
+        mesh, want)
+
+
+def _rows(x, vdims):
+    """The placements of a batch-major activation ``x`` with the vocab
+    dimensions made whole: its batch or sequence splits kept elsewhere,
+    anything else (a split feature axis, a pending sum) made whole."""
+    return [Replicate() if i in vdims or not (p.is_replicate() or (
+        p.is_shard() and p.dim < x.dim() - 1)) else p
+        for i, p in enumerate(x.placements)]
+
+
 def embed_apply(cfg: ModelConfig, p: dict, token_ids):
-    # A sharded table is gathered whole first: DTensor's lookup into a
-    # vocab-sharded table leaves a masked partial sum that its later
-    # reduction mis-shapes.
-    p = context.gather_params(p, {"tokens": (None, None)})
-    return F.embedding(token_ids, p["tokens"])
+    """Token rows of the embedding table.  A table whose vocabulary is
+    split over ranks (the rules' ``vocab`` over ``model``) is looked up in
+    place: each rank takes the rows it holds and zeros elsewhere, and one
+    all-reduce over those ranks sums them; the gradient reaches each
+    rank's own rows only.  The table is never gathered whole."""
+    table = p["tokens"]
+    vdims = _vocab_dims(table, 0)
+    if not vdims:
+        # A plain table, or one on no split vocabulary: the lookup itself
+        # (a sharded embed dimension is gathered first).
+        p = context.gather_params(p, {"tokens": (None, None)})
+        return F.embedding(token_ids, p["tokens"])
+    mesh = table.device_mesh
+    # The table's vocab shards kept, its embed dimension gathered (the
+    # FSDP gather at use); the ids whole over the vocab ranks.
+    table = _laid_out(table, mesh, [
+        p if i in vdims else Replicate() for i, p in enumerate(
+            table.placements)])
+    ids = token_ids if isinstance(token_ids, DTensor) else \
+        _laid_out(token_ids, mesh, [Replicate()] * mesh.ndim)
+    ids = _laid_out(ids, mesh, [Replicate() if i in vdims else p
+                                for i, p in enumerate(ids.placements)])
+    lo = shard_start(table, 0)
+    # Each rank's gradient of its rows sums its own batch rows' lookups.
+    rows = table.to_local(grad_placements=[
+        p if i in vdims else Partial() if ids.placements[i].is_shard()
+        else Replicate() for i, p in enumerate(table.placements)])
+    local = ids.to_local().long() - lo
+    held = (local >= 0) & (local < rows.shape[0])
+    emb = F.embedding(torch.where(held, local, 0), rows)
+    emb = emb.masked_fill(~held[..., None], 0)
+    out = DTensor.from_local(emb, mesh, [
+        Partial() if i in vdims else p for i, p in enumerate(
+            ids.placements)], run_check=False)
+    return out.redistribute(mesh, [Replicate() if i in vdims else p
+                                   for i, p in enumerate(ids.placements)])
 
 
 def unembed_matrix(cfg: ModelConfig, p: dict):
@@ -268,7 +329,13 @@ def chunked_ce_loss(h, w_head, targets, mask, chunk: int = 1024):
     tokens, so at most (B, chunk, V) logits are live at once in the
     forward.  Logits in float32 after the product in the model dtype;
     the loss is the mean over ``mask`` (0/1) positions, in float32.
+
+    A head whose vocabulary is split over ranks (a DTensor, the rules'
+    ``vocab`` over ``model``) is used in place (:func:`_vocab_parallel_ce`).
     """
+    vdims = _vocab_dims(w_head, 1)
+    if vdims:
+        return _vocab_parallel_ce(h, w_head, targets, mask, chunk, vdims)
     b, s, d = h.shape
     n = max(s // chunk, 1)
     chunk = s // n
@@ -282,4 +349,80 @@ def chunked_ce_loss(h, w_head, targets, mask, chunk: int = 1024):
         tgt = logits.gather(-1, t_c[:, i, :, None])[..., 0]
         nll = nll + ((lse - tgt) * m_c[:, i]).sum()
         cnt = cnt + m_c[:, i].sum()
+    return nll / torch.clamp(cnt, min=1.0)
+
+
+def vocab_parallel_nll(logits, targets, lo, max_all, sum_all):
+    """-log softmax(logits)[target] of rows whose vocabulary is split into
+    slices: ``logits`` (..., V_slice) float32 scores of one slice, whose
+    first column is vocabulary entry ``lo``; ``targets`` (...) global
+    ids.  ``max_all`` and ``sum_all`` reduce a row's terms over the
+    slices (all-reduces over the ranks that hold them, or reductions over
+    a leading axis of slices stacked in one process; ``max_all`` may keep
+    that axis).  The row max is a constant of the loss (no gradient); the
+    target's score comes from the one slice that holds it.  Returns
+    log(sum exp(logits - max)) + max - target, whose gradient is softmax -
+    one-hot on each slice's columns."""
+    big = max_all(logits.detach().amax(dim=-1))
+    total = sum_all(torch.exp(logits - big[..., None]).sum(dim=-1))
+    t = targets - lo
+    held = (t >= 0) & (t < logits.shape[-1])
+    tgt = logits.gather(-1, torch.where(held, t, 0)[..., None])[..., 0]
+    tgt = sum_all(torch.where(held, tgt, 0.0))
+    return torch.log(total) + big - tgt
+
+
+def _vocab_parallel_ce(h, w, targets, mask, chunk: int, vdims):
+    """:func:`chunked_ce_loss` with the head's vocabulary split over the
+    mesh dimensions ``vdims``: each rank scores each chunk against its own
+    columns, and three all-reduces over those ranks give the row max, the
+    sum of exponentials and the target logit (from the one rank that holds
+    it); the loss is log(sum) + max - target.  Autograd gives softmax -
+    one-hot on the local columns.  The head is never gathered whole.
+
+    The batch (or sequence) rows keep their split, chunked as the plain
+    form chunks its rows; each rank's loss terms are summed over the ranks
+    that split them at the end, as the plain form's DTensor sum is."""
+    mesh = w.device_mesh
+    row_pl = _rows(h, vdims)
+    h = _laid_out(h, mesh, row_pl)
+    w = _laid_out(w, mesh, [p if i in vdims else Replicate()
+                            for i, p in enumerate(w.placements)])
+    # (B, S) tensors laid out as h's rows (no feature axis to keep whole).
+    tok_pl = [p if p.is_shard() and p.dim < 2 else Replicate()
+              for p in row_pl]
+    targets = _laid_out(targets, mesh, tok_pl).to_local()
+    mask = _laid_out(mask, mesh, tok_pl).to_local()
+    # A rank's gradient of h covers its own columns (summed over the vocab
+    # ranks); of the head, its own rows of the batch (summed over theirs).
+    h_loc = h.to_local(grad_placements=[
+        Partial() if i in vdims else p for i, p in enumerate(row_pl)])
+    w_loc = w.to_local(grad_placements=[
+        p if i in vdims else Partial() if row_pl[i].is_shard() else p
+        for i, p in enumerate(w.placements)])
+    lo = shard_start(w, 1)
+
+    def over(op):
+        # A rank's local (B, c) row terms reduced over the vocab ranks.
+        return lambda x: all_reduce_local(x, mesh, vdims, tok_pl, op)
+
+    b, s, d = h_loc.shape
+    n = max(s // chunk, 1)
+    chunk = s // n
+    h_c = h_loc.reshape(b, n, chunk, d)
+    t_c = targets.reshape(b, n, chunk).long()
+    m_c = mask.reshape(b, n, chunk)
+    nll = cnt = 0.0
+    for i in range(n):
+        logits = (h_c[:, i] @ w_loc).float()             # (B, c, V / ranks)
+        row_nll = vocab_parallel_nll(logits, t_c[:, i], lo, over("max"),
+                                     over("sum"))
+        nll = nll + (row_nll * m_c[:, i]).sum()
+        cnt = cnt + m_c[:, i].sum()
+    # Each rank's sums cover its own batch rows: summed over the ranks
+    # that split them.
+    sums = [Partial() if p.is_shard() else Replicate() for p in tok_pl]
+    nll, cnt = (DTensor.from_local(x, mesh, sums, run_check=False)
+                .redistribute(mesh, [Replicate()] * mesh.ndim)
+                for x in (nll, cnt))
     return nll / torch.clamp(cnt, min=1.0)

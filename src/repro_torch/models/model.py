@@ -72,12 +72,10 @@ class Model:
                        plain_kernels=plain_kernels)
         h = context.constrain(h, transformer.ACTIVATION_AXES)
         w_head = layers.unembed_matrix(cfg, params["embed"])
-        w_head = context.use_params({"w": w_head},
-                                    {"w": (None, "model")})["w"]
-        # A sharded head is gathered whole: DTensor's gather of the target
-        # logit from vocab-sharded logits mis-shapes its masked partial.
-        w_head = transformer.as_dtype(context.gather_params(
-            {"w": w_head}, {"w": (None, None)})["w"], h.dtype)
+        # The head's embed dimension gathered at use, its vocabulary kept
+        # split: chunked_ce_loss scores each rank's own columns.
+        w_head = transformer.as_dtype(context.use_params(
+            {"w": w_head}, {"w": (None, "model")})["w"], h.dtype)
         loss = layers.chunked_ce_loss(h, w_head, batch["targets"],
                                       batch["loss_mask"].float())
         return loss, {"loss": loss}

@@ -71,7 +71,9 @@ def _split_proj(cfg: ModelConfig, proj):
 def _causal_conv(x, w, b):
     """Depthwise causal conv over (B, S, C) with window len(w)."""
     cw = w.shape[0]
-    pad = F.pad(x, (0, 0, cw - 1, 0))
+    # Zeros joined on, not F.pad: DTensor 2.11 has no strategy for the pad.
+    pad = torch.cat([torch.zeros((x.shape[0], cw - 1, x.shape[2]),
+                                 dtype=x.dtype, device=x.device), x], dim=1)
     out = sum(pad[:, i:i + x.shape[1], :] * w[i] for i in range(cw))
     return out + b
 
@@ -186,11 +188,14 @@ def mamba_apply(cfg: ModelConfig, p: dict, x, state=None, conv_state=None):
         # Prefill continuation: chunked path seeded with the carried state.
         y, new_state = _ssd_chunked(xh, dt, a, bmat, cmat, init_state=state)
     else:
-        # Recurrent decode step (s == 1).
+        # Recurrent decode step (s == 1).  On a mesh each shard of the
+        # state holds whole heads: at batch 1 DTensor would split the heads
+        # over ranks that do not divide them, and could not flatten them.
         da = torch.exp(dt[:, 0] * a)                          # (B,H)
         xs = dt[:, 0, :, None] * xh[:, 0].float()             # (B,H,P)
         upd = bmat[:, 0].float()[:, None, :, None] * xs[:, :, None, :]
-        new_state = state * da[..., None, None] + upd         # (B,H,N,P)
+        new_state = context.whole_heads(
+            state * da[..., None, None] + upd, h, dim=1)      # (B,H,N,P)
         y = torch.einsum("bn,bhnp->bhp", cmat[:, 0].float(),
                          new_state)[:, None]                  # (B,1,H,P)
 

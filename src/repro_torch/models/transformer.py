@@ -86,11 +86,11 @@ import functools
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Replicate
 from torch.utils import checkpoint as _ckpt
 
 from repro_torch.distributed import context
+from repro_torch.distributed.layout import shard_start
 from repro_torch.kernels import ops
 from repro_torch.models import attention, layers, moe, rwkv, ssm
 from repro_torch.models.config import ModelConfig
@@ -222,7 +222,7 @@ def _attn_block(cfg: ModelConfig, pl, x, positions, causal, kv_cache,
     if kv_cache is None:
         attend = (attention.reference_attention if s <= 256 else
                   attention.flash_attention)
-        o = attend(q, k, v, causal=causal)
+        o = _attend_local(attend, q, k, v, causal)
     else:
         k_cache, v_cache, cache_len = kv_cache
         if isinstance(k_cache, DTensor) or (
@@ -247,33 +247,79 @@ def _attn_block(cfg: ModelConfig, pl, x, positions, causal, kv_cache,
             o = attention.decode_attention(q, k_cache, v_cache, lens,
                                            q_start=cache_len)
     wo = context.use_params(pl["attn"], attention.ATTN_USE_SPECS)["wo"]
-    return o.reshape(b, s, -1) @ wo
+    # The heads' pending sum laid out as the residual stream: left to
+    # itself DTensor 2.13 reduce-scatters it over the sequence, and the MLP
+    # after it then gathers its weights and computes every column on every
+    # model rank.
+    return context.constrain(o.reshape(b, s, -1) @ wo, ACTIVATION_AXES)
+
+
+def _attend_local(attend, q, k, v, causal: bool):
+    """Uncached attention; on a mesh whose ranks split only its batch and
+    heads, run on each rank's own shard (``kernels/ops._per_shard``):
+    every (batch, head) attends alone, so this is the same work with no
+    collective, and no product flattens a split batch and a split head
+    dimension together (DTensor 2.11 cannot).  A split sequence takes
+    DTensor's own propagation."""
+    if not isinstance(q, DTensor) or any(
+            p.is_shard(1) and q.device_mesh.size(i) > 1
+            for t in (q, k, v) if isinstance(t, DTensor)
+            for i, p in enumerate(t.placements)):
+        return attend(q, k, v, causal=causal)
+    rows = {"batch": 0, "whole": 1, "head": 2}
+    return ops._per_shard(
+        lambda q, k, v: attend(q, k, v, causal=causal), "q",
+        {"q": (q, rows), "k": (k, rows), "v": (v, rows)},
+        ({"batch": 0, "head": 2},), "attention")
 
 
 def _select_update(cache, new, start: int):
     """Write ``new`` (B, s, Hk, hd) into ``cache`` (B, S_max, Hk, hd) at
-    positions ``start`` on by a positional select: elementwise, so a cache
-    whose sequence axis is sharded is written where it lies.  (A slice
-    write into a DTensor sharded along the slice would land in a gathered
-    copy, not in the cache.)"""
-    s, s_max = new.shape[1], cache.shape[1]
-    pos = torch.arange(s_max, device=new.device)
-    at = ((pos >= start) & (pos < start + s))[None, :, None, None]
-    placed = new.to(cache.dtype)
-    if s > 1:
-        # A block of new rows padded to their positions (a decode step's
-        # one row broadcasts as it is).
-        placed = F.pad(placed, (0, 0, 0, 0, start, s_max - start - s))
-    if isinstance(placed, DTensor):
-        # Laid out as the cache (a local slice of the new rows, or a
-        # gather of them, never of the cache), so that the select runs
-        # shard by shard; one broadcast row is whole where the cache's
-        # sequence is split.
-        want = tuple(Replicate() if s == 1 and p.is_shard(1) else p
-                     for p in cache.placements)
-        if tuple(placed.placements) != want:
-            placed = placed.redistribute(cache.device_mesh, want)
-    cache.copy_(torch.where(at, placed, cache))
+    positions ``start`` on.  One row (a decode step) by a positional
+    select: elementwise, so a cache whose sequence axis is sharded is
+    written where it lies.  (A slice write into a DTensor sharded along the
+    slice would land in a gathered copy, not in the cache.)  A block of
+    rows (a prefill into a DTensor cache) on each rank's own slice
+    (:func:`_write_local`)."""
+    if new.shape[1] > 1:
+        # Only a DTensor cache takes a block of rows here.
+        _write_local(cache, new, start)
+        return
+    pos = torch.arange(cache.shape[1], device=new.device)
+    at = (pos == start)[None, :, None, None]
+    # The one row broadcasts over the positions, shard by shard.
+    cache.copy_(torch.where(at, _as_cache_rows(cache, new), cache))
+
+
+def _write_local(cache, new, start: int):
+    """A block of new rows into a DTensor cache: each rank writes those
+    that fall in its own slice of the sequence into its local shard.
+    (DTensor 2.11 has no strategy for the padding a select would need.)"""
+    new = _as_cache_rows(cache, new)
+    local = cache.to_local()
+    first = shard_start(cache, 1)
+    lo = max(start, first)
+    hi = min(start + new.shape[1], first + local.shape[1])
+    if lo < hi:
+        local[:, lo - first:hi - first] = \
+            new.to_local()[:, lo - start:hi - start]
+
+
+def _as_cache_rows(cache, new):
+    """New rows in the cache's dtype and, for a DTensor cache, laid out as
+    the cache with their sequence whole: a local slice of the rows, or a
+    gather of them, never of the cache."""
+    new = new.to(cache.dtype)
+    if not isinstance(cache, DTensor):
+        return new
+    mesh = cache.device_mesh
+    if not isinstance(new, DTensor):
+        new = DTensor.from_local(new, mesh, [Replicate()] * mesh.ndim,
+                                 run_check=False)
+    want = tuple(Replicate() if p.is_shard(1) else p
+                 for p in cache.placements)
+    return new if tuple(new.placements) == want else new.redistribute(
+        mesh, want)
 
 
 def _dense_body(cfg, x, pl, positions, causal, kv_cache,

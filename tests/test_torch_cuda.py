@@ -63,6 +63,73 @@ def test_kernel_matches_plain(dtype, b, hq, hk, d, s):
         torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
 
 
+def _assert_partials_close(got, want, dtype):
+    """m within TOL, l within its rtol, acc through acc / l within TOL (the
+    bf16 build rounds the probabilities before P V, as the ordinary build
+    does, which moves acc by a share of its own size)."""
+    (m, l, acc), (wm, wl, wacc) = got, want
+    torch.testing.assert_close(m, wm, **TOL[dtype])
+    torch.testing.assert_close(l, wl, rtol=TOL[dtype]["rtol"], atol=0.0)
+    torch.testing.assert_close(acc / l[..., None], wacc / wl[..., None],
+                               **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hk,d,s", [
+    (8, 32, 32, 64, 1056),      # stablelm-1.6b serving slice
+    (8, 96, 8, 128, 4096),      # one rank's slice of a mistral-large layer
+    (8, 24, 2, 128, 4096),      # starcoder2-3b attention (G = 12)
+    (8, 32, 32, 80, 1056),      # zamba2-2.7b decode (head dim 80)
+    (8, 64, 8, 128, 1056),      # qwen2-vl-72b decode (G 8, head dim 128)
+])
+def test_partials_match_plain(dtype, b, hq, hk, d, s):
+    """K2's partial build against ``decode_attn_partials_ref`` at lengths
+    1, a third, S - 1 and S; at length 0 the terms of no key."""
+    _need_card()
+    q, k, v = _qkv(b, hq, hk, d, s, dtype, seed=3)
+    for length in (1, s // 3, s - 1, s):
+        _assert_partials_close(da.decode_attn_partials(q, k, v, length),
+                               ref.decode_attn_partials_ref(q, k, v, length),
+                               dtype)
+    m, l, acc = da.decode_attn_partials(q, k, v, 0)
+    assert torch.equal(m, torch.full_like(m, -1e30))
+    assert not l.any() and not acc.any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pieces,length", [(2, 32768), (4, 32768),
+                                           (8, 32768), (8, 20000), (4, 1)])
+def test_merged_slices_equal_one_launch(dtype, pieces, length):
+    """A mistral-large layer's cache cut into sequence slices, the partial
+    build on each and ``ops.merge_partials`` over them: one K2 launch over
+    the whole cache, within TOL (at 20,000 keys of 8 slices the last three
+    are empty)."""
+    _need_card()
+    q, k, v = _qkv(2, 96, 8, 128, 32768, dtype, seed=4)
+    w = 32768 // pieces
+    terms = [da.decode_attn_partials(
+        q, k[:, i * w:(i + 1) * w].contiguous(),
+        v[:, i * w:(i + 1) * w].contiguous(), min(max(length - i * w, 0), w))
+        for i in range(pieces)]
+    m, l, acc = (torch.stack(x) for x in zip(*terms))
+    got = ops.merge_partials(m, l, acc, q.dtype,
+                             lambda x: x.amax(0, keepdim=True),
+                             lambda x: x.sum(0))
+    torch.testing.assert_close(got.float(),
+                               da.decode_attn(q, k, v, length).float(),
+                               **TOL[dtype])
+
+
+def test_partials_refuse_a_length_outside_the_cache():
+    _need_card()
+    q, k, v = _qkv(2, 4, 2, 16, 40, torch.float32)
+    for length in (-1, 41):
+        with pytest.raises(ValueError, match="outside"):
+            da.decode_attn_partials(q, k, v, length)
+    with pytest.raises(ValueError, match="outside"):
+        da.decode_attn(q, k, v, 0)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("parts", [1, 3, 8, 16])
 def test_kernel_matches_plain_at_part_and_tile_edges(dtype, parts):

@@ -6,9 +6,12 @@
   steps jitted (remat off): within 2% (measured: equal).
 * A data-parallel world's FLOPs a rank are one device's over N.
 * Every family's smoke config, train and decode, on a fake 8-rank (2, 4)
-  world; stablelm-1.6b's ``decode_32k`` cell on the production mesh, and
-  as an error with the cache's sequence split (K2 refuses it, in the dry
-  run as on the card); the decode step's K2 stand-in; the int8
+  world; stablelm-1.6b's ``decode_32k`` cell on the production mesh with
+  the channelized cache (the default: K2's partial build on each rank's
+  slice, merged over ``model``), its FLOPs a chip within 1% of the
+  reference's ``run_cell`` (in a process of its own), and with the whole
+  cache on every ``model`` rank (``--no-kv-channels``); zamba2-2.7b's
+  ``long_500k`` on both meshes; the decode step's K2 stand-in; the int8
   collective proof; the CLI's records; the meter's mark on DTensor's
   propagation, taken away when the last meter closes.
 
@@ -16,7 +19,9 @@ A fake process group (every collective returns at once) stands in for
 the world, and the tensors are shards on the ``meta`` device.
 """
 
+import importlib.util
 import json
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -44,6 +49,7 @@ FLOPS_RTOL = 0.02
 B, S = 8, 64
 #: The fake worlds' smoke steps: DTensor's dispatch in Python costs per op.
 WORLD_S = 32
+ROOT = Path(__file__).resolve().parent.parent
 
 
 @pytest.fixture(autouse=True)
@@ -151,30 +157,74 @@ def test_smoke_cells_on_a_fake_8_rank_world(arch):
         assert set(res.collectives) == set(hloparse.COLLECTIVES) | {"total"}
 
 
+#: stablelm-1.6b's decode cache: 24 layers x K and V x (128, 32768, 32, 64)
+#: bf16, and its weights (1,644,267,520 parameters) in bf16.
+DECODE_CACHE = 24 * 2 * 128 * 32768 * 32 * 64 * 2
+DECODE_WEIGHTS = 2 * 1_644_267_520
+
+
+def _cell(tmp_path, arch, shape, *flags):
+    mesh = "2x32x8" if "--multi-pod" in flags else "32x8"
+    code = dryrun.main(["--arch", arch, "--shape", shape, "--out",
+                        str(tmp_path), *flags])
+    res = json.loads((tmp_path / f"{arch}__{shape}__{mesh}__baseline.json")
+                     .read_text())
+    return code, res
+
+
 def test_stablelm_decode_32k_on_the_production_mesh(tmp_path):
-    assert dryrun.main(["--arch", "stablelm-1.6b", "--shape", "decode_32k",
-                        "--out", str(tmp_path)]) == 0
-    res = json.loads((tmp_path / "stablelm-1.6b__decode_32k__32x8__baseline"
-                      ".json").read_text())
-    assert res["status"] == "ok" and res["chips"] == 256
-    assert res["flops_per_chip"] > 0 and res["collectives"]["total"] > 0
-    # The cache as K2 reads it: each rank holds 1/32 of the batch and the
-    # whole context: 24 layers x K and V x (4, 32768, 32, 64) bf16.
-    cache = 24 * 2 * 4 * 32768 * 32 * 64 * 2
+    """The channelized cache, the default: each rank holds 1/32 of the
+    batch and 1/8 of the context (3 GiB) beside the weights split over 8
+    (0.38 GiB); the embedding is looked up in place, so the collectives
+    are the small all-reduces of a step, not a table's gather."""
+    code, res = _cell(tmp_path, "stablelm-1.6b", "decode_32k")
+    assert code == 0 and res["status"] == "ok" and res["chips"] == 256
+    args = res["memory"]["argument_bytes"]
+    assert DECODE_CACHE / 256 < args <= 3.5 * 2**30
+    assert args < (DECODE_CACHE / 256 + DECODE_WEIGHTS / 8) * 1.01
+    assert 0 < res["collectives"]["total"] < 5e7
+
+
+def test_no_kv_channels_lays_the_whole_cache_on_every_model_rank(tmp_path):
+    """``--no-kv-channels`` (the reference's flag): each rank holds 1/32
+    of the batch and the whole context, and K2 reads all of it, 8x the
+    channelized cell's attention."""
+    code, res = _cell(tmp_path, "stablelm-1.6b", "decode_32k",
+                      "--no-kv-channels")
+    assert code == 0 and res["status"] == "ok"
+    cache = DECODE_CACHE / 32
     assert cache < res["memory"]["argument_bytes"] < cache * 1.2
+    _, channels = _cell(tmp_path, "stablelm-1.6b", "decode_32k")
+    # K2's work a chip: 4 B Hq L D FLOP a layer over 24 layers.
+    k2 = 4 * 4 * 32 * 32767 * 64 * 24
+    np.testing.assert_allclose(
+        res["flops_per_chip"] - channels["flops_per_chip"], k2 * 7 / 8,
+        rtol=1e-3)
 
 
-def test_a_sequence_split_cache_is_an_error_where_k2_refuses_it(tmp_path):
-    """``--kv-channels`` splits the cache's sequence over ``model``: K2
-    sees whole rows only, so the cell is recorded ``error``, naming the
-    roadmap, and the run exits 1 (no plain math stands in for it)."""
-    assert dryrun.main(["--arch", "stablelm-1.6b", "--shape", "decode_32k",
-                        "--kv-channels", "--out", str(tmp_path)]) == 1
-    res = json.loads((tmp_path / "stablelm-1.6b__decode_32k__32x8__baseline"
-                      ".json").read_text())
-    assert res["status"] == "error"
-    assert res["error"].startswith("ValueError: decode_attn:")
-    assert "ROADMAP.md" in res["error"]
+def test_decode_32k_flops_equal_the_references_run_cell():
+    """The port's channelized cell on (32, 8) against the reference's
+    ``repro.launch.dryrun.run_cell`` on its (16, 16), in a process of its
+    own (it fakes 512 host devices when imported): the FLOPs a chip do not
+    depend on the mesh's shape where nothing is replicated."""
+    spec = importlib.util.spec_from_file_location(
+        "dryrun_vs_reference", ROOT / "tools" / "dryrun_vs_reference.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    want = tool.reference_cell("stablelm-1.6b", "decode_32k", timeout=600)
+    got = dryrun.run_cell("stablelm-1.6b", "decode_32k")
+    assert got.status == want["status"] == "ok"
+    np.testing.assert_allclose(got.flops_per_chip, want["flops_per_chip"],
+                               rtol=0.01)
+
+
+@pytest.mark.parametrize("flags", [(), ("--multi-pod",)])
+def test_zamba2_long_500k_runs_with_whole_ssm_heads(tmp_path, flags):
+    """Batch 1 does not split over the data ranks; the Mamba2 decode state
+    keeps whole heads (80 do not split over 32 or 64 ranks)."""
+    code, res = _cell(tmp_path, "zamba2-2.7b", "long_500k", *flags)
+    assert code == 0 and res["status"] == "ok", res["error"]
+    assert res["flops_per_chip"] > 0
 
 
 def test_meta_decode_charges_k2_where_the_cpu_runs_the_plain_math(

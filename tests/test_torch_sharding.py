@@ -15,9 +15,12 @@ dispatch) against the reference, on the CPU.
   and plain tensors count as replicated through nested blocks.
 * A real 4-rank gloo world (spawned once, ``torch_mesh_worker``): the
   smoke models' loss and gradients under ``train_rules`` against the
-  one-process port and the reference; a served prompt under
-  ``decode_rules`` with a channelized cache against the one-process serve;
-  the kernels' DTensor dispatch.
+  one-process port and the reference (the embedding lookup and the loss
+  head vocab-parallel: no redistribution makes either table whole); a
+  served prompt under ``decode_rules`` with a channelized cache against
+  the one-process serve; the kernels' DTensor dispatch, a cache whose
+  sequence is split over ``model`` through each rank's partials and
+  their merge (one rank's slice empty at length 5).
 """
 
 import subprocess
@@ -359,9 +362,18 @@ def test_serve_on_4_ranks_with_channelized_cache_equals_one_process(world):
         np.testing.assert_array_equal(g.argmax(-1), w.argmax(-1))
 
 
-def _decode_want(kw):
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_vocab_parallel_lookup_and_loss_gather_no_whole_table(world, arch):
+    """The loss and gradients above come from the vocab-parallel lookup
+    and cross-entropy: no redistribution, forward or backward, made the
+    embedding table or the head whole on a rank."""
+    assert world["got"][arch]["whole_tables"] == []
+
+
+def _decode_want(kw, length=None):
     q, k, v = (torch.from_numpy(kw[n]) for n in ("q", "k", "v"))
-    return ref.decode_attn_ref(q, k, v, kw["length"]).numpy()
+    return ref.decode_attn_ref(
+        q, k, v, kw["length"] if length is None else length).numpy()
 
 
 def test_kernel_runs_on_local_shards_of_batch_and_heads(world):
@@ -371,9 +383,26 @@ def test_kernel_runs_on_local_shards_of_batch_and_heads(world):
                                rtol=1e-6, atol=1e-6)
 
 
-def test_kernel_refuses_a_sequence_sharded_cache(world):
-    msg = world["got"]["kernels"]["seq_sharded"]
-    assert "sees whole rows" in msg and "ROADMAP.md" in msg, msg
+@pytest.mark.parametrize("length", [11, 5])
+def test_kernel_merges_partials_of_a_sequence_sharded_cache(world, length):
+    """A cache of 16 keys split over model (8 a rank): each rank runs the
+    partials of its own valid keys (rank 1's slice empty at length 5) and
+    the merge over model equals the plain version over the whole cache,
+    replicated over model."""
+    got, placements, calls = world["got"]["kernels"]["seq_partials"][length]
+    assert placements == "(Shard(dim=0), Replicate())"
+    # Ranks (data, model) in row-major order: model coordinate r % 2.
+    local = [min(max(length - 8 * (r % 2), 0), 8) for r in range(4)]
+    assert calls == [[n] for n in local]
+    np.testing.assert_allclose(got, _decode_want(world["kernels"], length),
+                               rtol=1e-5, atol=1e-6)
+
+
+def test_per_shard_seq_role_merges_each_ranks_partials(world):
+    got, calls = world["got"]["kernels"]["seq_per_shard"]
+    assert calls == [[5], [0], [5], [0]]
+    np.testing.assert_allclose(got, _decode_want(world["kernels"], 5),
+                               rtol=1e-5, atol=1e-6)
 
 
 def test_plain_decode_runs_channelized_on_a_sequence_sharded_cache(world):

@@ -109,9 +109,11 @@ def model_job(rank, payload):
 
     mesh = _host_mesh()
     out = {}
+    whole = _watch_whole_gathers()
     for arch, case in payload["train"].items():
         cfg = smoke_variant(get_config(arch))
         model = Model(cfg, device="cpu")
+        whole(cfg)      # forget what earlier gathers of results made whole
         params = shd.distribute(_tensors(case["params"]),
                                 shd.param_shardings(model, mesh,
                                                     shd.train_rules(mesh, cfg)))
@@ -122,8 +124,9 @@ def model_job(rank, payload):
         with context.activation_rules(mesh, {"batch": shd.fsdp_axes(mesh)}):
             loss, _ = model.loss(params, batch)
             grads = _grads(loss, params)
+        tables = whole(cfg)     # before the gradients are gathered here
         out[arch] = dict(loss=float(_full(loss)),
-                         grads=L.map_tree(_full, grads))
+                         grads=L.map_tree(_full, grads), whole_tables=tables)
     serve = payload["serve"]
     cfg = smoke_variant(get_config(serve["arch"]))
     model = Model(cfg, device="cpu")
@@ -153,6 +156,36 @@ def model_job(rank, payload):
     return out
 
 
+def _every_rank(x):
+    """``x`` of every rank, in rank order."""
+    got = [None] * dist.get_world_size()
+    dist.all_gather_object(got, list(x))
+    return got
+
+
+def _watch_whole_gathers():
+    """Record every redistribution (forward or backward) whose target is
+    whole on every rank; ``seen(cfg)`` returns, and forgets, those of an
+    embedding table's or a loss head's global shape."""
+    from torch.distributed.tensor import _redistribute
+
+    targets = []
+    inner = _redistribute.redistribute_local_tensor
+
+    def watched(local, current, target, *args, **kwargs):
+        if all(p.is_replicate() for p in target.placements):
+            targets.append(tuple(target.shape))
+        return inner(local, current, target, *args, **kwargs)
+    _redistribute.redistribute_local_tensor = watched
+
+    def seen(cfg):
+        tables = {(cfg.vocab, cfg.d_model), (cfg.d_model, cfg.vocab)}
+        found = [t for t in targets if t in tables]
+        targets.clear()
+        return found
+    return seen
+
+
 def kernel_job(rank, payload):
     """The hand kernels' DTensor dispatch (``ops._per_shard``) with their
     plain versions standing in for the kernels, and the plain paths'
@@ -176,21 +209,41 @@ def kernel_job(rank, payload):
                                            "head": 2})},
         ({"batch": 0, "head": 1},), "decode_attn")
     out["per_shard"] = (_full(got), str(got.placements))
-    # The cache's sequence over model: the kernel refuses it.
+    # The cache's sequence over model (8 keys a rank): each rank's partials
+    # of its own keys, merged over model.  At length 5 rank 1's slice lies
+    # wholly past the valid prefix.
+    calls = []
+    partials_ref = ref.decode_attn_partials_ref
+    ref.decode_attn_partials_ref = lambda *a: calls.append(a[3]) or \
+        partials_ref(*a)
     try:
-        ops._per_shard(
-            lambda q, k, v: ref.decode_attn_ref(q, k, v, length), "k",
+        seq = {}
+        for n in (length, 5):
+            calls.clear()
+            got = ops.decode_attn(dt(q, Shard(0), Replicate()),
+                                  dt(k, Shard(0), Shard(1)),
+                                  dt(v, Shard(0), Shard(1)), n)
+            seq[n] = (_full(got), str(got.placements), _every_rank(calls))
+        out["seq_partials"] = seq
+        # The same cache through _per_shard's "seq" role directly, with a
+        # rank's partials and merge spelled out.
+        cache = {"batch": 0, "seq": 1, "head": 2}
+        calls.clear()
+        got = ops._per_shard(
+            None, "k",
             {"q": (dt(q, Shard(0), Replicate()), {"batch": 0, "head": 1}),
-             "k": (dt(k, Shard(0), Shard(1)), {"batch": 0, "whole": 1,
-                                               "head": 2}),
-             "v": (dt(v, Shard(0), Shard(1)), {"batch": 0, "whole": 1,
-                                               "head": 2})},
-            ({"batch": 0, "head": 1},), "decode_attn")
-        out["seq_sharded"] = "no error"
-    except ValueError as e:
-        out["seq_sharded"] = str(e)
-    # On CPU DTensors ops.decode_attn takes the plain version through
-    # DTensor's propagation: a sequence-sharded cache's channelized math.
+             "k": (dt(k, Shard(0), Shard(1)), cache),
+             "v": (dt(v, Shard(0), Shard(1)), cache)},
+            ({"batch": 0, "head": 1},), "decode_attn",
+            partials=lambda offset, reduce, q, k, v: ops.merge_partials(
+                *ref.decode_attn_partials_ref(
+                    q, k, v, min(max(5 - offset, 0), k.shape[1])), q.dtype,
+                lambda x: reduce(x, "max"), lambda x: reduce(x, "sum")))
+        out["seq_per_shard"] = (_full(got), _every_rank(calls))
+    finally:
+        ref.decode_attn_partials_ref = partials_ref
+    # The plain decode on CPU DTensors whose cache is split over model:
+    # the same partial route.
     got = ops.decode_attn(dt(q, Shard(0), Replicate()),
                           dt(k, Shard(0), Shard(1)),
                           dt(v, Shard(0), Shard(1)), length)

@@ -1,0 +1,152 @@
+"""The port's dry-run cells beside the reference's, on the CPU.
+
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tools/dryrun_vs_reference.py \
+        [--cells stablelm-1.6b:decode_32k,...] [--multi-pod] \
+        [--port-only] [--json OUT]
+
+For each family's ``train_4k`` and ``decode_32k`` cell (``CELLS``: one
+architecture a family, mistral-large-123b's decode beside them, and
+zamba2-2.7b's ``long_500k``), runs the reference's
+``repro.launch.dryrun.run_cell`` in a process of its own (that module fakes
+512 host devices when it is imported, and ``run_cell`` returns its result
+without writing it anywhere) and the port's ``python -m
+repro_torch.launch.dryrun`` in another, and prints FLOP, collective bytes
+and argument GiB a chip of each, with the port's over the reference's
+(the JSON also keeps the reference's collective bytes with each
+collective counted once, not scaled by its loop's trip count).
+The reference's mesh is its own (16, 16), or (2, 16, 16) with
+``--multi-pod``; the port's (32, 8) or (2, 32, 8).
+
+``--port-only`` runs the port's cells alone (where JAX is not installed:
+the card's machine, whose torch resolves DTensor's layouts its own way).
+The last line is a JSON object of every cell; ``--json`` writes it to a
+file too.  This script imports neither package itself.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+
+CELLS = (("stablelm-1.6b", "train_4k"), ("stablelm-1.6b", "decode_32k"),
+         ("mistral-large-123b", "decode_32k"),
+         ("olmoe-1b-7b", "train_4k"), ("olmoe-1b-7b", "decode_32k"),
+         ("rwkv6-1.6b", "train_4k"), ("rwkv6-1.6b", "decode_32k"),
+         ("zamba2-2.7b", "train_4k"), ("zamba2-2.7b", "decode_32k"),
+         ("zamba2-2.7b", "long_500k"),
+         ("qwen2-vl-72b", "train_4k"), ("qwen2-vl-72b", "decode_32k"),
+         ("hubert-xlarge", "train_4k"))
+
+#: What each side reports, by the result's keys.
+FIELDS = ("flops_per_chip", "collective_bytes", "argument_gib")
+
+_REFERENCE = """
+import dataclasses, json, sys
+from repro.launch import dryrun
+res = dryrun.run_cell(sys.argv[1], sys.argv[2], multi_pod=sys.argv[3] == "1")
+print(json.dumps(dataclasses.asdict(res)))
+"""
+
+
+def _env() -> dict:
+    return {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+            "JAX_PLATFORMS": "cpu"}
+
+
+def _summary(res: dict) -> dict:
+    """A cell's status and the three numbers a chip."""
+    out = {"status": res["status"], "seconds": res.get("seconds", 0.0)}
+    if res["status"] == "ok":
+        out.update(flops_per_chip=res["flops_per_chip"],
+                   collective_bytes=res["collectives"]["total"],
+                   argument_gib=res["memory"]["argument_bytes"] / 2**30)
+        unscaled = res["collectives"].get("unscaled")
+        if unscaled:
+            # The reference's collectives each counted once, not scaled
+            # by the trip counts of the loops they sit in.
+            out["collective_bytes_unscaled"] = unscaled["total"]
+    elif res.get("error"):
+        out["error"] = res["error"].splitlines()[0][:200]
+    return out
+
+
+def reference_cell(arch: str, shape: str, multi_pod: bool = False,
+                   timeout: float = 3600) -> dict:
+    """The reference's ``run_cell`` in a process of its own."""
+    run = subprocess.run(
+        [sys.executable, "-c", _REFERENCE, arch, shape,
+         "1" if multi_pod else "0"], capture_output=True, text=True,
+        env=_env(), cwd=ROOT, timeout=timeout)
+    if run.returncode:
+        raise RuntimeError(f"reference {arch} {shape}: exit "
+                           f"{run.returncode}\n{run.stderr[-2000:]}")
+    return _summary(json.loads(run.stdout.strip().splitlines()[-1]))
+
+
+def port_cell(arch: str, shape: str, multi_pod: bool = False,
+              timeout: float = 3600) -> dict:
+    """The port's dry-run CLI for one cell in a process of its own."""
+    with tempfile.TemporaryDirectory() as out:
+        argv = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                arch, "--shape", shape, "--out", out]
+        run = subprocess.run(argv + (["--multi-pod"] if multi_pod else []),
+                             capture_output=True, text=True, env=_env(),
+                             cwd=ROOT, timeout=timeout)
+        found = list(Path(out).glob("*.json"))
+        if not found:
+            raise RuntimeError(f"port {arch} {shape}: exit "
+                               f"{run.returncode}\n{run.stderr[-2000:]}")
+        return _summary(json.loads(found[0].read_text()))
+
+
+def _fmt(cell: dict, key: str) -> str:
+    return f"{cell[key]:.4g}" if key in cell else cell["status"]
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--cells", default=None,
+                    help="arch:shape,... (default: CELLS)")
+    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--port-only", action="store_true")
+    ap.add_argument("--json", default=None)
+    args = ap.parse_args(argv)
+    cells = CELLS if args.cells is None else tuple(
+        tuple(c.split(":")) for c in args.cells.split(","))
+    rows = []
+    for arch, shape in cells:
+        row = {"arch": arch, "shape": shape,
+               "port": port_cell(arch, shape, args.multi_pod)}
+        if not args.port_only:
+            row["reference"] = reference_cell(arch, shape, args.multi_pod)
+        port, ref = row["port"], row.get("reference", {})
+        text = [f"{arch:20s} {shape:11s}"]
+        for key in FIELDS:
+            line = f"{key} {_fmt(port, key)}"
+            if key in port and key in ref:
+                row[f"{key}_ratio"] = port[key] / ref[key] if ref[key] else None
+                line += (f" / ref {_fmt(ref, key)} = "
+                         f"{row[f'{key}_ratio']:.3f}" if ref[key] else
+                         f" / ref {_fmt(ref, key)}")
+            elif ref:
+                line += f" / ref {_fmt(ref, key)}"
+            text.append(line)
+        print("  ".join(text), flush=True)
+        rows.append(row)
+    out = {"multi_pod": args.multi_pod, "cells": rows}
+    if args.json:
+        Path(args.json).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.json).write_text(json.dumps(out, indent=1))
+    print(json.dumps(out))
+    return 1 if any(r["port"]["status"] == "error" for r in rows) else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
