@@ -169,18 +169,32 @@ Phases; any failure exits non-zero and no phase swallows one:
      exactly 768 decode_attn launches (K2 on each rank's local shards),
      greedy tokens equal to the same serve on ordinary tensors and logits
      within the bf16 gate; ``int8_all_reduce`` on that world equal to its
-     own quantize round trip; the channelized decode (``channel_serve``):
-     two gloo ranks, each a process on the one card, a (1, 2) mesh,
-     stablelm-1.6b at full width with its cache's sequence over ``model``,
-     the ordinary serve's tokens fed through ``make_prefill`` and
-     ``make_serve_step``: exactly 192 decode_attn_partials launches on
-     rank 0 (8 steps x 24 layers, each rank's slice merged by two
-     all-reduces) and none of decode_attn, logits within the bf16 gate of
-     the ordinary serve's; two dry-run cells (stablelm-1.6b decode_32k,
-     channelized, and train_4k on the fake 256-rank (32, 8) world), each
-     in a process of its own, their FLOPs, collective bytes and argument
-     GiB a chip printed.  Alone: ``python3 -c "import chip_smoke;
-     chip_smoke.mesh_phase()"``.
+     own quantize round trip; then, beside the dry-run cells below, four
+     two-rank serves (``world_serves``, ``WORLD_SERVES``), two at a time
+     (``WORLD_WAVES``), each two gloo ranks, each rank a process on the
+     one card, at full layer width (batch 8, prompt 256,
+     8 steps), the ordinary serve's tokens fed through ``make_prefill``
+     and ``make_serve_step``, logits within the path gate of the ordinary
+     serve's and rank 0's K2 launches exact: stablelm-1.6b bf16 on (1, 2)
+     with its cache's sequence over ``model`` (the channelized decode:
+     192 decode_attn_partials launches, 8 steps x 24 layers, each rank's
+     slice merged by two all-reduces, and none of decode_attn);
+     olmoe-1b-7b float32 at 8 of 16 layers on (2, 1), each rank routing
+     its own tokens with the other's counts as offsets and computing its
+     half of the expert buffers' capacity (64 decode_attn launches; the
+     gate on the batch rows whose routing decisions agree with the
+     ordinary serve's, and moe_overflow equal to its where all do);
+     zamba2-2.7b float32 at 18 of 54 layers on (1, 2) with the SSM heads
+     over ``model`` (24 decode_attn_partials launches, 8 x 3 shared
+     blocks); starcoder2-3b bf16 on (1, 2), 12 query heads a rank and K2
+     against its group's KV head, G 12 (240 decode_attn launches, 8 x 30
+     layers); and five dry-run cells on the fake 256-rank (32, 8) world
+     (stablelm-1.6b decode_32k, channelized, and train_4k, olmoe-1b-7b
+     and rwkv6-1.6b train_4k, zamba2-2.7b decode_32k), each in a process
+     of its own, their FLOPs, collective bytes and argument GiB a chip
+     printed.  Alone: ``python3 -c "import chip_smoke;
+     chip_smoke.mesh_phase()"``; one serve:
+     ``chip_smoke.world_serve("olmoe")``.
 
 The card's nvidia-smi line is printed again just before the JSON object
 ``{"kernels": [...]}``, the line before the last; the last line is
@@ -3053,11 +3067,59 @@ def mesh_serve(cfg, kernels, device="cuda", backend="nccl", batch=BATCH,
         del store
 
 
-# The channelized decode on the card: a gloo world of this many ranks,
-# each a process on the one card, the cache's sequence over its model axis;
-# a shorter prompt and fewer steps than phase 3's serve (DTensor's host
-# cost: ~2 s a step on two ranks of one H100 80GB HBM3 at 700 W).
+# The two-rank serves on the card: gloo worlds of this many ranks, each
+# rank a process on the one card; a shorter prompt and fewer steps than
+# phase 3's serve (DTensor's host cost: ~2 s a step on two ranks of one
+# H100 80GB HBM3 at 700 W).
 CHANNEL_RANKS, CHANNEL_PROMPT, CHANNEL_GEN = 2, 256, 8
+STARCODER_ARCH = "starcoder2-3b"
+#: Phase 11's two-rank serves, by name: (arch, (data, model) mesh, the
+#: cache's sequence over model (the channelized cache) or its heads whole,
+#: the K2 build each decode step launches, layers served, None for all,
+#: dtype).  The serves run two at a time (``WORLD_WAVES``), their four
+#: ranks sharing the card, and olmoe at 8 of its 16 layers (float32, ~14
+#: GB a rank) and zamba2 at 18 of its 54 (3 of its 9 shared-block
+#: groups), so that each pair fits and the phase stays within the
+#: script's time (the host's clock ran 1.4x slower in one call than in
+#: another, and all four at once ran out of card memory: read on the
+#: card).  olmoe and zamba2 serve in float32, as phase 4 checks them
+#: (``PATH_CHECK``): in bf16 the two layouts' products round a bf16 step
+#: apart, and
+#:  * among olmoe's 64 experts gates a step apart are common, so every
+#:    batch row of a 256-token prompt had some routing decision that the
+#:    layouts took differently (read on the card), and a flipped expert
+#:    moves the logits more than a faulty layout would;
+#:  * zamba2's 54 Mamba layers carry and re-round such a step: its
+#:    logits moved by 4.1, argmax equal in none of 9 steps (read on the
+#:    card), where float32 holds them within 1e-2.
+#:  * stablelm: the channelized decode: each rank K2's partial
+#:    build over its half of every layer's keys, merged by all-reduces;
+#:  * olmoe: the batch over data, each rank routing its own tokens with
+#:    the other rank's counts as offsets, its half of the expert buffer's
+#:    capacity, and K2 on its own batch rows;
+#:  * zamba2: the SSM heads over model (a Mamba layer's gated norm summed
+#:    over the ranks), the shared block's cache channelized;
+#:  * starcoder2: its 24 query heads over model, 12 a rank, each rank's
+#:    K2 against its group's KV head (G 12), the cache's heads whole.
+WORLD_SERVES = {
+    "stablelm": (DENSE_ARCH, (1, 2), True, "decode_attn_partials", None,
+                 torch.bfloat16),
+    "olmoe": (MOE_ARCH, (2, 1), True, "decode_attn", 8, torch.float32),
+    "zamba2": (HYBRID_ARCH, (1, 2), True, "decode_attn_partials", 18,
+               torch.float32),
+    "starcoder2": (STARCODER_ARCH, (1, 2), False, "decode_attn", None,
+                   torch.bfloat16),
+}
+#: The serves that share the card at once (the largest with the
+#: smallest).
+WORLD_WAVES = (("olmoe", "starcoder2"), ("stablelm", "zamba2"))
+#: The MoE serve's routing against the one-process serve's: in float32
+#: the two layouts' router products round apart, so a gate within a step
+#: of its neighbour may pick another expert (3 of 33,792, 4 and 5 of
+#: 16,896 (token, layer) decisions in three card runs: at most 3.0e-4 of
+#: them).  More than this share of differing decisions fails; so does a
+#: data rank none of whose batch rows route as the one-process serve's.
+ROUTE_FLIP_MAX = 1e-3
 
 
 def _blocking_all_gather(self, gather_dim, group, tag=""):
@@ -3065,7 +3127,7 @@ def _blocking_all_gather(self, gather_dim, group, tag=""):
     blocking ``dist.all_gather_into_tensor``: the same values.  On torch
     2.11 gloo's functional all-gather of CUDA tensors crashes (a
     segmentation fault in ``wait_tensor``; its all-reduces and the blocking
-    all-gather run), so the channelized serve's world issues it so."""
+    all-gather run), so the two-rank serves' worlds issue it so."""
     import torch.distributed as dist
     if isinstance(group, tuple):
         pg = group[0].get_group(group[1])
@@ -3096,11 +3158,57 @@ def blocking_all_gathers():
             setattr(funcol, n, fn)
 
 
-def _channel_serve(rank, world):
-    """One rank of :func:`channel_serve`: the ordinary serve's greedy
-    tokens, then the same prompt and tokens through DTensor with the
-    channelized cache; returns rank 0's record."""
-    from torch.distributed.tensor import DTensor, distribute_tensor
+@contextlib.contextmanager
+def moe_record(moe, log):
+    """Inside the block every MoE layer appends (its routed top-k experts,
+    its ``moe_overflow``) to ``log``; a no-op for ``moe`` None."""
+    if moe is None:
+        yield
+        return
+    apply, route = moe.moe_apply, moe.route
+    picks = []
+
+    def routed(*args):
+        out = route(*args)
+        picks.append(out[3].cpu())
+        return out
+
+    def applied(cfg, p, x, return_aux=False):
+        y, aux = apply(cfg, p, x, return_aux=True)
+        over = aux["moe_overflow"]
+        over = over.to_local() if hasattr(over, "to_local") else over
+        log.append((picks.pop(), float(over)))
+        return (y, aux) if return_aux else y
+    moe.moe_apply, moe.route = applied, routed
+    try:
+        yield
+    finally:
+        moe.moe_apply, moe.route = apply, route
+
+
+def own_shard(t, sharding):
+    """This rank's shard of ``t`` laid out by ``sharding``, as a DTensor,
+    with no collective (every rank made the same ``t``) and no copy where
+    the shard is contiguous (``distribute_tensor`` clones every shard,
+    which a float32 olmoe-1b-7b on two ranks of one card has no room
+    for)."""
+    from torch.distributed.tensor import DTensor
+    mesh, placements = sharding.mesh, sharding.placements
+    coord, local = mesh.get_coordinate(), t
+    for i, p in enumerate(placements):
+        if p.is_shard():
+            local = local.chunk(mesh.size(i), p.dim)[coord[i]]
+    return DTensor.from_local(local.contiguous(), mesh, placements,
+                              run_check=False, shape=t.shape,
+                              stride=t.stride())
+
+
+def _world_serve(rank, world, name):
+    """One rank of :func:`world_serve`: the ordinary serve's greedy tokens,
+    then the same prompt and tokens through DTensor on the world's mesh;
+    returns this rank's record."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
 
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import SyntheticDataset
@@ -3110,15 +3218,20 @@ def _channel_serve(rank, world):
     from repro_torch.kernels import decode_attn as da
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import layers as L
+    from repro_torch.models import moe
     from repro_torch.models.model import Model
 
-    cfg = get_config(DENSE_ARCH)
-    mesh = make_host_mesh(world, device_type="cuda")
+    arch, (_, model_ranks), channels, _, n_layers, dtype = WORLD_SERVES[name]
+    cfg = dataclasses.replace(get_config(arch),
+                              dtype=str(dtype).removeprefix("torch."))
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    moe = moe if cfg.family == "moe" else None
+    mesh = make_host_mesh(model_ranks, device_type="cuda")
     # Every rank makes the same weights from the seed, so each takes its
     # own shard of them with no scatter.
     local = lambda tree, sh: L.map_tree(
-        lambda t, h: t if h is None else distribute_tensor(
-            t, h.mesh, h.placements, src_data_rank=None), tree, sh)
+        lambda t, h: t if h is None else own_shard(t, h), tree, sh)
     full = lambda x: x.full_tensor() if isinstance(x, DTensor) else x
     with torch.inference_mode(), blocking_all_gathers():
         model = Model(cfg, device="cuda")
@@ -3127,20 +3240,26 @@ def _channel_serve(rank, world):
                   SyntheticDataset(cfg, BATCH, CHANNEL_PROMPT, seed=SEED + 1)
                   .batch_at(0).items() if k not in ("targets", "loss_mask")}
         s_max = CHANNEL_PROMPT + CHANNEL_GEN
-        want, toks = _serve_loop(model, make_serve_step(model),
-                                 make_prefill(model), params, prompt,
-                                 model.make_cache(BATCH, s_max), CHANNEL_GEN,
-                                 cfg)
+        one = []
+        with moe_record(moe, one):
+            want, toks = _serve_loop(model, make_serve_step(model),
+                                     make_prefill(model), params, prompt,
+                                     model.make_cache(BATCH, s_max),
+                                     CHANNEL_GEN, cfg)
         p = local(params, shd.param_shardings(model, mesh,
                                               shd.decode_rules(mesh, cfg)))
+        del params
         cache = model.make_cache(BATCH, s_max)
-        c = local(cache, shd.cache_shardings(cfg, mesh, cache))
+        c = local(cache, shd.cache_shardings(cfg, mesh, cache,
+                                             kv_channels=channels))
+        del cache
         rules = {"batch": shd.fsdp_axes(mesh), "kv_select_update": True,
                  "kv_partials": True, "kv_seq": "model"}
+        mine = []
         da.KERNEL.launches = da.PARTIALS.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with context.activation_rules(mesh, rules):
+        with context.activation_rules(mesh, rules), moe_record(moe, mine):
             lg, c = make_prefill(model)(
                 p, local(prompt, shd.batch_shardings(mesh, prompt)), c)
             got = [full(lg)]
@@ -3152,16 +3271,47 @@ def _channel_serve(rank, world):
                 got.append(full(lg))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        worst = max((a.float() - b.float()).abs().max().item()
-                    for a, b in zip(got, want))
-        agree = sum(torch.equal(a.argmax(-1), b.argmax(-1))
-                    for a, b in zip(got, want))
-        return dict(partials=da.PARTIALS.launches, k2=da.KERNEL.launches,
-                    worst=worst, agree=agree, steps=len(got), wall=wall,
-                    cache=str(c["k"].placements), mesh=str(mesh))
+        rec = dict(decode_attn=da.KERNEL.launches,
+                   decode_attn_partials=da.PARTIALS.launches, wall=wall,
+                   cache=str(c["k"].placements), mesh=str(mesh),
+                   layers=cfg.n_layers)
+        rows = list(range(BATCH))
+        if moe is not None:
+            # Each rank routed its own batch rows: their tokens' decisions
+            # against the same tokens of the one-process serve's, a count a
+            # MoE layer call, every rank's gathered.  The logits gate holds
+            # on the rows whose routes all agree (a flipped expert moves a
+            # row's logits more than the gate).
+            lo = dist.get_rank() * (BATCH // world)
+            bad, diffs = set(), []
+            for (one_top, _), (top, _) in zip(one, mine):
+                per_row = one_top.shape[0] // BATCH
+                ref_top = one_top[lo * per_row:lo * per_row + top.shape[0]]
+                diff = (ref_top != top).any(-1)
+                diffs.append(int(diff.sum()))
+                bad.update((lo + diff.nonzero()[:, 0] // per_row).tolist())
+            every = [None] * world
+            dist.all_gather_object(every, (sorted(bad), diffs))
+            bad = set().union(*(set(b) for b, _ in every))
+            rows = [r for r in rows if r not in bad]
+            rec.update(layer_diff=[sum(d) for d in zip(*(e[1]
+                                                         for e in every))],
+                       layer_tokens=[t.shape[0] for t, _ in one],
+                       bad_rows=sorted(bad),
+                       overflow=[o for _, o in mine],
+                       overflow_one=[o for _, o in one])
+        rec["rows"] = rows
+        rec["worst"] = max(((a.float() - b.float())[rows].abs().max().item()
+                            for a, b in zip(got, want)), default=0.0) \
+            if rows else float("nan")
+        rec["agree"] = sum(torch.equal(a[rows].argmax(-1), b[rows].argmax(-1))
+                           for a, b in zip(got, want))
+        rec["steps"] = len(got)
+        rec["finite"] = all(bool(torch.isfinite(a).all()) for a in got)
+        return rec
 
 
-def _channel_entry(rank, world, port, out):
+def _world_entry(rank, world, port, out, name):
     import datetime
 
     import torch.distributed as dist
@@ -3172,7 +3322,7 @@ def _channel_entry(rank, world, port, out):
                             world_size=world,
                             timeout=datetime.timedelta(seconds=600))
     try:
-        res = _channel_serve(rank, world)
+        res = _world_serve(rank, world, name)
         dist.barrier()
         if rank == 0:
             Path(out).write_text(json.dumps(res))
@@ -3180,92 +3330,217 @@ def _channel_entry(rank, world, port, out):
         dist.destroy_process_group()
 
 
-def channel_serve(ranks=CHANNEL_RANKS, tol=PATH_CHECK[DENSE_ARCH][1]):
-    """The channelized decode on the card: ``ranks`` processes on the one
-    card joined by gloo, a (1, ``ranks``) mesh, stablelm-1.6b at full
-    width in bf16 (batch 8, a ``CHANNEL_PROMPT``-token prompt,
-    ``CHANNEL_GEN`` steps) with its parameters by ``decode_rules`` and its
-    cache by
-    ``cache_shardings`` (the sequence over ``model``: each rank holds
-    1/``ranks`` of every layer's keys), the reference's decode activation
-    rules.  The prompt and the ordinary serve's greedy tokens go through
-    ``make_prefill`` and ``make_serve_step``: each decode step's attention
-    runs K2's partial build on each rank's slice and merges the ranks'
-    terms by two all-reduces.  Rank 0's partial launches must be exactly
-    steps x layers (and no ordinary K2 launch), its logits within the
-    bf16 path gate of the ordinary serve's.  Returns those launches."""
+def world_serve(name):
+    """The two-rank serve ``name`` of :data:`WORLD_SERVES` alone:
+    :func:`world_serves` of it."""
+    return world_serves((name,))[name]
+
+
+def _start_world(name, tmp):
+    """Spawn the ranks of the two-rank serve ``name`` (rank 0 writes its
+    record under ``tmp``); returns what :func:`_finish_world` needs."""
     import datetime
     import multiprocessing
-    import tempfile
 
     import torch.distributed as dist
     store = dist.TCPStore("127.0.0.1", 0, is_master=True,
                           wait_for_workers=False,
                           timeout=datetime.timedelta(seconds=600))
+    out = Path(tmp) / f"{name}.json"
     ctx = multiprocessing.get_context("spawn")
-    with tempfile.TemporaryDirectory() as tmp:
-        out = Path(tmp) / "rank0.json"
-        procs = [ctx.Process(target=_channel_entry,
-                             args=(r, ranks, store.port, str(out)))
-                 for r in range(ranks)]
-        t0 = time.perf_counter()
-        for proc in procs:
-            proc.start()
-        try:
-            for proc in procs:
-                proc.join(900)
-        finally:
-            for proc in procs:
-                if proc.is_alive():
-                    proc.kill()
-                    proc.join(10)
-        codes = [proc.exitcode for proc in procs]
-        if codes != [0] * ranks or not out.exists():
-            fail(f"channelized serve: ranks exited {codes}")
-        res = json.loads(out.read_text())
-    from repro_torch.configs import get_config
-    want = CHANNEL_GEN * get_config(DENSE_ARCH).n_layers
-    log(f"channelized serve {DENSE_ARCH} bf16 on {ranks} gloo ranks of one "
-        f"card, mesh {res['mesh']}, cache {res['cache']}: "
-        f"{BATCH}x{CHANNEL_PROMPT} prompt and {CHANNEL_GEN} steps on the "
-        f"ordinary serve's "
-        f"tokens: rank 0 launched decode_attn_partials {res['partials']} "
-        f"times (expected {want}), decode_attn {res['k2']}; max|dlogit| "
-        f"{res['worst']:.4e} against the ordinary serve (tol {tol}), argmax "
-        f"equal in {res['agree']} of {res['steps']} steps; {res['wall']:.2f} s"
-        f" (host clock, prefill and steps), "
-        f"{time.perf_counter() - t0:.1f} s with the processes")
-    if res["partials"] != want or res["k2"] != 0:
-        fail(f"channelized serve: launches {res['partials']} partial, "
-             f"{res['k2']} ordinary; want {want} and 0")
-    if not res["worst"] <= tol:
-        fail(f"channelized serve: logits differ by {res['worst']} (tol {tol})")
-    return res["partials"]
+    procs = [ctx.Process(target=_world_entry,
+                         args=(r, CHANNEL_RANKS, store.port, str(out), name))
+             for r in range(CHANNEL_RANKS)]
+    for proc in procs:
+        proc.start()
+    return name, store, procs, out
 
 
-def mesh_dryrun_cell(shape="decode_32k"):
-    """One dry-run cell of stablelm-1.6b on the (32, 8) mesh of a fake
-    256-rank world, in its own process (the fake world never shares a
-    process with NCCL); decode cells lay the cache out channelized."""
-    out = HERE / "dryrun_out"
+def world_serves(names):
+    """The two-rank serves ``names`` of :data:`WORLD_SERVES` on the card,
+    all at once (their ranks share the card and the host; each world's
+    wall time is its own under that load): each ``CHANNEL_RANKS`` processes on
+    the one card joined by gloo, the named (data, model) mesh, the arch
+    at full layer width in its dtype (batch 8, a ``CHANNEL_PROMPT``-token
+    prompt, ``CHANNEL_GEN`` steps), parameters by ``decode_rules``, cache
+    by ``cache_shardings``, the reference's decode activation rules.  The
+    prompt and the ordinary serve's greedy tokens go through
+    ``make_prefill`` and ``make_serve_step``.  Rank 0's launches of the
+    named K2 build must be exactly steps x attention layers (and none of
+    the other), its logits finite and within the path gate of the
+    ordinary serve's (``PATH_CHECK``'s gate of the arch in its dtype,
+    else stablelm's bf16 gate).  The MoE's logits are held on the batch
+    rows whose routing decisions all agree with the ordinary serve's; at
+    most ``ROUTE_FLIP_MAX`` of its decisions may differ, every data rank
+    keeps a row, and each layer call's ``moe_overflow`` lies within what
+    its differing decisions can move (:func:`_check_world`).
+    Returns {name: ({kernel: rank 0's launches}, seconds with the
+    processes)}."""
+    import tempfile
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels import decode_attn as da
+    build.load_all([da.KERNEL.library])     # the ranks load what it built
+    # The ranks' models need the card: hand back what this process's
+    # allocator keeps cached.
+    torch.cuda.empty_cache()
+    log(f"two-rank serves {list(names)}: this process holds "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB of the card "
+        f"({torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved)")
     t0 = time.perf_counter()
-    run = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-         DENSE_ARCH, "--shape", shape, "--out", str(out)],
-        capture_output=True, text=True, timeout=600, cwd=HERE,
-        env={**__import__("os").environ, "PYTHONPATH": str(HERE / "src")})
-    res = json.loads((out / f"{DENSE_ARCH}__{shape}__32x8__baseline.json")
-                     .read_text())
-    if run.returncode != 0 or res["status"] != "ok":
-        fail(f"dry run: exit {run.returncode}, {res['status']}: "
-             f"{res['error']}\n{run.stderr[-2000:]}")
-    log(f"dry run {DENSE_ARCH} {shape} on the fake (32, 8) world: "
-        f"{res['flops_per_chip']:.4e} FLOP a chip, collectives "
-        f"{res['collectives']['total']:.4e} B a chip, argument bytes "
-        f"{res['memory']['argument_bytes'] / 2**30:.2f} GiB a chip, "
-        f"{res['seconds']:.1f} s in the cell, "
-        f"{time.perf_counter() - t0:.1f} s with the process")
-    return res
+    with tempfile.TemporaryDirectory() as tmp:
+        worlds = [_start_world(name, tmp) for name in names]
+        try:
+            for _, _, procs, _ in worlds:
+                for proc in procs:
+                    proc.join(900)
+        finally:
+            for _, _, procs, _ in worlds:
+                for proc in procs:
+                    if proc.is_alive():
+                        proc.kill()
+                        proc.join(10)
+        seconds = time.perf_counter() - t0
+        records = {}
+        for name, _, procs, out in worlds:
+            codes = [proc.exitcode for proc in procs]
+            if codes != [0] * CHANNEL_RANKS or not out.exists():
+                fail(f"{name} two-rank serve: ranks exited {codes}")
+            records[name] = json.loads(out.read_text())
+    log(f"two-rank serves {list(names)}: {seconds:.1f} s with their "
+        f"processes, all at once")
+    return {name: (_check_world(name, res), seconds)
+            for name, res in records.items()}
+
+
+def _check_world(name, res):
+    """:func:`world_serves`' checks of one serve's rank-0 record; returns
+    its launches."""
+    arch, mesh, _, kname, _, dtype = WORLD_SERVES[name]
+    tol = PATH_CHECK[arch if PATH_CHECK.get(arch, (None,))[0] == dtype
+                     else DENSE_ARCH][1]
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    attn = res["layers"] // cfg.attn_every if cfg.family == "hybrid" \
+        else res["layers"]
+    want = {"decode_attn": 0, "decode_attn_partials": 0}
+    want[kname] = CHANNEL_GEN * attn
+    got = {k: res[k] for k in want}
+    cut = "" if res["layers"] == cfg.n_layers else \
+        f" (depth cut to {res['layers']} of {cfg.n_layers} layers)"
+    log(f"{name} two-rank serve: {arch}{cut} {str(dtype)[6:]} on "
+        f"{CHANNEL_RANKS} "
+        f"gloo ranks of "
+        f"one card, mesh {res['mesh']}, cache {res['cache']}: "
+        f"{BATCH}x{CHANNEL_PROMPT} prompt and {CHANNEL_GEN} steps on the "
+        f"ordinary serve's tokens: rank 0 launched {got} (expected {want}); "
+        f"max|dlogit| {res['worst']:.4e} against the ordinary serve on "
+        f"{len(res['rows'])} of {BATCH} batch rows (tol {tol}), argmax "
+        f"equal in {res['agree']} of {res['steps']} steps; "
+        f"{res['wall']:.2f} s (host clock, prefill and steps)")
+    if got != want:
+        fail(f"{name} two-rank serve: launches {got}, want {want}")
+    if not res["finite"]:
+        fail(f"{name} two-rank serve: non-finite logits")
+    if "overflow" in res:
+        _check_routes(name, res, mesh[0])
+    if not res["worst"] <= tol:
+        fail(f"{name} two-rank serve: logits differ by {res['worst']} "
+             f"(tol {tol})")
+    return got
+
+
+def _check_routes(name, res, data_ranks):
+    """The MoE serve's routing against the one-process serve's.  A fault
+    of one rank's tokens either moves their routes in the layers after it
+    (more than ``ROUTE_FLIP_MAX`` of the decisions, or every row of that
+    data rank) or leaves their routes and moves their logits, which the
+    logits gate reads on the rows that route alike.  ``moe_overflow`` is
+    held in every layer call: a (token, slot) moved from expert a to b
+    changes the dropped slots by at most one (a's count above the capacity
+    falls by at most one, b's rises by at most one), so a token whose k
+    choices differ moves the dropped share of the t x k slots by at most
+    k / (t k) = 1 / t; the two layouts' means may round one float32 step
+    apart."""
+    n_diff, n_all = sum(res["layer_diff"]), sum(res["layer_tokens"])
+    if len(res["layer_diff"]) != len(res["layer_tokens"]) or \
+            len(res["overflow"]) != len(res["overflow_one"]):
+        fail(f"{name} two-rank serve: {len(res['overflow'])} MoE layer calls "
+             f"against the ordinary serve's {len(res['overflow_one'])}")
+    moved = [abs(a - b) for a, b in zip(res["overflow"], res["overflow_one"])]
+    worst = max(m - d / t for m, d, t in zip(moved, res["layer_diff"],
+                                             res["layer_tokens"]))
+    per_rank = BATCH // data_ranks
+    kept = sorted({r // per_rank for r in res["rows"]})
+    log(f"{name} two-rank serve: {n_diff} of {n_all} (token, layer) routing "
+        f"decisions differ from the ordinary serve's ({n_diff / n_all:.3e}, "
+        f"max {ROUTE_FLIP_MAX}), in batch rows {res['bad_rows']}; data ranks "
+        f"with rows held to its logits {kept} of {data_ranks}; moe_overflow "
+        f"of {len(moved)} layer calls within {max(moved):.3e} of the "
+        f"ordinary serve's (|difference| less its bound at most "
+        f"{worst:.3e})")
+    if n_diff > ROUTE_FLIP_MAX * n_all:
+        fail(f"{name} two-rank serve: {n_diff} of {n_all} routing decisions "
+             f"differ from the ordinary serve's (max {ROUTE_FLIP_MAX})")
+    if kept != list(range(data_ranks)):
+        fail(f"{name} two-rank serve: every batch row of data ranks "
+             f"{sorted(set(range(data_ranks)) - set(kept))} routes otherwise "
+             f"than the ordinary serve")
+    if worst > 1e-6:
+        fail(f"{name} two-rank serve: moe_overflow {res['overflow']} against "
+             f"{res['overflow_one']}, more than its differing decisions "
+             f"{res['layer_diff']} of {res['layer_tokens']} tokens allow")
+
+
+#: Phase 11's dry-run cells, each on the fake (32, 8) world in a process
+#: of its own, all at once.
+MESH_DRYRUN_CELLS = ((DENSE_ARCH, "decode_32k"), (DENSE_ARCH, "train_4k"),
+                     (MOE_ARCH, "train_4k"), (SSM_ARCH, "train_4k"),
+                     (HYBRID_ARCH, "decode_32k"))
+
+
+def start_dryrun_cells():
+    """Start dry-run cells (arch, shape) on the (32, 8) mesh of a fake
+    256-rank world, each in a process of its own (the fake world never
+    shares a process with NCCL; no card), all at once; decode cells lay
+    the cache out channelized.  :func:`finish_dryrun_cells` reads them."""
+    import os
+    out = HERE / "dryrun_out"
+    return time.perf_counter(), out, [(arch, shape, subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--out", str(out)], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, cwd=HERE,
+        env={**os.environ, "PYTHONPATH": str(HERE / "src")}))
+        for arch, shape in MESH_DRYRUN_CELLS]
+
+
+def finish_dryrun_cells(started):
+    """Wait for the cells :func:`start_dryrun_cells` started; each must
+    read ``ok``, and its FLOP, collective and argument line is printed."""
+    t0, out, runs = started
+    results = []
+    for arch, shape, run in runs:
+        try:
+            _, err = run.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            run.kill()
+            run.communicate()
+            fail(f"dry run {arch} {shape}: no result in 600 s")
+        path = out / f"{arch}__{shape}__32x8__baseline.json"
+        res = json.loads(path.read_text()) if path.exists() else {
+            "status": "missing", "error": ""}
+        if run.returncode != 0 or res["status"] != "ok":
+            fail(f"dry run {arch} {shape}: exit {run.returncode}, "
+                 f"{res['status']}: {res['error']}\n{err[-2000:]}")
+        log(f"dry run {arch} {shape} on the fake (32, 8) world: "
+            f"{res['flops_per_chip']:.4e} FLOP a chip, collectives "
+            f"{res['collectives']['total']:.4e} B a chip, argument bytes "
+            f"{res['memory']['argument_bytes'] / 2**30:.2f} GiB a chip, "
+            f"{res['seconds']:.1f} s in the cell")
+        results.append(res)
+    log(f"dry run: {len(runs)} cells in {time.perf_counter() - t0:.1f} s "
+        f"with their processes")
+    return results
 
 
 def partials_phase():
@@ -3302,10 +3577,12 @@ def mesh_phase():
     ``core/shardsim`` (``devices="auto"`` against ``None``); stablelm-1.6b
     served through DTensor on a one-rank NCCL world's (1, 1) mesh against
     the same serve on ordinary tensors, 768 K2 launches; int8_all_reduce
-    on that world; the channelized decode on two gloo ranks of the card
-    (:func:`channel_serve`, 192 partial launches); two dry-run cells, each
-    in a process of its own.  Returns the launches by kernel.  Alone: ``python3 -c "import chip_smoke;
-    chip_smoke.mesh_phase()"``."""
+    on that world; the two-rank serves of :data:`WORLD_SERVES` on gloo
+    ranks of the card (:func:`world_serves`), two at a time
+    (``WORLD_WAVES``), while the dry-run cells run, each in a process of its
+    own.  Returns the launches by kernel.  Alone:
+    ``python3 -c "import chip_smoke; chip_smoke.mesh_phase()"``; one
+    two-rank serve alone: ``chip_smoke.world_serve("olmoe")``."""
     if not torch.cuda.is_available():
         fail("torch sees no CUDA card; this script runs only on one")
     from repro_torch.configs import get_config
@@ -3318,9 +3595,14 @@ def mesh_phase():
     build.load_all([kern.library for kern in kernels.values()])
     launches = mesh_des_check(kernels)
     launches["decode_attn"] = mesh_serve(get_config(DENSE_ARCH), kernels)
-    launches["decode_attn_partials"] = channel_serve()
-    for shape in ("decode_32k", "train_4k"):
-        mesh_dryrun_cell(shape)
+    launches["decode_attn_partials"] = 0
+    # The dry-run cells (host only) and the two-rank serves run at once.
+    dry = start_dryrun_cells()
+    for wave in WORLD_WAVES:
+        for got, _ in world_serves(wave).values():
+            for kname, n in got.items():
+                launches[kname] += n
+    finish_dryrun_cells(dry)
     log(f"phase 11 took {time.perf_counter() - t_phase:.1f} s (host clock)")
     return launches
 

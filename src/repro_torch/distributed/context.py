@@ -42,9 +42,10 @@ from __future__ import annotations
 import contextlib
 import threading
 
-from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
-from repro_torch.distributed.layout import (axis_sizes, placements,
+from repro_torch.distributed.layout import (axis_sizes, local_part,
+                                            placements,
                                             replicate_plain_tensors)
 
 _STATE = threading.local()
@@ -124,6 +125,119 @@ def whole_heads(x, n_heads: int, dim: int = -1):
         return x
     return x.redistribute(mesh, [Replicate() if p.is_shard(dim) else p
                                  for p in x.placements])
+
+
+def grouped_heads(x, n_heads: int, n_kv_heads: int, dim: int = -1):
+    """``x`` (``n_heads`` query heads along ``dim``) laid out so that each
+    shard holds whole KV groups or lies inside one group: a mesh
+    dimension that splits it otherwise is gathered (replicated).  Unlike
+    :func:`whole_heads` over the KV heads, this keeps starcoder2-3b's 24
+    query heads (2 groups of 12) split 3 a rank over 8 ranks, as GSPMD
+    splits the reference's; each rank then attends with its group's KV
+    head alone."""
+    if not isinstance(x, DTensor):
+        return x
+    mesh, dim = x.device_mesh, dim % x.dim()
+    split = 1
+    for i, p in enumerate(x.placements):
+        if p.is_shard(dim):
+            split *= mesh.size(i)
+    group = n_heads // n_kv_heads
+    if n_heads % split == 0 and (n_kv_heads % split == 0 or
+                                 group % (n_heads // split) == 0):
+        return x
+    return whole_heads(x, n_kv_heads, dim)
+
+
+def _batch_dims(x) -> list:
+    """The mesh dimensions of the active rules' batch axes."""
+    state = active()
+    if state is None or not isinstance(x, DTensor):
+        return []
+    axes = state[1].get("batch") or ()
+    axes = (axes,) if isinstance(axes, str) else axes
+    return [x.device_mesh.mesh_dim_names.index(a) for a in axes]
+
+
+def batch_rows(x):
+    """A DTensor ``x`` laid out on the active rules' batch axes as the
+    batch rule says: its rows split where they divide, else whole (what
+    :func:`idle_features` split made whole again); a plain tensor as it
+    is."""
+    dims = _batch_dims(x)
+    if not dims:
+        return x
+    want = [Shard(0) if p.is_shard(0) else Replicate() if i in dims else p
+            for i, p in enumerate(x.placements)]
+    return x if tuple(want) == tuple(x.placements) else x.redistribute(
+        x.device_mesh, want)
+
+
+def idle_columns(w, x):
+    """A DTensor weight ``w`` (in, out) with its output columns split over
+    the active rules' batch axes on which the activations ``x`` are not
+    split by rows (batch 1) where they divide, as :func:`idle_features`
+    splits the features of ``x`` there: a product ``h @ w`` then writes
+    each rank's part of the features (a slice of ``w``, no collective)."""
+    dims = [i for i in _batch_dims(x) if not x.placements[i].is_shard(0)]
+    if not dims or not isinstance(w, DTensor):
+        return w
+    mesh, want, split = w.device_mesh, list(w.placements), 1
+    for i in dims:
+        if w.placements[i].is_replicate() and mesh.size(i) > 1 and \
+                w.shape[-1] % (split * mesh.size(i)) == 0:
+            want[i] = Shard(w.dim() - 1)
+            split *= mesh.size(i)
+    return w if split == 1 else w.redistribute(mesh, want)
+
+
+def idle_features(x):
+    """A DTensor ``x`` (B, S, D) with its features split over the mesh
+    dimensions of the active rules' batch axes that hold it whole (the
+    batch does not divide them: batch 1) where their size divides D; a
+    plain tensor, or one whose batch they split, as it is.  The products
+    that read it then contract each rank's part of the features, as GSPMD
+    lays the reference's out at batch 1; DTensor left to itself picks
+    that layout in one torch version and runs every product whole on
+    every data rank in another."""
+    dims = _batch_dims(x)
+    if not dims:
+        return x
+    mesh = x.device_mesh
+    want, split = list(x.placements), 1
+    for i, p in enumerate(x.placements):
+        if i in dims and p.is_replicate() and mesh.size(i) > 1 and \
+                x.shape[-1] % (split * mesh.size(i)) == 0:
+            want[i] = Shard(x.dim() - 1)
+            split *= mesh.size(i)
+    return x if split == 1 else x.redistribute(mesh, want)
+
+
+def model_dim(x, n: int):
+    """The mesh dimension named ``model`` when it has more than one rank
+    and divides ``n``, else None: where a block splits ``n`` heads (or
+    experts) over ranks itself."""
+    if not isinstance(x, DTensor) or "model" not in (
+            x.device_mesh.mesh_dim_names or ()):
+        return None
+    i = x.device_mesh.mesh_dim_names.index("model")
+    size = x.device_mesh.size(i)
+    return i if size > 1 and n % size == 0 else None
+
+
+def whole_local(x, partial_dims=()):
+    """DTensor ``x`` made whole on every rank, as a local tensor
+    (:func:`local_part`); a plain tensor as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    rep = (Replicate(),) * x.device_mesh.ndim
+    if tuple(x.placements) == rep:
+        return local_part(x, partial_dims)
+    # The gather's own backward takes the pending sum to x's layout (a
+    # reduce-scatter where x is split).
+    return x.redistribute(x.device_mesh, rep).to_local(grad_placements=[
+        Partial() if i in partial_dims else Replicate()
+        for i in range(len(rep))])
 
 
 def gather_params(tree: dict, spec_map: dict) -> dict:

@@ -10,7 +10,8 @@ layer does not depend on the model package.
   of names, as the reference's ``PartitionSpec``) as DTensor placements.
 * :func:`shard_start`: where this rank's shard of a split dimension
   begins; :func:`all_reduce_local`: a local tensor all-reduced over some
-  mesh dimensions, by DTensor.
+  mesh dimensions, by DTensor; :func:`local_part`: a local shard whose
+  gradient is a pending sum over the ranks that each use a part of it.
 * :func:`replicate_plain_tensors`: inside the block a plain tensor that
   meets a DTensor counts as replicated.
 """
@@ -72,6 +73,22 @@ def all_reduce_local(x, mesh, dims, placements, op: str):
     whole = [Replicate() if i in dims else p for i, p in enumerate(placements)]
     return DTensor.from_local(x, mesh, pending, run_check=False).redistribute(
         mesh, whole).to_local()
+
+
+def local_part(x, partial_dims=()):
+    """DTensor ``x``'s local shard, for work that each rank of the mesh
+    dimensions ``partial_dims`` does on its own part of it (its heads, its
+    block of a buffer): the gradient that reaches ``x`` is then a pending
+    sum over those dimensions, reduced to ``x``'s layout."""
+    if not partial_dims:
+        return x.to_local()
+    mesh, fwd = x.device_mesh, tuple(x.placements)
+    if x.requires_grad:
+        x = x.view_as(x)
+        x.register_hook(lambda g: g if tuple(g.placements) == fwd else
+                        g.redistribute(mesh, fwd))
+    return x.to_local(grad_placements=[
+        Partial() if i in partial_dims else p for i, p in enumerate(fwd)])
 
 
 _LOCK = threading.Lock()

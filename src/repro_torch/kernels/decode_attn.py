@@ -105,6 +105,16 @@ def _sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+#: The head dims and query groups the library is built for
+#: (``csrc/decode_attn.cu``'s ``switch_d`` and ``switch_g``).
+HEAD_DIMS, GROUPS = (16, 32, 64, 80, 128), (1, 2, 4, 8, 12)
+
+
+def built(d: int, g: int) -> bool:
+    """Whether K2 is built for head dim ``d`` and group ``g``."""
+    return d in HEAD_DIMS and g in GROUPS
+
+
 def _check(q, k, v, length, least: int = 1):
     if q.dim() != 3 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"decode_attn: want q (B,Hq,D), k=v (B,S,Hk,D); got "

@@ -26,15 +26,21 @@ ranks' (m, l, acc) by two all-reduces over that dimension's group, which
 DTensor issues.  Other CPU DTensors run the plain version through
 DTensor's own propagation (the tensors it makes itself count as
 replicated).  A ``wkv`` input whose time axis is split raises: K3 sees
-whole rows, and nothing is gathered behind the caller's back.
+whole rows, and nothing is gathered behind the caller's back.  Ranks that
+hold a cache whole take shares of the work: a channelized cache that the
+data ranks do not split (batch 1) has its KV heads split over them, and
+a query whose heads split inside KV groups runs against its group's KV
+head (:func:`decode_attn`).
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
-from repro_torch.distributed.layout import (all_reduce_local,
+from repro_torch.distributed.layout import (all_reduce_local, local_part,
                                            replicate_plain_tensors,
                                            shard_start)
 from repro_torch.kernels import decode_attn as _da
@@ -86,7 +92,7 @@ def stream_triad(a, b, alpha):
 
 
 def _per_shard(fn, lead, args: dict, out_roles: tuple, what: str,
-               written=(), partials=None):
+               written=(), partials=None, shared=(), heads_over=()):
     """Run ``fn`` on the local shards of DTensor ``args`` and wrap what
     it returns as DTensors on their mesh.
 
@@ -105,7 +111,14 @@ def _per_shard(fn, lead, args: dict, out_roles: tuple, what: str,
     is the first position of this rank's slice of the lead's "seq"
     dimension, and ``reduce(x, op)`` all-reduces a local tensor laid out
     by the first output's roles over the "seq" mesh dimensions ("max" or
-    "sum"); the outputs are replicated over those dimensions."""
+    "sum"); the outputs are replicated over those dimensions.
+
+    An argument named in ``shared`` that has no "head" role is whole over
+    the lead's head split, and each rank uses its own part of it (a query
+    head group's KV head): its gradient is a pending sum there.  The mesh
+    dimensions in ``heads_over``, on which the lead is whole, split the
+    "head" dimension of every argument and output that has one (each
+    rank takes its share of the heads: a slice, no collective)."""
     x, dims = args[lead]
     mesh = x.device_mesh
     role_of = {d: r for r, d in dims.items()}
@@ -121,7 +134,9 @@ def _per_shard(fn, lead, args: dict, out_roles: tuple, what: str,
                 f"over {mesh.size(i)} ranks")
         # Any other layout but a batch, head or sequence split (a pending
         # sum, a split feature axis) is made whole (replicated) first.
-        roles.append(role if mesh.size(i) > 1 and role in split else None)
+        roles.append(role if mesh.size(i) > 1 and role in split else
+                     "head" if i in heads_over and p.is_replicate() else
+                     None)
     for name in written:
         # What is written in place keeps its layout: a split it lacks is
         # not made.
@@ -154,7 +169,9 @@ def _per_shard(fn, lead, args: dict, out_roles: tuple, what: str,
                 raise ValueError(f"{what}: {name} is written in place and "
                                  f"is laid out {t.placements}, not {want}")
             t = t.redistribute(mesh, want)
-        local[name] = t.to_local()
+        local[name] = local_part(t, [
+            i for i, r in enumerate(roles)
+            if r == "head" and name in shared and r not in dim_map])
     if "seq" in roles:
         seq = [i for i, r in enumerate(roles) if r == "seq"]
         out = partials(shard_start(x, dims["seq"]), lambda t, op: (
@@ -250,12 +267,67 @@ def _seq_split(k) -> bool:
                for i, p in enumerate(k.placements))
 
 
+def _head_dims(x, dim: int) -> list:
+    """The mesh dimensions of more than one rank that split ``dim``."""
+    return [i for i, p in enumerate(x.placements)
+            if p.is_shard(dim) and x.device_mesh.size(i) > 1]
+
+
+def _grouped_query(q, k):
+    """(the query laid out with its heads split over every mesh dimension
+    of more than one rank that holds the cache whole, the first KV head of
+    this rank's query heads) when each rank's query heads then lie inside
+    one KV group and K2 is built for that group; else None (the query is
+    laid out as the cache)."""
+    if not isinstance(q, DTensor) or _seq_split(k) or _head_dims(k, 2):
+        return None
+    mesh = k.device_mesh
+    dims = [i for i, p in enumerate(k.placements)
+            if p.is_replicate() and mesh.size(i) > 1]
+    split = 1
+    for i in dims:
+        split *= mesh.size(i)
+    hq, hk, d = q.shape[1], k.shape[2], q.shape[2]
+    if not dims or hq % split or (hq // hk) % (hq // split) or \
+            not _da.built(d, hq // split):
+        return None
+    want = tuple(Shard(1) if i in dims else Shard(0) if p.is_shard(0)
+                 else Replicate() for i, p in enumerate(k.placements))
+    if tuple(q.placements) != want:
+        q = q.redistribute(mesh, want)
+    return q, shard_start(q, 1) // (hq // hk)
+
+
 def decode_attn(q, k, v, length: int):
-    """q: (B, Hq, D); k/v: (B, S, Hk, D); length: int -> (B, Hq, D)."""
+    """q: (B, Hq, D); k/v: (B, S, Hk, D); length: int -> (B, Hq, D).
+
+    On a mesh whose ranks hold the cache's heads whole (and its sequence),
+    each rank runs K2 on its share of the query heads against its group's
+    KV head (a copy of that head's cache), G = its query heads, where the
+    shares lie inside groups and K2 is built for that G
+    (:func:`_grouped_query`); otherwise the query is laid out as the
+    cache."""
     meta = k.device.type == "meta"
     on_cpu = _all_on_cpu(q, k, v, meta=True)
+    grouped = _grouped_query(q, k) if isinstance(k, DTensor) else None
+    if grouped is not None:
+        q, g0 = grouped
+        kv = {"batch": 0, "whole": 1}
+        head = lambda t: t[:, :, g0:g0 + 1].contiguous()
+        return _per_shard(
+            lambda q, k, v: decode_attn(q, head(k), head(v), length), "q",
+            {"q": (q, {"batch": 0, "head": 1}), "k": (k, kv),
+             "v": (v, kv)}, ({"batch": 0, "head": 1},), "decode_attn")
     if isinstance(k, DTensor) and (meta or not on_cpu or _seq_split(k)):
         cache = {"batch": 0, "seq": 1, "head": 2}
+        # A channelized cache whole over ranks that do not split its batch
+        # (batch 1 over the data ranks): they take shares of its KV heads.
+        idle = [i for i, p in enumerate(k.placements)
+                if p.is_replicate() and k.device_mesh.size(i) > 1] \
+            if _seq_split(k) and not _head_dims(k, 2) else []
+        if idle and k.shape[2] % math.prod(k.device_mesh.size(i)
+                                           for i in idle):
+            idle = []
 
         def partials(offset, reduce, q, k, v):
             part = decode_attn_partials(
@@ -267,7 +339,8 @@ def decode_attn(q, k, v, length: int):
             lambda q, k, v: decode_attn(q, k, v, length), "k",
             {"q": (q, {"batch": 0, "head": 1}), "k": (k, cache),
              "v": (v, cache)},
-            ({"batch": 0, "head": 1},), "decode_attn", partials=partials)
+            ({"batch": 0, "head": 1},), "decode_attn", partials=partials,
+            heads_over=idle)
     if meta:
         return _decode_attn_meta(q, k, v, length)
     if on_cpu:

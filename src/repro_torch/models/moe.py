@@ -6,8 +6,33 @@ the standard Switch/GShard-style capacity discipline: overflow tokens fall
 back to the residual path.  Every expert's ``(capacity, D)`` buffer is
 computed, empty slots included, by grouped products (``torch.bmm``), as
 the reference's einsums do outside any Pallas kernel.  The reference's
-sharding hook (``context.use_params``) stands where it has it; on a mesh
-the tokens are gathered before routing (``moe_apply``).
+sharding hook (``context.use_params``) stands where it has it.
+
+On a mesh of more than one rank (DTensor activations) the block lays the
+work out as GSPMD lays out the reference's: the (E, capacity, D) buffer is
+split, experts over ``model`` (the rules' ``experts``) and the capacity
+over the other ranks, and each rank computes only its own block
+(:func:`_moe_sharded`).  The semantics stay global: one capacity for the
+whole batch, and each (token, slot)'s rank within its expert counts every
+earlier slot of the batch in flat order.  Each data rank routes its own
+tokens (a contiguous range of that order) and adds the counts of the
+ranks before it (:func:`global_ranks`), which one all-reduce of a (ranks,
+E) table exchanges, so its ranks equal one device's exactly.  The buffer's
+block is filled by a gather, not a scatter: each of its slots holds one
+(token, slot) at most, found by an inverse map over the whole batch, so
+the shapes never depend on the routing (the dry run's ``meta`` shards know
+no count).  A slot's token may live on another data rank, so the design
+all-gathers the routing results (an int code of expert and slot, and the
+weights) and every token row of the batch over the data ranks: (T, D) on
+each rank in each layer, where its block needs at most (E/M) x (C/Dn)
+rows.  A dispatch with static shapes that moves only the block's rows
+exists, GShard's all-to-all of fixed-capacity (E, C, D) buffers (each
+data rank lays its own (token, slot)s at their global slots, and each
+block is summed from its pieces); it is not built yet.  Each rank scatters its block's
+outputs into a batch-long partial ``y``, which one reduction lays out as
+the residual stream.  The auxiliary losses are global means: local sums,
+all-reduced.  On plain tensors, or a mesh of one rank, :func:`moe_apply`
+is the one-device code above, bit for bit.
 
 Two details carry the reference's exact order:
   * ``jax.lax.top_k`` puts the lower index first among equal values, and
@@ -18,12 +43,15 @@ Two details carry the reference's exact order:
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.distributed import context
+from repro_torch.distributed.layout import all_reduce_local, shard_start
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Spec
 
@@ -73,24 +101,16 @@ def moe_apply(cfg: ModelConfig, p: dict, x, return_aux: bool = False):
                                "wi": ("model", None, None),
                                "wg": ("model", None, None),
                                "wo": ("model", None, None)})
-    # Routing ranks every token of the batch against every other: on a
-    # mesh the tokens are gathered first, so capacity and ranks are the
-    # whole batch's, as on one device.
+    if isinstance(x, DTensor) and x.device_mesh.size() > 1:
+        return _moe_sharded(cfg, p, x, return_aux)
     xf = context.constrain(x.reshape(t, d), ("tokens", "embed"))
     gate_logits, gates, topw, topi = route(cfg, p["router"], xf)
 
     cap = capacity(cfg, t)
-    # Rank each (token, slot) within its expert, in flat priority order:
-    # the reference's exclusive cumsum of the one-hot (T*k, E) over slots,
-    # read at each slot's own expert.  Laid out (E, T*k), the cumsum runs
-    # along the contiguous axis (on an H100, PyTorch's scan down the 65,536
-    # rows of the (T*k, E) layout took ~23 ms a layer of olmoe's prefill);
-    # at the slot's own expert the inclusive count less one is the
-    # exclusive one.
+    # Rank each (token, slot) within its expert, in flat priority order
+    # (:func:`slot_ranks`).
     eid = topi.reshape(-1)                                   # (T*k,)
-    hit = eid[None, :] == torch.arange(e, device=x.device)[:, None]
-    rank_of = (torch.cumsum(hit, dim=1).gather(0, eid[None, :]) - 1
-               ).reshape(t, k)                               # (T, k)
+    rank_of = slot_ranks(e, eid)[0].reshape(t, k)            # (T, k)
     keep = rank_of < cap
     sid = torch.clamp(rank_of, max=cap - 1).reshape(-1)
     w_disp = (topw * keep).to(x.dtype).reshape(-1)           # (T*k,)
@@ -128,3 +148,153 @@ def moe_apply(cfg: ModelConfig, p: dict, x, return_aux: bool = False):
     z_loss = torch.logsumexp(gate_logits, dim=-1).square().mean()
     return y, {"moe_lb_loss": lb_loss, "moe_z_loss": z_loss,
                "moe_overflow": 1.0 - keep.float().mean()}
+
+
+# ---------------------------------------------------------------------------
+# The block on a mesh: each rank its own block of the expert buffers.
+# ---------------------------------------------------------------------------
+
+def slot_ranks(n_experts: int, eid):
+    """eid (N,), the experts of N (token, slot)s in flat order -> (each
+    one's rank within its expert among these N, the count of each
+    expert's slots (E,)).
+
+    The reference's exclusive cumsum of the one-hot (N, E) over slots,
+    read at each slot's own expert.  Laid out (E, N), the cumsum runs
+    along the contiguous axis (on an H100, PyTorch's scan down the 65,536
+    rows of the (N, E) layout took ~23 ms a layer of olmoe's prefill); at
+    the slot's own expert the inclusive count less one is the exclusive
+    one."""
+    hit = eid[None, :] == torch.arange(n_experts, device=eid.device)[:, None]
+    csum = torch.cumsum(hit, dim=1)
+    return csum.gather(0, eid[None, :])[0] - 1, csum[:, -1]
+
+
+def global_ranks(n_experts: int, eid, mesh, tok_dims):
+    """Local (token, slot)s' ranks within their experts over the whole
+    batch: the local ranks plus the slots the token shards before this one
+    send to each expert.  Each shard fills its own row of a (shards, E)
+    table of counts, and one all-reduce over ``tok_dims`` gives every
+    shard all of them."""
+    rank, counts = slot_ranks(n_experts, eid)
+    if not tok_dims:
+        return rank
+    shards = 1
+    for i in tok_dims:
+        shards *= mesh.size(i)
+    coord, index = mesh.get_coordinate(), 0
+    for i in tok_dims:
+        index = index * mesh.size(i) + coord[i]
+    table = torch.zeros((shards, n_experts), dtype=counts.dtype,
+                        device=counts.device)
+    table[index] = counts
+    table = all_reduce_local(table, mesh, tok_dims,
+                             [Replicate()] * mesh.ndim, "sum")
+    return rank + table[:index].sum(dim=0)[eid]
+
+
+def _gathered(x, mesh, tok_dims, partial_dims=()):
+    """A local tensor split by rows over ``tok_dims`` (replicated
+    elsewhere), its rows of every shard in order, on every rank; the
+    gradient a pending sum over ``partial_dims``."""
+    split = DTensor.from_local(
+        x, mesh, [Shard(0) if i in tok_dims else Replicate()
+                  for i in range(mesh.ndim)], run_check=False)
+    return context.whole_local(split, partial_dims)
+
+
+def _moe_sharded(cfg: ModelConfig, p: dict, x, return_aux: bool):
+    """:func:`moe_apply` on a mesh: module note."""
+    b, s, d = x.shape
+    t = b * s
+    e, k = cfg.n_experts, cfg.top_k
+    mesh, every = x.device_mesh, tuple(range(x.device_mesh.ndim))
+    # Tokens split as the batch is (the data axes), whole elsewhere.
+    xf = x.reshape(t, d)
+    tok = [Shard(0) if pl.is_shard(0) and mesh.size(i) > 1 else Replicate()
+           for i, pl in enumerate(xf.placements)]
+    if tuple(xf.placements) != tuple(tok):
+        xf = xf.redistribute(mesh, tok)
+    tok_dims = [i for i, pl in enumerate(tok) if pl.is_shard()]
+
+    # Routing of this shard's tokens.  Every rank off the token axes routes
+    # the same tokens alike, and the weights' gradient reaches it reduced,
+    # so the router's gradient is a pending sum over the token axes only.
+    x_loc = xf.to_local()
+    router = context.whole_local(p["router"], tok_dims)
+    gate_logits, gates, topw, topi = route(cfg, router, x_loc)
+    cap = capacity(cfg, t)
+    eid = topi.reshape(-1)
+    rank_of = global_ranks(e, eid, mesh, tok_dims).reshape(topi.shape)
+    keep = rank_of < cap
+    w_disp = (topw * keep).to(x.dtype).reshape(-1)
+
+    # This rank's block: experts by the weights' split, the capacity
+    # (padded to a multiple of its ranks) over every other axis.
+    wi = p["wi"]
+    exp_dims = [i for i, pl in enumerate(wi.placements)
+                if pl.is_shard(0) and mesh.size(i) > 1] \
+        if isinstance(wi, DTensor) else []
+    cap_dims = [i for i in every if i not in exp_dims and mesh.size(i) > 1]
+    blocks, block = 1, 0
+    for i in cap_dims:
+        blocks *= mesh.size(i)
+        block = block * mesh.size(i) + mesh.get_coordinate()[i]
+    c_blk = -(-cap // blocks)
+    c_pad = c_blk * blocks
+    e0 = shard_start(wi, 0) if exp_dims else 0
+    e_loc = e // math.prod(mesh.size(i) for i in exp_dims)
+
+    # Which (token, slot) of the batch fills each slot of the buffer: an
+    # inverse map over every rank's routing results, gathered.  A dropped
+    # slot and an empty one point past the end (t * k).
+    code = torch.where(keep.reshape(-1), eid * c_pad + rank_of.reshape(-1),
+                       e * c_pad)
+    code_all = _gathered(code, mesh, tok_dims)
+    w_all = _gathered(w_disp, mesh, tok_dims, every)
+    x_all = _gathered(x_loc, mesh, tok_dims, every)
+    inv = torch.full((e * c_pad + 1,), t * k, dtype=code_all.dtype,
+                     device=code_all.device).scatter_(
+        0, code_all, torch.arange(t * k, device=code_all.device))
+    slot = inv[:-1].view(e, c_pad)[e0:e0 + e_loc,
+                                   block * c_blk:(block + 1) * c_blk]
+    slot = slot.reshape(-1)
+    held = slot < t * k
+    j = torch.where(held, slot, 0)
+    w_blk = w_all[j] * held
+    # A slot holds its token's row where its weight is not zero, as the
+    # one-device dispatch puts it (an exact copy: one value and zeros).
+    buf = (x_all[j // k] * (w_blk != 0)[:, None]).view(e_loc, c_blk, d)
+
+    wl = {name: context.local_part(p[name], [i for i in cap_dims])
+          if isinstance(p[name], DTensor) else p[name]
+          for name in ("wi", "wg", "wo") if name in p}
+    if cfg.activation == "swiglu":
+        h = F.silu(torch.bmm(buf, wl["wg"])) * torch.bmm(buf, wl["wi"])
+    else:
+        h = F.gelu(torch.bmm(buf, wl["wi"]), approximate="tanh")
+    out_blk = torch.bmm(h, wl["wo"]).view(-1, d)             # (E_l*C_b, D)
+
+    # Combine: each slot's output, weighted, into its token's row of a
+    # batch-long partial sum, reduced to the tokens' layout.
+    y = torch.zeros((t, d), dtype=out_blk.dtype, device=out_blk.device)
+    y = y.index_add(0, j // k, out_blk * w_blk[:, None])
+    y = DTensor.from_local(y, mesh, [Partial()] * mesh.ndim,
+                           run_check=False).redistribute(mesh, tok)
+    y = y.reshape(b, s, d)
+    if not return_aux:
+        return y
+
+    def mean(local_sum, n):
+        # A global mean: the local sums, all-reduced over the token axes.
+        total = all_reduce_local(local_sum, mesh, tok_dims,
+                                 [Replicate()] * mesh.ndim, "sum")
+        return DTensor.from_local(total / n, mesh, [Replicate()] * mesh.ndim,
+                                  run_check=False)
+    density = F.one_hot(topi[:, 0], e).float().sum(dim=0)
+    router_prob = gates.sum(dim=0)
+    lb_loss = e * torch.sum(mean(density, t) * mean(router_prob, t))
+    z_loss = mean(torch.logsumexp(gate_logits, dim=-1).square().sum(), t)
+    overflow = 1.0 - mean(keep.float().sum(), t * k)
+    return y, {"moe_lb_loss": lb_loss, "moe_z_loss": z_loss,
+               "moe_overflow": overflow}

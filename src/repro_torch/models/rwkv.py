@@ -90,11 +90,17 @@ def time_mix(cfg: ModelConfig, p: dict, x, shift_state, wkv_state,
 
     # Data-dependent lerp (ddlerp): one shared low-rank tower -> 5 mixes.
     # Replicated over the mesh before the reshape splits its last axis
-    # (DTensor cannot unflatten a sharded axis into 5 mixes).
-    lora = context.constrain(torch.tanh(x @ p["mix_w1"]),
-                             ("batch", "seq", "rank")).reshape(b, s, 5, -1)
+    # (DTensor cannot unflatten a sharded axis into 5 mixes), and pinned so
+    # after it: its gradient is laid out so before the reshape's backward
+    # flattens it (DTensor 2.11 left the rank axis split there, and cannot
+    # flatten a split axis).
+    lora = context.constrain(
+        context.constrain(torch.tanh(x @ p["mix_w1"]),
+                          ("batch", "seq", "rank")).reshape(b, s, 5, -1),
+        ("batch", "seq", "mix", "rank"))
     mixes = p["mix_base"][None, None] + torch.einsum(
-        "bsmr,mrd->bsmd", lora, p["mix_w2"])    # (B,S,5,D)
+        "bsmr,mrd->bsmd", lora,
+        context.idle_columns(p["mix_w2"], x))   # (B,S,5,D)
     xr, xk, xv, xw, xg = (x + delta * torch.sigmoid(mixes[:, :, i])
                           for i in range(5))
 
@@ -107,7 +113,8 @@ def time_mix(cfg: ModelConfig, p: dict, x, shift_state, wkv_state,
     g = F.silu(xg @ p["wg"])
 
     # Data-dependent per-channel decay in (0, 1).
-    dd = p["decay_base"] + torch.tanh(xw @ p["decay_w1"]) @ p["decay_w2"]
+    dd = p["decay_base"] + torch.tanh(xw @ p["decay_w1"]) @ \
+        context.idle_columns(p["decay_w2"], x)
     w = heads(torch.exp(-torch.exp(dd.float() - 3.0)))       # near 1.0 init
     u = context.whole_heads(p["bonus_u"], h).reshape(h, hd).float()
 
@@ -120,7 +127,11 @@ def time_mix(cfg: ModelConfig, p: dict, x, shift_state, wkv_state,
     mu = yh.mean(dim=-1, keepdim=True)
     yh = (yh - mu) * torch.rsqrt(var - mu.square() + cfg.norm_eps)
     y = (yh.reshape(b, s, d) * (1.0 + p["ln_x"].float())).to(x.dtype)
-    out = (y * g) @ p["wo"]
+    # The output projection contracts each model rank's heads, whole on
+    # the batch axes, into each data rank's part of the features at batch
+    # 1 (``context.idle_features``; torch versions differ in what DTensor
+    # picks there left to itself).
+    out = context.batch_rows(y * g) @ context.idle_columns(p["wo"], x)
     return out, (x[:, -1, :], new_state)
 
 
@@ -134,7 +145,9 @@ def channel_mix(cfg: ModelConfig, p: dict, x, shift_state):
     xr = x + delta * torch.sigmoid(p["cm_mix"][1])[None, None]
     kk = F.relu(xk @ p["cm_wk"]).square()
     rr = torch.sigmoid(xr @ p["cm_wr"])
-    return rr * (kk @ p["cm_wv"]), x[:, -1, :]
+    # At batch 1 each data rank writes its part of the features, as in
+    # time_mix's output projection.
+    return rr * (kk @ context.idle_columns(p["cm_wv"], x)), x[:, -1, :]
 
 
 def init_rwkv_cache(cfg: ModelConfig, batch: int, dtype, device):

@@ -12,6 +12,23 @@ sharding hook stands where it has it (a no-op without active rules).
 Layout conventions: x (B, S, D); inner activations (B, S, H, P) with
 H = d_inner / P heads; B/C projections are shared across heads (one group).
 
+On a mesh whose ``model`` axis has more than one rank and divides the
+heads, the block splits the SSM heads over ``model``, as GSPMD splits
+the reference's from its ``heads`` rule (:func:`_mamba_sharded`): each
+rank takes the z, x and step-size columns of ``in_proj`` for its heads
+and the B and C columns whole, runs the conv on those channels and the
+SSD (or the decode step) on its heads, and multiplies by its rows of
+``out_proj``, a pending sum over ``model``.  The gated RMS norm's mean of
+squares over the whole ``d_inner`` becomes a sum of each rank's part, one
+all-reduce of B x S floats.  The new state is its heads' part of the
+cache, which the hybrid stack lays out so (:func:`state_layout`): no step
+gathers another rank's heads.  The new conv window's x channels are
+gathered to the cache's layout.  Both paths share the conv, the step
+sizes, the scan and the gated output (:func:`_conv_window`,
+:func:`_step_sizes`, :func:`_scan`, :func:`_gated_out`).  On plain
+tensors, or a mesh of one rank, :func:`mamba_apply` is the one-device
+code, bit for bit.
+
 Dtypes as in the reference: the projections and the causal conv run in
 the model dtype, the SSD and the decode step in float32; ``y`` is cast to
 ``x.dtype`` before the gate, and the gated RMS norm takes its variance in
@@ -25,6 +42,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.core import xlamath
 from repro_torch.distributed import context
@@ -149,6 +167,53 @@ def _ssd_chunked(xh, dt, a, bmat, cmat, init_state=None):
     return y, state
 
 
+def _conv_window(conv_in, w, b, conv_state, s: int, cw: int):
+    """The causal conv of ``conv_in`` (B, S, C) after ``conv_state`` (None:
+    zeros), SiLU'd, and the new window: its last ``cw - 1`` inputs."""
+    if conv_state is None:
+        conv, window = _causal_conv(conv_in, w, b), conv_in
+    else:
+        window = torch.cat([conv_state, conv_in], dim=1)
+        conv = _causal_conv(window, w, b)[:, -s:, :]
+    return F.silu(conv), window[:, -(cw - 1):, :]
+
+
+def _step_sizes(dt, dt_bias, a_log):
+    """(softplus'd step sizes (B, S, H) float32, decay rates (H,) < 0)."""
+    dt = dt.float() + dt_bias
+    return torch.logaddexp(dt, dt.new_zeros(())), -torch.exp(a_log.float())
+
+
+def _scan(xh, dt, a, bmat, cmat, state, place=lambda t: t):
+    """The SSD over a prompt (``state`` None, or a prefill continuation
+    seeded with it), or the recurrent decode step (S == 1); the new state
+    goes through ``place`` before the step reads it out.  Returns (y
+    (B, S, H, P) float32, new state (B, H, N, P))."""
+    if state is None or xh.shape[1] > 1:
+        return _ssd_chunked(xh, dt, a, bmat, cmat, init_state=state)
+    da = torch.exp(dt[:, 0] * a)                          # (B,H)
+    xs = dt[:, 0, :, None] * xh[:, 0].float()             # (B,H,P)
+    upd = bmat[:, 0].float()[:, None, :, None] * xs[:, :, None, :]
+    new_state = place(state * da[..., None, None] + upd)  # (B,H,N,P)
+    y = torch.einsum("bn,bhnp->bhp", cmat[:, 0].float(),
+                     new_state)[:, None]                  # (B,1,H,P)
+    return y, new_state
+
+
+def _gated_out(cfg: ModelConfig, y, xh, z, d_skip, gate_norm, out_proj,
+               mean_square, dtype):
+    """The skip term, Mamba2's gated RMS norm (its mean of squares over
+    ``d_inner`` by ``mean_square`` of the float32 gated values) and the
+    out-projection."""
+    bsz, s = y.shape[:2]
+    y = y + xh.float() * d_skip[None, None, :, None]
+    y = y.reshape(bsz, s, -1).to(dtype)
+    g32 = (y * F.silu(z)).float()
+    gated = (g32 * torch.rsqrt(mean_square(g32) + cfg.norm_eps) *
+             (1.0 + gate_norm.float())).to(dtype)
+    return gated @ out_proj
+
+
 def mamba_apply(cfg: ModelConfig, p: dict, x, state=None, conv_state=None):
     """Mamba2 block.
 
@@ -162,53 +227,130 @@ def mamba_apply(cfg: ModelConfig, p: dict, x, state=None, conv_state=None):
     di, n, h, pdim = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
     p = context.use_params(p, {"in_proj": (None, None),
                                "out_proj": (None, None)})
+    dim = context.model_dim(x, h)
+    if dim is not None:
+        return _mamba_sharded(cfg, p, x, state, conv_state, dim)
     proj = x @ p["in_proj"]
     z, xc, bmat, cmat, dt = _split_proj(cfg, proj)
 
-    conv_in = torch.cat([xc, bmat, cmat], dim=-1)          # (B,S,di+2n)
-    if state is None:
-        conv = _causal_conv(conv_in, p["conv_w"], p["conv_b"])
-        new_conv_state = conv_in[:, -(cfg.ssm_conv - 1):, :]
-    else:
-        window = torch.cat([conv_state, conv_in], dim=1)
-        conv = _causal_conv(window, p["conv_w"], p["conv_b"])[:, -s:, :]
-        new_conv_state = window[:, -(cfg.ssm_conv - 1):, :]
-    conv = F.silu(conv)
+    conv, new_conv_state = _conv_window(
+        torch.cat([xc, bmat, cmat], dim=-1), p["conv_w"], p["conv_b"],
+        None if state is None else conv_state, s, cfg.ssm_conv)
     xc, bmat, cmat = (conv[..., :di], conv[..., di:di + n],
                       conv[..., di + n:])
 
     xh = xc.reshape(bsz, s, h, pdim)
-    dt = dt.float() + p["dt_bias"]
-    dt = torch.logaddexp(dt, dt.new_zeros(()))                # softplus
-    a = -torch.exp(p["a_log"].float())                        # (H,) < 0
-
-    if state is None:
-        y, new_state = _ssd_chunked(xh, dt, a, bmat, cmat)
-    elif s > 1:
-        # Prefill continuation: chunked path seeded with the carried state.
-        y, new_state = _ssd_chunked(xh, dt, a, bmat, cmat, init_state=state)
-    else:
-        # Recurrent decode step (s == 1).  On a mesh each shard of the
-        # state holds whole heads: at batch 1 DTensor would split the heads
-        # over ranks that do not divide them, and could not flatten them.
-        da = torch.exp(dt[:, 0] * a)                          # (B,H)
-        xs = dt[:, 0, :, None] * xh[:, 0].float()             # (B,H,P)
-        upd = bmat[:, 0].float()[:, None, :, None] * xs[:, :, None, :]
-        new_state = context.whole_heads(
-            state * da[..., None, None] + upd, h, dim=1)      # (B,H,N,P)
-        y = torch.einsum("bn,bhnp->bhp", cmat[:, 0].float(),
-                         new_state)[:, None]                  # (B,1,H,P)
-
-    y = y + xh.float() * p["d_skip"][None, None, :, None]
-    y = y.reshape(bsz, s, di).to(x.dtype)
-    # Gated RMS norm (Mamba2's norm-before-out-proj).
-    gated = y * F.silu(z)
-    g32 = gated.float()
-    var = g32.square().mean(dim=-1, keepdim=True)
-    gated = (g32 * torch.rsqrt(var + cfg.norm_eps) *
-             (1.0 + p["gate_norm"].float())).to(x.dtype)
-    out = gated @ p["out_proj"]
+    dt, a = _step_sizes(dt, p["dt_bias"], p["a_log"])
+    # On a mesh each shard of the decode step's state holds whole heads:
+    # at batch 1 DTensor would split the heads over ranks that do not
+    # divide them, and could not flatten them.
+    y, new_state = _scan(xh, dt, a, bmat, cmat, state,
+                         lambda t: context.whole_heads(t, h, dim=1))
+    out = _gated_out(cfg, y, xh, z, p["d_skip"], p["gate_norm"],
+                     p["out_proj"],
+                     lambda g: g.square().mean(dim=-1, keepdim=True),
+                     x.dtype)
     return out, (new_state, new_conv_state)
+
+
+def state_layout(cfg: ModelConfig, states):
+    """The cache's (L, B, H, N, P) decode states with the heads split over
+    ``model`` where :func:`mamba_apply` splits them (a replicated cache's
+    own slice on each rank, no collective), so that a layer's new state is
+    written back with no gather; anything else as it is."""
+    if not isinstance(states, DTensor):
+        return states
+    dim = context.model_dim(states, cfg.ssm_heads)
+    if dim is None or not states.placements[dim].is_replicate():
+        return states
+    return states.redistribute(states.device_mesh, [
+        Shard(2) if i == dim else pl for i, pl in enumerate(states.placements)])
+
+
+def _mamba_sharded(cfg: ModelConfig, p: dict, x, state, conv_state,
+                   dim: int):
+    """:func:`mamba_apply` with the heads split over mesh dimension
+    ``dim`` (module note), on each rank's local tensors."""
+    bsz, s, _ = x.shape
+    di, n, h, pdim = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    mesh = x.device_mesh
+    ranks, rank = mesh.size(dim), mesh.get_coordinate()[dim]
+    hl = h // ranks
+    dl = hl * pdim
+    # The batch split as it comes, everything else whole; each rank's
+    # heads take a part of the input's gradient.
+    rows = [pl if i != dim and pl.is_shard(0) else Replicate()
+            for i, pl in enumerate(x.placements)]
+    if tuple(x.placements) != tuple(rows):
+        x = x.redistribute(mesh, rows)
+    batch = [i for i, pl in enumerate(rows) if pl.is_shard()]
+    parts = [dim] + batch
+    xl = context.local_part(x, [dim])
+    w = {name: context.whole_local(t, parts) for name, t in p.items()}
+    mine_heads = [Shard(1) if i == dim else pl for i, pl in enumerate(rows)]
+
+    def rows_of(t):
+        # A cache tensor laid out as the input's rows: the local batch.
+        if not isinstance(t, DTensor):
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        return (t if tuple(t.placements) == tuple(rows) else
+                t.redistribute(mesh, rows)).to_local()
+
+    dev = xl.device
+    mine = torch.arange(rank * dl, (rank + 1) * dl, device=dev)
+    heads = slice(rank * hl, (rank + 1) * hl)
+    bc = torch.arange(2 * di, 2 * di + 2 * n, device=dev)
+    cols = torch.cat([mine, di + mine, bc,
+                      2 * di + 2 * n + torch.arange(rank * hl,
+                                                    (rank + 1) * hl,
+                                                    device=dev)])
+    proj = xl @ w["in_proj"][:, cols]
+    z, xc, bmat, cmat, dt = torch.split(proj, [dl, dl, n, n, hl], dim=-1)
+
+    # The conv's channels: this rank's x channels, then B and C whole.
+    chans = torch.cat([mine, di + torch.arange(2 * n, device=dev)])
+    conv, new_conv = _conv_window(
+        torch.cat([xc, bmat, cmat], dim=-1), w["conv_w"][:, chans],
+        w["conv_b"][chans],
+        None if state is None else rows_of(conv_state)[..., chans], s,
+        cfg.ssm_conv)
+    xc, bmat, cmat = conv[..., :dl], conv[..., dl:dl + n], conv[..., dl + n:]
+
+    xh = xc.reshape(xl.shape[0], s, hl, pdim)
+    dt, a = _step_sizes(dt, w["dt_bias"][heads], w["a_log"][heads])
+    if state is None:
+        st = None
+    elif isinstance(state, DTensor) and \
+            tuple(state.placements) == tuple(mine_heads):
+        st = state.to_local()       # this rank's heads already (state_layout)
+    else:
+        st = rows_of(state)[:, heads]
+    y, new_state = _scan(xh, dt, a, bmat, cmat, st)
+
+    def mean_square(g32):
+        # The mean of squares over the whole d_inner: each rank's sum,
+        # summed; each rank's heads take a part of its gradient.
+        return context.local_part(DTensor.from_local(
+            g32.square().sum(dim=-1, keepdim=True), mesh,
+            [Partial() if i == dim else pl for i, pl in enumerate(rows)],
+            run_check=False).redistribute(mesh, rows), [dim]) / di
+    out = _gated_out(cfg, y, xh, z, w["d_skip"][heads], w["gate_norm"][mine],
+                     w["out_proj"][mine], mean_square, x.dtype)
+    out = DTensor.from_local(out, mesh, [
+        Partial() if i == dim else pl for i, pl in enumerate(rows)],
+        run_check=False).redistribute(mesh, rows)
+    # The new state: this rank's heads of the cache's (B, H, N, P); the
+    # new conv window: the x channels of every rank, then B and C.
+    new_state = DTensor.from_local(new_state, mesh, mine_heads,
+                                   run_check=False)
+    xwin = DTensor.from_local(new_conv[..., :dl].contiguous(), mesh, [
+        Shard(2) if i == dim else pl for i, pl in enumerate(rows)],
+        run_check=False).redistribute(mesh, rows).to_local()
+    new_conv = DTensor.from_local(
+        torch.cat([xwin, new_conv[..., dl:]], dim=-1), mesh, rows,
+        run_check=False)
+    return out, (new_state, new_conv)
 
 
 def init_ssm_cache(cfg: ModelConfig, batch: int, dtype, device):

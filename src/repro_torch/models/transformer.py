@@ -216,8 +216,10 @@ def _attn_block(cfg: ModelConfig, pl, x, positions, causal, kv_cache,
     """kv_cache is None (no cache) or (k_cache, v_cache, cache_len) with
     (B, S_max, Hk, hd) caches that this block writes in place."""
     q, k, v = attention.qkv_project(cfg, pl["attn"], x, positions)
-    # On a mesh, each shard of the query heads holds whole KV-head groups.
-    q = context.whole_heads(q, cfg.n_kv_heads, dim=2)
+    # On a mesh, each shard of the query heads holds whole KV-head groups
+    # or lies inside one group (the rank then attends with that group's KV
+    # head alone: ``_attend_local``, ``ops.decode_attn``).
+    q = context.grouped_heads(q, cfg.n_heads, cfg.n_kv_heads, dim=2)
     b, s = x.shape[:2]
     if kv_cache is None:
         attend = (attention.reference_attention if s <= 256 else
@@ -242,10 +244,13 @@ def _attn_block(cfg: ModelConfig, pl, x, positions, causal, kv_cache,
             o = ops.decode_attn(q[:, 0], k_cache, v_cache,
                                 cache_len + 1)[:, None]
         else:
+            # A block of new rows against the cache: each shard of the
+            # query holds whole groups, as the grouped einsum splits them.
             lens = torch.full((b,), cache_len + s, dtype=torch.int32,
                               device=x.device)
-            o = attention.decode_attention(q, k_cache, v_cache, lens,
-                                           q_start=cache_len)
+            o = attention.decode_attention(
+                context.whole_heads(q, cfg.n_kv_heads, dim=2), k_cache,
+                v_cache, lens, q_start=cache_len)
     wo = context.use_params(pl["attn"], attention.ATTN_USE_SPECS)["wo"]
     # The heads' pending sum laid out as the residual stream: left to
     # itself DTensor 2.13 reduce-scatters it over the sequence, and the MLP
@@ -259,14 +264,30 @@ def _attend_local(attend, q, k, v, causal: bool):
     heads, run on each rank's own shard (``kernels/ops._per_shard``):
     every (batch, head) attends alone, so this is the same work with no
     collective, and no product flattens a split batch and a split head
-    dimension together (DTensor 2.11 cannot).  A split sequence takes
-    DTensor's own propagation."""
+    dimension together (DTensor 2.11 cannot).  Where the query's heads
+    are split inside KV groups (fewer KV heads than ranks), K and V are
+    whole over those ranks and each rank takes its group's head: its
+    gradient there is a pending sum.  A split sequence takes DTensor's
+    own propagation."""
     if not isinstance(q, DTensor) or any(
             p.is_shard(1) and q.device_mesh.size(i) > 1
             for t in (q, k, v) if isinstance(t, DTensor)
             for i, p in enumerate(t.placements)):
         return attend(q, k, v, causal=causal)
     rows = {"batch": 0, "whole": 1, "head": 2}
+    hq, hk = q.shape[2], k.shape[2]
+    split = 1
+    for i, p in enumerate(q.placements):
+        if p.is_shard(2):
+            split *= q.device_mesh.size(i)
+    if hk % split:
+        g0 = shard_start(q, 2) // (hq // hk)
+        kv = {"batch": 0, "whole": 1}
+        return ops._per_shard(
+            lambda q, k, v: attend(q, k[:, :, g0:g0 + 1],
+                                   v[:, :, g0:g0 + 1], causal=causal),
+            "q", {"q": (q, rows), "k": (k, kv), "v": (v, kv)},
+            ({"batch": 0, "head": 2},), "attention", shared=("k", "v"))
     return ops._per_shard(
         lambda q, k, v: attend(q, k, v, causal=causal), "q",
         {"q": (q, rows), "k": (k, rows), "v": (v, rows)},
@@ -468,16 +489,17 @@ def _hybrid_stack(cfg, params, x, positions, cache, plain_kernels,
             x = block(x, shared)
         return x, None
     cache_len = cache["len"]
+    states = ssm.state_layout(cfg, cache["ssm_state"])
     for g in range(cfg.n_layers // per):
         for i in range(g * per, (g + 1) * per):
             pl = layer_params(params["layers"], i)
-            st = (cache["ssm_state"][i], cache["conv"][i])
+            st = (states[i], cache["conv"][i])
             x, (new_state, new_conv) = _mamba_body(cfg, x, pl, st)
-            cache["ssm_state"][i].copy_(new_state)
+            states[i].copy_(new_state)
             cache["conv"][i].copy_(new_conv)
         kv = (cache["k"][g], cache["v"][g], cache_len)
         x = _dense_body(cfg, x, shared, positions, True, kv, plain_kernels)
-    return x, dict(cache, len=cache_len + x.shape[1])
+    return x, dict(cache, ssm_state=states, len=cache_len + x.shape[1])
 
 
 def _rwkv_stack(cfg, params, x, cache, plain_kernels, training=False):
@@ -494,7 +516,10 @@ def _rwkv_stack(cfg, params, x, cache, plain_kernels, training=False):
     for i in range(cfg.n_layers):
         pl = layer_params(params["layers"], i)
         cl = (cache["tm_shift"][i], cache["wkv"][i], cache["cm_shift"][i])
-        x, _ = _rwkv_body(cfg, x, pl, cl, plain_kernels, in_place=True)
+        # On a mesh, ranks that hold the stream whole (the data ranks at
+        # batch 1) take parts of its features.
+        x, _ = _rwkv_body(cfg, context.idle_features(x), pl, cl,
+                          plain_kernels, in_place=True)
     return x, dict(cache, len=cache["len"] + x.shape[1])
 
 

@@ -286,3 +286,37 @@ def test_cli_records_skips_and_errors(tmp_path, monkeypatch):
     res = json.loads((tmp_path / "stablelm-1.6b__train_4k__32x8__baseline"
                       ".json").read_text())
     assert res["status"] == "error" and "no strategy" in res["error"]
+
+
+@pytest.mark.parametrize("batch,seq", [(256, 4096), (128, 1)])
+def test_moe_expert_flops_a_chip_are_the_closed_forms_share(batch, seq):
+    """olmoe-1b-7b's MoE block on meta shards of the production (32, 8)
+    mesh: each rank routes its own tokens and computes its block of the
+    expert buffer, 1/(data x model) of the three expert products over the
+    whole capacity, padded to a multiple of the 32 data ranks (train_4k's
+    163,840 slots an expert divide; decode_32k's 20 pad to 32).  The
+    meter's FLOPs a chip are that share plus the router over the rank's
+    own tokens, exactly."""
+    from repro_torch.distributed import context
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import moe
+    cfg = get_config("olmoe-1b-7b")
+    dryrun.fake_world(256)
+    mesh = make_production_mesh()
+    rules = shd.train_rules(mesh, cfg)
+    p = {name: dryrun.sharded_empty(spec.shape, torch.bfloat16, shd.Sharding(
+        mesh, shd.spec_for(spec.shape, spec.axes, rules, mesh)))
+        for name, spec in moe.moe_specs(cfg, layered=False).items()}
+    x = dryrun.sharded_empty((batch, seq, cfg.d_model), torch.bfloat16,
+                             shd.Sharding(mesh, ("data", None, None)))
+    with context.activation_rules(mesh, {"batch": ("data",)}), \
+            hloparse.Meter() as meter:
+        y = moe.moe_apply(cfg, p, x)
+    assert y.shape == x.shape
+    t, e, d, f = batch * seq, cfg.n_experts, cfg.d_model, cfg.d_ff
+    cap = moe.capacity(cfg, t)
+    padded = -(-cap // 32) * 32
+    experts = 3 * 2.0 * e * padded * d * f / 256
+    router = 2.0 * (t // 32) * d * e
+    assert meter.cost.flops == experts + router

@@ -21,6 +21,16 @@ dispatch) against the reference, on the CPU.
   the one-process serve; the kernels' DTensor dispatch, a cache whose
   sequence is split over ``model`` through each rank's partials and
   their merge (one rank's slice empty at length 5).
+* The same world, the blocks that split their work as GSPMD splits the
+  reference's: the MoE buffer's blocks over a (2, 2) mesh with tokens
+  dropped on both data ranks (each (token, slot)'s rank within its expert
+  equal to one device's exactly, the output and aux losses against
+  ``repro.models.moe``); the Mamba2 heads over ``model`` for a prefill
+  and the decode step from its state against ``repro.models.ssm``, with
+  the gradients against one process; grouped-query attention with 8
+  query heads over 2 KV heads on a (1, 4) mesh (2 query heads and their
+  group's KV head a rank) against the reference's loss and gradients,
+  and served against one process.
 """
 
 import subprocess
@@ -28,6 +38,7 @@ import sys
 import types
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -44,12 +55,14 @@ from repro.data.pipeline import SyntheticDataset as JSyntheticDataset
 from repro.distributed import sharding as jshd
 from repro.models import Model as JModel
 from repro.models import model as jmodel
+from repro.models import moe as jmoe
+from repro.models import ssm as jssm
 from repro.models.config import smoke_variant as jsmoke
 from repro_torch.configs import get_config
 from repro_torch.distributed import sharding as shd
 from repro_torch.distributed import step as pstep
 from repro_torch.kernels import ref
-from repro_torch.models import Model, layers, smoke_variant
+from repro_torch.models import Model, layers, moe, smoke_variant, ssm
 from repro_torch.models import model as pmodel
 from repro_torch.models.convert import params_from_jax
 from repro_torch.models.transformer import init_cache
@@ -261,8 +274,11 @@ TRAIN_ARCHS = ("stablelm-1.6b", "olmoe-1b-7b")
 SERVE_STEPS = 3
 
 
-def _jpair(arch):
+def _jpair(arch, **over):
     cfg, jcfg = _cfgs(arch, smoke=True)
+    if over:
+        cfg, jcfg = smoke_variant(get_config(arch), **over), \
+            jsmoke(jget_config(arch), **over)
     jm = JModel(jcfg)
     jparams = jm.init(jax.random.PRNGKey(0))
     params = params_from_jax(cfg, jax.tree_util.tree_map(np.asarray,
@@ -319,9 +335,138 @@ def world():
                    wv=rn(2, 5, 2, 8), u=rn(2, 8),
                    w=gen.uniform(0.5, 0.99, (2, 5, 2, 8)).astype(np.float32),
                    s0=rn(2, 2, 8, 8))
+    layouts, want_layouts = _layout_cases()
     got = torch_mesh_worker.run_world(
-        "sharding", 4, {"model": payload, "kernels": kernels})
-    return dict(got=got, want=want, kernels=kernels)
+        "sharding", 4, {"model": payload, "kernels": kernels, **layouts})
+    return dict(got=got, want=dict(want, **want_layouts), kernels=kernels)
+
+
+#: MoE cases of the world: capacity factors whose capacity (4 and 5 slots
+#: an expert for 32 tokens of top 2 over 4 experts) drops tokens on both
+#: data ranks; 5 does not divide the 2 data ranks, so the buffer's
+#: capacity axis is padded to 6.
+MOE_CASES = {"cap4": 0.25, "cap5": 0.3125}
+#: Served at batch 1, which the 2 data ranks do not split.
+BATCH1_ARCHS = ("rwkv6-1.6b", "zamba2-2.7b")
+#: Grouped-query attention: 8 query heads over 2 KV heads, 4 model ranks.
+GROUPED = ("starcoder2-3b", dict(n_heads=8, n_kv_heads=2))
+# The Mamba2 block with split heads against the reference: the tolerance
+# of tests/test_torch_ssm.py (float32, sums in other orders).
+SSM_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+def _moe_case(cf):
+    over = dict(capacity_factor=cf)
+    cfg = smoke_variant(get_config("olmoe-1b-7b"), **over)
+    jcfg = jsmoke(jget_config("olmoe-1b-7b"), **over)
+    rng = np.random.default_rng(11)
+    params = {name: (rng.standard_normal(spec.shape) /
+                     np.sqrt(spec.shape[-2])).astype(np.float32)
+              for name, spec in moe.moe_specs(cfg, layered=False).items()}
+    x = rng.standard_normal((4, 8, cfg.d_model)).astype(np.float32)
+    jp = {k: jnp.asarray(v) for k, v in params.items()}
+    jy, jaux = jmoe.moe_apply(jcfg, jp, jnp.asarray(x), return_aux=True)
+    # One device's ranks, as the reference ranks them.
+    gates = jax.nn.softmax((jnp.asarray(x).reshape(-1, cfg.d_model) @
+                            jp["router"]).astype(jnp.float32), axis=-1)
+    _, topi = jax.lax.top_k(gates, cfg.top_k)
+    flat = np.eye(cfg.n_experts, dtype=np.int64)[np.asarray(topi)].reshape(
+        -1, cfg.n_experts)
+    ranks = ((np.cumsum(flat, 0) - flat) * flat).sum(-1).reshape(
+        -1, cfg.top_k)
+    return (dict(arch="olmoe-1b-7b", over=over, params=params, x=x),
+            dict(y=np.asarray(jy), aux={k: float(v) for k, v in
+                                        jaux.items()},
+                 ranks=ranks, cap=moe.capacity(cfg, x.shape[0] * x.shape[1])))
+
+
+def _mamba_case():
+    cfg = smoke_variant(get_config("zamba2-2.7b"))
+    jcfg = jsmoke(jget_config("zamba2-2.7b"))
+    rng = np.random.default_rng(12)
+    rn = lambda *shape, scale=0.5: (scale * rng.standard_normal(shape)
+                                    ).astype(np.float32)
+    params = {name: rn(*spec.shape) for name, spec in
+              ssm.ssm_specs(cfg, layered=False).items()}
+    params["in_proj"] *= 2 * cfg.d_model ** -0.5
+    params["out_proj"] *= 2 * cfg.d_inner ** -0.5
+    x, x1, r = rn(2, 8, cfg.d_model), rn(2, 1, cfg.d_model), rn(2, 8,
+                                                                 cfg.d_model)
+    jp = {k: jnp.asarray(v) for k, v in params.items()}
+    jy, (js, jc) = jssm.mamba_apply(jcfg, jp, jnp.asarray(x))
+    jy1, (js1, jc1) = jssm.mamba_apply(jcfg, jp, jnp.asarray(x1), js, jc)
+    # The gradients of one process of the port.
+    tp = {k: torch.from_numpy(v).requires_grad_(True)
+          for k, v in params.items()}
+    tx = torch.from_numpy(x).requires_grad_(True)
+    y, _ = ssm.mamba_apply(cfg, tp, tx)
+    (y * torch.from_numpy(r)).sum().backward()
+    want = dict(y=jy, state=js, conv=jc, y1=jy1, state1=js1, conv1=jc1)
+    serve, served = _serve_case("zamba2-2.7b")
+    return (dict(params=params, x=x, x1=x1, r=r, serve=serve),
+            dict({k: np.asarray(v) for k, v in want.items()},
+                 grads={k: t.grad.numpy() for k, t in tp.items()},
+                 dx=tx.grad.numpy(), serve=served))
+
+
+def _serve_case(arch, batch=4, **over):
+    """A served prompt's payload and the one-process port's logits of its
+    prefill and greedy steps."""
+    _, _, m, params = _jpair(arch, **over)
+    prompt = {k: np.asarray(v) for k, v in JSyntheticDataset(
+        m.cfg, batch, 8, seed=5).batch_at(0).items()
+        if k in ("tokens", "positions")}
+    cache = m.make_cache(batch, 16)
+    lg, cache = m.prefill(params, prompt, cache)
+    serve = [lg.numpy()]
+    for _ in range(SERVE_STEPS):
+        tok = lg.argmax(-1).to(torch.int32)
+        sb = dict(tokens=tok[:, None], positions=torch.full(
+            (batch, 1), cache["len"], dtype=torch.int32))
+        lg, cache = m.decode_step(params, sb, cache)
+        serve.append(lg.numpy())
+    return (dict(arch=arch, params=_numpy(params), cache=(batch, 16),
+                 prompt=prompt, steps=SERVE_STEPS), serve)
+
+
+def _grouped_case():
+    arch, over = GROUPED
+    jm, jparams, m, params = _jpair(arch, **over)
+    batch = JSyntheticDataset(jm.cfg, 4, 16, seed=3).batch_at(0)
+    (jloss, _), jgrads = jax.jit(jax.value_and_grad(
+        jm.loss, has_aux=True))(jparams, batch)
+    prompt = {k: np.asarray(v) for k, v in JSyntheticDataset(
+        m.cfg, 4, 8, seed=5).batch_at(0).items()
+        if k in ("tokens", "positions")}
+    cache = m.make_cache(4, 16)
+    lg, cache = m.prefill(params, prompt, cache)
+    serve = [lg.numpy()]
+    for _ in range(SERVE_STEPS):
+        tok = lg.argmax(-1).to(torch.int32)
+        sb = dict(tokens=tok[:, None], positions=torch.full(
+            (4, 1), cache["len"], dtype=torch.int32))
+        lg, cache = m.decode_step(params, sb, cache)
+        serve.append(lg.numpy())
+    return (dict(arch=arch, over=over, params=_numpy(params),
+                 batch={k: np.asarray(v) for k, v in batch.items()},
+                 cache=(4, 16), prompt=prompt, steps=SERVE_STEPS),
+            dict(ref_loss=float(jloss), serve=serve,
+                 ref_grads=jax.tree_util.tree_map(np.asarray, jgrads)))
+
+
+def _layout_cases():
+    """The layout jobs' payloads and what the reference (and one process
+    of the port) computes for them."""
+    got, want = {}, {}
+    cases = {key: _moe_case(cf) for key, cf in MOE_CASES.items()}
+    got["moe"] = {key: c[0] for key, c in cases.items()}
+    want["moe"] = {key: c[1] for key, c in cases.items()}
+    got["mamba"], want["mamba"] = _mamba_case()
+    got["grouped"], want["grouped"] = _grouped_case()
+    cases = {arch: _serve_case(arch, batch=1) for arch in BATCH1_ARCHS}
+    got["batch1"] = {arch: c[0] for arch, c in cases.items()}
+    want["batch1"] = {arch: c[1] for arch, c in cases.items()}
+    return got, want
 
 
 @pytest.mark.parametrize("arch", TRAIN_ARCHS)
@@ -418,3 +563,129 @@ def test_plain_wkv_on_batch_and_head_sharded_inputs(world):
     got_y, got_s = world["got"]["kernels"]["wkv"]
     np.testing.assert_allclose(got_y, y.numpy(), rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(got_s, s.numpy(), rtol=1e-5, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# The blocks that split their work over the world (``_layout_cases``).
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("key", sorted(MOE_CASES))
+def test_moe_ranks_on_2x2_equal_one_device_with_drops_on_both_data_ranks(
+        world, key):
+    got, want = world["got"]["moe"][key], world["want"]["moe"][key]
+    ranks, cap = want["ranks"], want["cap"]
+    t_loc = len(ranks) // 2
+    # Ranks (data, model) in row-major order: data coordinate r // 2.
+    for r, mine in enumerate(got["ranks"]):
+        d = r // 2
+        np.testing.assert_array_equal(np.asarray(mine).reshape(
+            -1, ranks.shape[1]),
+                                      ranks[d * t_loc:(d + 1) * t_loc])
+    keep = ranks < cap
+    assert not keep[:t_loc].all() and not keep[t_loc:].all()
+
+
+@pytest.mark.parametrize("key", sorted(MOE_CASES))
+def test_moe_blocks_on_2x2_equal_reference(world, key):
+    got, want = world["got"]["moe"][key], world["want"]["moe"][key]
+    assert got["placements"] == "(Shard(dim=0), Replicate())"
+    np.testing.assert_allclose(got["y"], want["y"], rtol=1e-5, atol=1e-6)
+    assert got["aux"].keys() == want["aux"].keys()
+    assert got["aux"]["moe_overflow"] == want["aux"]["moe_overflow"] > 0
+    for name, value in want["aux"].items():
+        np.testing.assert_allclose(got["aux"][name], value, rtol=1e-5,
+                                   atol=1e-6, err_msg=name)
+
+
+@pytest.mark.parametrize("name", ["y", "state", "conv", "y1", "state1",
+                                  "conv1"])
+def test_mamba_heads_split_over_model_equal_reference(world, name):
+    got, want = world["got"]["mamba"], world["want"]["mamba"]
+    # The split path ran on both calls, over the model dimension (1).
+    assert got["calls"] == [1, 1]
+    assert got["state_placements"] == "(Shard(dim=0), Shard(dim=1))"
+    np.testing.assert_allclose(got[name], want[name], **SSM_TOL,
+                               err_msg=name)
+
+
+def test_mamba_heads_split_over_model_gradients_equal_one_process(world):
+    got, want = world["got"]["mamba"], world["want"]["mamba"]
+    np.testing.assert_allclose(got["dx"], want["dx"], **SSM_TOL)
+    assert got["grads"].keys() == want["grads"].keys()
+    for name, g in want["grads"].items():
+        np.testing.assert_allclose(got["grads"][name], g, **SSM_TOL,
+                                   err_msg=name)
+
+
+def test_grouped_attention_on_1x4_equals_reference(world):
+    got, want = world["got"]["grouped"], world["want"]["grouped"]
+    np.testing.assert_allclose(got["loss"], want["ref_loss"], rtol=RTOL,
+                               atol=ATOL)
+    g = _leaves(got["grads"], lambda x: isinstance(x, np.ndarray))
+    w = dict(layers.flatten_tree(want["ref_grads"],
+                                 is_leaf=lambda x: not isinstance(x, dict)))
+    assert g.keys() == w.keys()
+    for path in g:
+        np.testing.assert_allclose(g[path], np.asarray(w[path]), rtol=RTOL,
+                                   atol=ATOL, err_msg=path)
+
+
+def test_grouped_attention_runs_each_ranks_group(world):
+    """Each rank attends with 2 query heads and its group's KV head, in
+    the loss's passes and in every decode step."""
+    got = world["got"]["grouped"]
+    hd = 16
+    assert got["train_shapes"] and set(got["train_shapes"]) == {
+        ((4, 16, 2, hd), (4, 16, 1, hd))}
+    assert len(got["decode_shapes"]) == SERVE_STEPS * 2 and set(
+        got["decode_shapes"]) == {((4, 2, hd), (4, 16, 1, hd))}
+
+
+def test_grouped_serve_on_1x4_equals_one_process(world):
+    got, want = world["got"]["grouped"], world["want"]["grouped"]
+    assert len(got["logits"]) == len(want["serve"])
+    for step, (g, w) in enumerate(zip(got["logits"], want["serve"])):
+        np.testing.assert_allclose(g, w, rtol=RTOL, atol=1e-5, err_msg=step)
+        np.testing.assert_array_equal(g.argmax(-1), w.argmax(-1))
+
+
+def test_hybrid_serve_with_split_heads_on_2x2_equals_one_process(world):
+    """zamba2's smoke model served on (2, 2): each Mamba layer's heads
+    over model (its state and conv window written back into the cache),
+    the shared block's cache channelized."""
+    got, want = world["got"]["mamba"], world["want"]["mamba"]
+    n_layers = smoke_variant(get_config("zamba2-2.7b")).n_layers
+    assert got["served_calls"] == n_layers * (SERVE_STEPS + 1)
+    assert len(got["serve"]["logits"]) == len(want["serve"])
+    for step, (g, w) in enumerate(zip(got["serve"]["logits"],
+                                      want["serve"])):
+        # The hybrid family's logits tolerance (test_torch_model.py): the
+        # SSD in float32 is sensitive to the order of its sums.
+        np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4, err_msg=step)
+        np.testing.assert_array_equal(g.argmax(-1), w.argmax(-1))
+
+
+def test_hybrid_serve_keeps_each_ranks_heads_of_the_state(world):
+    """The served cache's SSM states keep their heads split over model
+    (``ssm.state_layout``): a layer's new state is written back with no
+    all-gather of the heads of another rank."""
+    got = world["got"]["mamba"]
+    assert got["serve"]["ssm_placements"] == "(Shard(dim=1), Shard(dim=2))"
+    assert got["state_gathers"] == []
+
+
+@pytest.mark.parametrize("arch", BATCH1_ARCHS)
+def test_serve_at_batch_1_on_2x2_equals_one_process(world, arch):
+    """At batch 1 the data ranks hold the batch whole: rwkv6's each take a
+    part of the stream's features and of the output columns of the
+    products that write it (``context.idle_features``, ``idle_columns``);
+    zamba2's each a share of its channelized cache's KV heads
+    (``ops.decode_attn``)."""
+    got, want = world["got"]["batch1"][arch], world["want"]["batch1"][arch]
+    # The hybrid family's logits tolerance, as above.
+    tol = dict(rtol=1e-4, atol=1e-4) if arch == "zamba2-2.7b" else dict(
+        rtol=RTOL, atol=1e-5)
+    assert len(got["logits"]) == len(want)
+    for step, (g, w) in enumerate(zip(got["logits"], want)):
+        np.testing.assert_allclose(g, w, **tol, err_msg=step)
+        np.testing.assert_array_equal(g.argmax(-1), w.argmax(-1))

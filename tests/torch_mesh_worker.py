@@ -12,6 +12,7 @@ fails or hangs fails the call.  The workers import torch and
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import multiprocessing
 import os
@@ -127,8 +128,20 @@ def model_job(rank, payload):
         tables = whole(cfg)     # before the gradients are gathered here
         out[arch] = dict(loss=float(_full(loss)),
                          grads=L.map_tree(_full, grads), whole_tables=tables)
-    serve = payload["serve"]
-    cfg = smoke_variant(get_config(serve["arch"]))
+    out["serve"] = serve_on(mesh, payload["serve"])
+    return out
+
+
+def serve_on(mesh, serve, **over):
+    """A smoke model's prompt and greedy steps under ``decode_rules`` with
+    a channelized cache on ``mesh``: the logits of each, whole."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import context
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.step import make_prefill, make_serve_step
+    from repro_torch.models import Model, smoke_variant
+
+    cfg = smoke_variant(get_config(serve["arch"]), **over)
     model = Model(cfg, device="cpu")
     params = shd.distribute(_tensors(serve["params"]), shd.param_shardings(
         model, mesh, shd.decode_rules(mesh, cfg)))
@@ -151,9 +164,35 @@ def model_job(rank, payload):
             lg, cache = step(params, shd.distribute(
                 sb, shd.batch_shardings(mesh, sb)), cache)
         logits.append(_full(lg))
-    out["serve"] = dict(logits=logits,
-                        placements=str(cache["k"].placements))
-    return out
+    return dict(logits=logits, placements=str(
+        cache["k"].placements if "k" in cache else cache["wkv"].placements),
+        ssm_placements=str(cache["ssm_state"].placements)
+        if "ssm_state" in cache else None)
+
+
+@contextlib.contextmanager
+def _gathers_of(tail):
+    """Inside the block, the local shapes of every DTensor all-gather
+    whose input ends in ``tail``."""
+    import torch.distributed._functional_collectives as funcol
+    names = [n for n in ("all_gather_single", "all_gather_tensor")
+             if hasattr(funcol, n)]
+    saved = {n: getattr(funcol, n) for n in names}
+    seen = []
+
+    def watched(fn):
+        def gather(x, *args, **kwargs):
+            if tuple(x.shape[-len(tail):]) == tuple(tail):
+                seen.append(tuple(x.shape))
+            return fn(x, *args, **kwargs)
+        return gather
+    for n in names:
+        setattr(funcol, n, watched(saved[n]))
+    try:
+        yield seen
+    finally:
+        for n, fn in saved.items():
+            setattr(funcol, n, fn)
 
 
 def _every_rank(x):
@@ -283,9 +322,188 @@ def int8_job(rank, payload):
     return out
 
 
+def _place_params(tree, specs, mesh, rules, grad=False):
+    """Numpy parameters as DTensors laid out by ``rules`` over their
+    specs' logical axes."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import layers as L
+    out = {}
+    for name, spec in specs.items():
+        sh = shd.Sharding(mesh, shd.spec_for(spec.shape, spec.axes, rules,
+                                             mesh))
+        t = shd.distribute({name: _tensors(tree[name])}, {name: sh})[name]
+        out[name] = t.requires_grad_(grad)
+    return L.map_tree(lambda t: t, out)
+
+
+def _batch_rows(x, mesh):
+    from repro_torch.distributed import sharding as shd
+    return shd.distribute({"x": x}, shd.batch_shardings(mesh, {"x": x}))["x"]
+
+
+def moe_layout_job(rank, payload):
+    """The MoE block with its buffer split over a (2, 2) mesh (experts over
+    model, capacity over data): outputs, aux losses, and every rank's
+    (token, slot) ranks within their experts as it routed them."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import context
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import moe, smoke_variant
+
+    mesh = _host_mesh()
+    out = {}
+    ranks_of = moe.global_ranks
+    for key, case in payload.items():
+        cfg = smoke_variant(get_config(case["arch"]), **case["over"])
+        rules = shd.train_rules(mesh, cfg)
+        p = _place_params(case["params"], moe.moe_specs(cfg, layered=False),
+                          mesh, rules)
+        x = _batch_rows(_tensors(case["x"]), mesh)
+        seen = []
+        moe.global_ranks = lambda *a: seen.append(ranks_of(*a)) or seen[-1]
+        try:
+            with context.activation_rules(mesh, {"batch": ("data",)}):
+                y, aux = moe.moe_apply(cfg, p, x, return_aux=True)
+        finally:
+            moe.global_ranks = ranks_of
+        out[key] = dict(y=_full(y), aux={k: float(_full(v)) for k, v in
+                                         aux.items()},
+                        ranks=_every_rank(seen[0].tolist()),
+                        placements=str(y.placements))
+    return out
+
+
+def mamba_layout_job(rank, payload):
+    """The Mamba2 block with its heads split over model on a (2, 2) mesh:
+    a prefill, the decode step from its state, and the gradients of a
+    weighted sum of the prefill's output."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import context
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import smoke_variant, ssm
+
+    mesh = _host_mesh()
+    cfg = smoke_variant(get_config("zamba2-2.7b"))
+    rules = shd.train_rules(mesh, cfg)
+    p = _place_params(payload["params"], ssm.ssm_specs(cfg, layered=False),
+                      mesh, rules, grad=True)
+    x = _batch_rows(_tensors(payload["x"]), mesh).requires_grad_(True)
+    x1 = _batch_rows(_tensors(payload["x1"]), mesh)
+    calls = []
+    inner = ssm._mamba_sharded
+    ssm._mamba_sharded = lambda *a: calls.append(a[-1]) or inner(*a)
+    try:
+        with context.activation_rules(mesh, {"batch": ("data",)}):
+            y, (state, conv) = ssm.mamba_apply(cfg, p, x)
+            weight = _batch_rows(_tensors(payload["r"]), mesh)
+            (y * weight).sum().backward()
+            with torch.no_grad():
+                y1, (state1, conv1) = ssm.mamba_apply(cfg, p, x1, state,
+                                                      conv)
+    finally:
+        ssm._mamba_sharded = inner
+    calls_layer = list(calls)
+    ssm._mamba_sharded = lambda *a: calls.append(a[-1]) or inner(*a)
+    # A rank's heads of a layer's decode state.
+    tail = (cfg.ssm_heads // 2, cfg.ssm_state, cfg.ssm_head_dim)
+    try:
+        with _gathers_of(tail) as state_gathers:
+            served = serve_on(mesh, payload["serve"])
+    finally:
+        ssm._mamba_sharded = inner
+    return dict(y=_full(y), state=_full(state), conv=_full(conv),
+                y1=_full(y1), state1=_full(state1), conv1=_full(conv1),
+                grads={k: _full(t.grad) for k, t in p.items()},
+                dx=_full(x.grad), calls=calls_layer,
+                served_calls=len(calls) - len(calls_layer),
+                state_gathers=state_gathers,
+                state_placements=str(state.placements), serve=served)
+
+
+def grouped_job(rank, payload):
+    """Grouped-query attention with fewer KV heads than model ranks on a
+    (1, 4) mesh: the loss and gradients of a smoke model under
+    ``train_rules``, and a prompt served with the cache's heads whole
+    (``kv_channels=False``); the plain attention's and K2's plain
+    version's query and key shapes on this rank."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import context
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.step import _grads
+    from repro_torch.kernels import ref
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import Model, attention, smoke_variant
+    from repro_torch.models import layers as L
+
+    mesh = make_host_mesh(model_axis=4, device_type="cpu")
+    cfg = smoke_variant(get_config(payload["arch"]), **payload["over"])
+    model = Model(cfg, device="cpu")
+    shapes = {"attend": [], "decode": []}
+    attend, decode = attention.reference_attention, ref.decode_attn_ref
+
+    def seen_attend(q, k, v, causal=True):
+        shapes["attend"].append((tuple(q.shape), tuple(k.shape)))
+        return attend(q, k, v, causal)
+
+    def seen_decode(q, k, v, length):
+        shapes["decode"].append((tuple(q.shape), tuple(k.shape)))
+        return decode(q, k, v, length)
+    attention.reference_attention, ref.decode_attn_ref = (seen_attend,
+                                                          seen_decode)
+    try:
+        params = shd.distribute(_tensors(payload["params"]),
+                                shd.param_shardings(
+                                    model, mesh, shd.train_rules(mesh, cfg)))
+        for _, t in L.flatten_tree(params, torch.is_tensor):
+            t.requires_grad_(True)
+        batch = _tensors(payload["batch"])
+        batch = shd.distribute(batch, shd.batch_shardings(mesh, batch))
+        with context.activation_rules(mesh, {"batch": ("data",)}):
+            loss, _ = model.loss(params, batch)
+            grads = _grads(loss, params)
+        train_shapes = list(shapes["attend"])
+        params = shd.distribute(_tensors(payload["params"]),
+                                shd.param_shardings(
+                                    model, mesh, shd.decode_rules(mesh, cfg)))
+        cache = model.make_cache(*payload["cache"])
+        cache = shd.distribute(cache, shd.cache_shardings(
+            cfg, mesh, cache, kv_channels=False))
+        prompt = _tensors(payload["prompt"])
+        logits = []
+        with torch.no_grad(), context.activation_rules(
+                mesh, {"batch": ("data",)}):
+            lg, cache = model.prefill(params, shd.distribute(
+                prompt, shd.batch_shardings(mesh, prompt)), cache)
+            for _ in range(payload["steps"]):
+                logits.append(_full(lg))
+                tok = torch.from_numpy(logits[-1].argmax(-1).astype(np.int32))
+                sb = dict(tokens=tok[:, None], positions=torch.full(
+                    (len(tok), 1), cache["len"], dtype=torch.int32))
+                lg, cache = model.decode_step(params, shd.distribute(
+                    sb, shd.batch_shardings(mesh, sb)), cache)
+            logits.append(_full(lg))
+    finally:
+        attention.reference_attention, ref.decode_attn_ref = attend, decode
+    return dict(loss=float(_full(loss)), grads=L.map_tree(_full, grads),
+                logits=logits, train_shapes=train_shapes,
+                decode_shapes=shapes["decode"])
+
+
+def batch1_job(rank, payload):
+    """Smoke models served at batch 1 on a (2, 2) mesh, where the data
+    ranks hold the batch whole: rwkv6's take parts of its features,
+    zamba2's shares of its channelized cache's KV heads."""
+    return {arch: serve_on(_host_mesh(), case)
+            for arch, case in payload.items()}
+
+
 def sharding_job(rank, payload):
     return dict(model_job(rank, payload["model"]),
-                kernels=kernel_job(rank, payload["kernels"]))
+                batch1=batch1_job(rank, payload["batch1"]),
+                kernels=kernel_job(rank, payload["kernels"]),
+                moe=moe_layout_job(rank, payload["moe"]),
+                mamba=mamba_layout_job(rank, payload["mamba"]),
+                grouped=grouped_job(rank, payload["grouped"]))
 
 
 JOBS = {"sharding": sharding_job, "int8": int8_job}

@@ -4,9 +4,9 @@
         [--cells stablelm-1.6b:decode_32k,...] [--multi-pod] \
         [--port-only] [--json OUT]
 
-For each family's ``train_4k`` and ``decode_32k`` cell (``CELLS``: one
-architecture a family, mistral-large-123b's decode beside them, and
-zamba2-2.7b's ``long_500k``), runs the reference's
+For each of the 21 single-pod cells (``CELLS``: every architecture's
+``train_4k`` and ``decode_32k`` and the ``long_500k`` cells), runs the
+reference's
 ``repro.launch.dryrun.run_cell`` in a process of its own (that module fakes
 512 host devices when it is imported, and ``run_cell`` returns its result
 without writing it anywhere) and the port's ``python -m
@@ -35,14 +35,15 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 
-CELLS = (("stablelm-1.6b", "train_4k"), ("stablelm-1.6b", "decode_32k"),
-         ("mistral-large-123b", "decode_32k"),
-         ("olmoe-1b-7b", "train_4k"), ("olmoe-1b-7b", "decode_32k"),
-         ("rwkv6-1.6b", "train_4k"), ("rwkv6-1.6b", "decode_32k"),
-         ("zamba2-2.7b", "train_4k"), ("zamba2-2.7b", "decode_32k"),
-         ("zamba2-2.7b", "long_500k"),
-         ("qwen2-vl-72b", "train_4k"), ("qwen2-vl-72b", "decode_32k"),
-         ("hubert-xlarge", "train_4k"))
+#: The 21 single-pod cells that run: every arch's train_4k and
+#: decode_32k (hubert-xlarge has no decode) and the long_500k cells.
+CELLS = tuple((arch, shape) for arch in (
+    "stablelm-1.6b", "starcoder2-3b", "mistral-large-123b", "stablelm-3b",
+    "olmoe-1b-7b", "phi3.5-moe-42b-a6.6b", "zamba2-2.7b", "qwen2-vl-72b",
+    "rwkv6-1.6b", "hubert-xlarge") for shape in (
+    "train_4k", "decode_32k", "long_500k") if not (
+    (arch == "hubert-xlarge" and shape != "train_4k") or
+    (shape == "long_500k" and arch not in ("zamba2-2.7b", "rwkv6-1.6b"))))
 
 #: What each side reports, by the result's keys.
 FIELDS = ("flops_per_chip", "collective_bytes", "argument_gib")
