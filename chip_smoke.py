@@ -188,13 +188,30 @@ Phases; any failure exits non-zero and no phase swallows one:
      over ``model`` (24 decode_attn_partials launches, 8 x 3 shared
      blocks); starcoder2-3b bf16 on (1, 2), 12 query heads a rank and K2
      against its group's KV head, G 12 (240 decode_attn launches, 8 x 30
-     layers); and five dry-run cells on the fake 256-rank (32, 8) world
-     (stablelm-1.6b decode_32k, channelized, and train_4k, olmoe-1b-7b
-     and rwkv6-1.6b train_4k, zamba2-2.7b decode_32k), each in a process
-     of its own, their FLOPs, collective bytes and argument GiB a chip
-     printed.  Alone: ``python3 -c "import chip_smoke;
+     layers); the split train step (``SPLIT_TRAIN``, a wave of its own):
+     rwkv6-1.6b at full width and depth, batch 1 x 2,048, each sequence
+     split in halves over a (pod 2, data 1, model 1) mesh of two gloo
+     ranks (folded to (2, 1)), each rank running K3 on its half from the
+     state the other hands over and K3b in the reverse order, against one
+     process's whole-sequence step (``SPLIT_RUNS``): in float64 on the
+     plain path (:func:`float64_witness`), loss and gradients as one
+     process's to float64's rounding; in bf16 each rank's launches equal
+     one process's (48 K3, 24 K3b), the loss and norm within
+     ``TRAIN_PATH_TOL``'s, and its gradients no farther from the float64
+     step's than ``SPLIT_ROUNDING`` x the one-process step's; after K3's
+     and K3b's
+     two-launch chains at that shape are held to one launch (``WKV_TOL``,
+     bit-equality reported); and seven dry-run cells, five on the fake
+     256-rank (32, 8) world (stablelm-1.6b decode_32k, channelized, and
+     train_4k, olmoe-1b-7b and rwkv6-1.6b train_4k, zamba2-2.7b
+     decode_32k) and rwkv6-1.6b's and stablelm-1.6b's prefill_32k on the
+     512-rank (2, 32, 8) one, sequences split over ``pod`` (FLOPs within
+     0.9-1.1 of the CPU's torch 2.13, ``MULTI_POD_FLOPS``), each in a
+     process of its own, their FLOPs, collective bytes and argument GiB
+     a chip printed.  Alone: ``python3 -c "import chip_smoke;
      chip_smoke.mesh_phase()"``; one serve:
-     ``chip_smoke.world_serve("olmoe")``.
+     ``chip_smoke.world_serve("olmoe")``; the split sequences alone:
+     ``chip_smoke.split_phase()``.
 
 The card's nvidia-smi line is printed again just before the JSON object
 ``{"kernels": [...]}``, the line before the last; the last line is
@@ -3110,9 +3127,65 @@ WORLD_SERVES = {
     "starcoder2": (STARCODER_ARCH, (1, 2), False, "decode_attn", None,
                    torch.bfloat16),
 }
-#: The serves that share the card at once (the largest with the
-#: smallest).
-WORLD_WAVES = (("olmoe", "starcoder2"), ("stablelm", "zamba2"))
+#: The split train step: rwkv6-1.6b at full width and depth, batch 1 x
+#: 2,048, each sequence split in halves over ``pod`` (the multi-pod
+#: ``prefill_32k`` cells' layout: ``sharding.split_sequences``) on a
+#: (pod 2, data 1, model 1) mesh of two gloo ranks on the card, folded to
+#: (2, 1) for the step; loss and gradients only (no AdamW state), so that
+#: the two ranks and the one-process step fit the card.  Each rank runs
+#: K3 on its half from the state the first half's rank hands over, K3b in
+#: the reverse order (``ops._WkvParts``).
+SPLIT_TRAIN = "rwkv6-split"
+SPLIT_BATCH, SPLIT_SEQ = 1, 2048
+#: The split train step's runs, each at all 24 layers and against one
+#: process's whole-sequence step on the same weights (bf16's values, which
+#: float32 and float64 hold exactly) and tokens: (dtype, plain versions,
+#: the split's bounds against one process: loss and gradient norm
+#: relative, every leaf as a share of its largest element, None where
+#: not gated).
+#:   * float64 on the plain path, under :func:`float64_witness`: the split
+#:     is exact math, so only float64's rounding can part the steps, where
+#:     a fault (a gradient dropped or handed to the wrong half) moves a
+#:     leaf by its own size (0.237 in a copy whose shift dropped the
+#:     gradient it hands back, on the CPU).  Read on the card (H100,
+#:     700 W): loss 1.1e-16, norm 6.8e-13, leaves 1.9e-12 at T 2,048;
+#:     loss 1.1e-15, norm 1.8e-10, leaves 1.9e-10 at T 256 (a shorter
+#:     sequence carries float64's rounding further).  The bounds lie 50x
+#:     above the larger reading and seven orders below a fault.
+#:   * bf16, the deployment's dtype, through K3 and K3b: each rank
+#:     launches what one process does (48 K3, 24 K3b); loss and norm
+#:     within ``TRAIN_PATH_TOL``'s.
+#:     Its leaves are reported against ``TRAIN_PATH_TOL``'s 5e-3 (read
+#:     6.7e-3; a bf16 step at a leaf's largest element is 3.9e-3 to 7.8e-3
+#:     of it).
+#:   * float32 through K3 and K3b, in :func:`split_phase` only.
+#: Below float64, where a float64 run of the same length came first, the
+#: gradients are also held to that truth: the split step's leaves (the
+#: largest share) and norm may lie no farther from it than
+#: ``SPLIT_ROUNDING`` x the one-process step's.  At 24 layers of random
+#: weights rounding itself moves the gradients far: on the card one
+#: process's float32 step read 13% from the truth (the split's 8%, the
+#: two 19% apart), its bf16 step's norm 6.7x the truth's.
+SPLIT_RUNS = {
+    "float64": (True, dict(loss=1e-12, gnorm=1e-8, leaf=1e-8)),
+    "bfloat16": (False, dict(loss=1e-5, gnorm=2e-3, leaf=None)),
+    "float32": (False, dict(loss=1e-5, gnorm=None, leaf=None)),
+}
+SPLIT_ROUNDING = 2.0
+#: The runs (dtype, sequence length) of each split train step: the
+#: script's, whose float64 witness takes an eighth of the sequence (the
+#: plain WKV's per-token loop is launch-bound, and the split's exchanges
+#: do not depend on the length), and :func:`split_phase`'s, which reads
+#: bf16 and float32 against a float64 truth of their own length.
+SPLIT_TRAINS = {
+    SPLIT_TRAIN: (("float64", SPLIT_SEQ // 8), ("bfloat16", SPLIT_SEQ)),
+    "rwkv6-split-all": (("float64", SPLIT_SEQ), ("bfloat16", SPLIT_SEQ),
+                        ("float32", SPLIT_SEQ)),
+}
+#: The serves that share the card at once (the largest with the smallest),
+#: and the split train step, whose float64 run wants the card alone.
+WORLD_WAVES = (("olmoe", "starcoder2"), ("stablelm", "zamba2"),
+               (SPLIT_TRAIN,))
 #: The MoE serve's routing against the one-process serve's: in float32
 #: the two layouts' router products round apart, so a gate within a step
 #: of its neighbour may pick another expert (3 of 33,792, 4 and 5 of
@@ -3322,7 +3395,8 @@ def _world_entry(rank, world, port, out, name):
                             world_size=world,
                             timeout=datetime.timedelta(seconds=600))
     try:
-        res = _world_serve(rank, world, name)
+        res = (_world_train if name in SPLIT_TRAINS else _world_serve)(
+            rank, world, name)
         dist.barrier()
         if rank == 0:
             Path(out).write_text(json.dumps(res))
@@ -3380,7 +3454,10 @@ def world_serves(names):
 
     from repro_torch.kernels import build
     from repro_torch.kernels import decode_attn as da
-    build.load_all([da.KERNEL.library])     # the ranks load what it built
+    from repro_torch.kernels import rwkv_wkv as kw
+    # The ranks load what it built.
+    build.load_all([da.KERNEL.library, kw.KERNEL.library,
+                    kw.KERNEL_BWD.library])
     # The ranks' models need the card: hand back what this process's
     # allocator keeps cached.
     torch.cuda.empty_cache()
@@ -3416,6 +3493,8 @@ def world_serves(names):
 def _check_world(name, res):
     """:func:`world_serves`' checks of one serve's rank-0 record; returns
     its launches."""
+    if name in SPLIT_TRAINS:
+        return _check_split_train(res)
     arch, mesh, _, kname, _, dtype = WORLD_SERVES[name]
     tol = PATH_CHECK[arch if PATH_CHECK.get(arch, (None,))[0] == dtype
                      else DENSE_ARCH][1]
@@ -3492,51 +3571,360 @@ def _check_routes(name, res, data_ranks):
              f"{res['layer_diff']} of {res['layer_tokens']} tokens allow")
 
 
-#: Phase 11's dry-run cells, each on the fake (32, 8) world in a process
-#: of its own, all at once.
-MESH_DRYRUN_CELLS = ((DENSE_ARCH, "decode_32k"), (DENSE_ARCH, "train_4k"),
-                     (MOE_ARCH, "train_4k"), (SSM_ARCH, "train_4k"),
-                     (HYBRID_ARCH, "decode_32k"))
+@contextlib.contextmanager
+def float64_witness():
+    """Inside the block a model may be float64 (``dtype="float64"``), and
+    ``Tensor.float()`` of a floating tensor gives float64: the port's
+    float32 math (the norms, the WKV's states, the loss) then runs in
+    float64 too, so two orders of the same sums agree to float64's
+    rounding.  Only the plain versions run there (K3 and K3b take bf16
+    and float32)."""
+    from repro_torch.models import model as M
+    own = "float" in vars(torch.Tensor)
+    saved = torch.Tensor.float
+
+    def wide(self, *args, **kwargs):
+        return self.double() if self.is_floating_point() else \
+            saved(self, *args, **kwargs)
+    torch.Tensor.float = wide
+    M.DTYPES["float64"] = torch.float64
+    try:
+        yield
+    finally:
+        if own:
+            torch.Tensor.float = saved
+        else:
+            del torch.Tensor.float
+        del M.DTYPES["float64"]
 
 
-def start_dryrun_cells():
-    """Start dry-run cells (arch, shape) on the (32, 8) mesh of a fake
-    256-rank world, each in a process of its own (the fake world never
-    shares a process with NCCL; no card), all at once; decode cells lay
-    the cache out channelized.  :func:`finish_dryrun_cells` reads them."""
+def _world_train(rank, world, name):
+    """One rank of the split train step ``name`` (:data:`SPLIT_TRAINS`),
+    each of its runs at full depth: rank 0 first runs one process's step on
+    the whole sequences (loss and gradients, its K3/K3b launches counted);
+    then every rank runs its half of each sequence through ``Model.loss``
+    and the gradients under the ``seq_pair`` rule, its launches counted,
+    and rank 0 compares the loss, the gradient norm and every gradient
+    leaf (gathered whole, one at a time) with the one-process step's, and
+    both steps' with the float64 one-process step's.  Returns rank 0's
+    records, a list in run order."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticDataset
+    from repro_torch.distributed import context, layout
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed import step as pstep
+    from repro_torch.kernels import rwkv_wkv as kw
+    from repro_torch.launch.dryrun import fold_pod
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import Model
+
+    full = init_device_mesh("cuda", (world, 1, 1),
+                            mesh_dim_names=("pod", "data", "model"))
+    mesh = fold_pod(full)
+    pair = layout.SeqPair.over(full)
+    kernels = {"wkv": kw.KERNEL, "wkv_bwd": kw.KERNEL_BWD}
+    counts = lambda: {k: kern.launches for k, kern in kernels.items()}
+    whole = lambda x: x.full_tensor() if isinstance(x, DTensor) else x
+    # |a - b| over b's largest element, and the sum of squares, in float64.
+    share = lambda a, b: ((a.double() - b.double()).abs().max() /
+                          b.double().abs().max().clamp(min=1e-300)).item()
+    sq = lambda t: t.double().square().sum().item()
+    runs = SPLIT_TRAINS[name]
+    truth, known, out = {}, {}, []
+    for i, (dtype, seq) in enumerate(runs):
+        plain = SPLIT_RUNS[dtype][0]
+        with float64_witness() if dtype == "float64" else \
+                contextlib.nullcontext():
+            cfg = dataclasses.replace(get_config(SSM_ARCH), dtype=dtype)
+            model = Model(cfg)
+            # The same weights in every run: bf16's values, which float32
+            # and float64 hold exactly, so that the float64 step is the
+            # truth of each run's own rounding.
+            params = L.map_tree(lambda t: t.to(model.dtype), Model(
+                dataclasses.replace(cfg, dtype="bfloat16")).init(SEED))
+            batch = {k: torch.as_tensor(v, device="cuda") for k, v in
+                     SyntheticDataset(cfg, SPLIT_BATCH, seq,
+                                      seed=SEED + 1).batch_at(0).items()}
+            rec = {"dtype": dtype, "seq": seq, "mesh": str(mesh),
+                   "pair": repr(pair), "layers": cfg.n_layers}
+            held = dtype != "float64" and known.get("seq") == seq
+            torch.cuda.reset_peak_memory_stats()
+            with blocking_all_gathers():
+                if rank == 0:
+                    for kern in kernels.values():
+                        kern.launches = 0
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    want_loss, _, want = loss_and_grads(model, params, batch,
+                                                        plain)
+                    torch.cuda.synchronize()
+                    rec.update(one_wall=time.perf_counter() - t0,
+                               one=counts())
+                    want = dict(L.flatten_tree(want, torch.is_tensor))
+                    for _, t in L.flatten_tree(params, torch.is_tensor):
+                        t.requires_grad_(False)
+                dist.barrier()
+                p = L.map_tree(own_shard, params, shd.param_shardings(
+                    model, mesh, shd.train_rules(mesh, cfg)))
+                del params
+                for _, t in L.flatten_tree(p, torch.is_tensor):
+                    t.requires_grad_(True)
+                split = shd.split_sequences(full, batch, world)
+                b = L.map_tree(own_shard, split,
+                               shd.batch_shardings(mesh, split))
+                rules = {"batch": shd.fsdp_axes(mesh), "seq_pair": pair}
+                for kern in kernels.values():
+                    kern.launches = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with context.activation_rules(mesh, rules):
+                    loss, _ = model.loss(p, b, plain_kernels=plain)
+                    grads = pstep._grads(loss, p)
+                torch.cuda.synchronize()
+                rec["wall"] = time.perf_counter() - t0
+                every = [None] * world
+                dist.all_gather_object(every, counts())
+                rec.update(split=every, loss=whole(loss).item(),
+                           peak=torch.cuda.max_memory_allocated() / 2**30)
+                del p, b, loss
+                shares, equal, norm_sq, want_sq = {}, 0, 0.0, 0.0
+                far, one_far = {}, {}
+                for path, g in L.flatten_tree(grads, torch.is_tensor):
+                    g = whole(g)
+                    if rank == 0:
+                        w = want.pop(path)
+                        shares[path] = share(g, w)
+                        equal += torch.equal(g, w)
+                        norm_sq, want_sq = norm_sq + sq(g), want_sq + sq(w)
+                        if dtype == "float64" and any(
+                                s == seq for _, s in runs[i + 1:]):
+                            truth[path] = w
+                        elif held:
+                            far[path] = share(g, truth[path])
+                            one_far[path] = share(w, truth[path])
+                    del g
+                del grads
+        if rank == 0:
+            rec.update(want_loss=want_loss, finite=math.isfinite(rec["loss"]),
+                       gnorm=math.sqrt(norm_sq), want_gnorm=math.sqrt(want_sq),
+                       shares=shares, equal_leaves=equal, far=far,
+                       one_far=one_far)
+            if dtype == "float64":
+                known = dict(seq=seq, loss=want_loss,
+                             gnorm=math.sqrt(want_sq))
+            elif held:
+                rec.update(truth_loss=known["loss"],
+                           truth_gnorm=known["gnorm"])
+        out.append(rec)
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def _check_split_train(res):
+    """The split train step's checks of rank 0's records
+    (:func:`_world_train`), each run at full depth (``SPLIT_RUNS``): each
+    rank's K3 and K3b launches equal the one-process step's (2 and 1 a
+    layer under remat "full", each layer's forward and its recompute, and
+    its backward: 48 and 24; none on the plain path); the loss, the
+    gradient norm and every gradient leaf within the run's bounds of the
+    one-process step's; and, below float64 where a float64 run of the same
+    length came first, the split step's leaves and norm no farther from
+    that truth than ``SPLIT_ROUNDING`` times the one-process step's.  ``TRAIN_PATH_TOL`` is reported against.
+    Returns the launches of rank 0 summed over the runs."""
+    launched = {"wkv": 0, "wkv_bwd": 0}
+    for rec in res:
+        n, (plain, tol) = rec["layers"], SPLIT_RUNS[rec["dtype"]]
+        want = {"wkv": 0, "wkv_bwd": 0} if plain else \
+            {"wkv": 2 * n, "wkv_bwd": n}
+        worst = sorted(((x, p) for p, x in rec["shares"].items()),
+                       reverse=True)
+        rel = {"loss": abs(rec["loss"] / rec["want_loss"] - 1),
+               "gnorm": abs(rec["gnorm"] / rec["want_gnorm"] - 1),
+               "leaf": worst[0][0]}
+        bounds = ", ".join(
+            f"{k} {rel[k]:.2e} (tol {tol[k]}"
+            f"{'' if plain else ', TRAIN_PATH_TOL ' + str(TRAIN_PATH_TOL[k])})"
+            for k in rel)
+        line = (f"split train step: {SSM_ARCH} {rec['dtype']} "
+                f"({'plain path' if plain else 'K3/K3b'}) at full width and "
+                f"depth ({n} layers), B{SPLIT_BATCH} x T{rec['seq']} split in "
+                f"halves over {rec['mesh']} ({rec['pair']} on rank 0) of "
+                f"{CHANNEL_RANKS} gloo ranks of one card: launches by rank "
+                f"{rec['split']}, the one-process step's {rec['one']} "
+                f"(expected {want} each); loss {rec['loss']:.9g} vs "
+                f"{rec['want_loss']:.9g}, grad norm {rec['gnorm']:.9g} vs "
+                f"{rec['want_gnorm']:.9g}; against one process: {bounds}; "
+                f"worst leaves "
+                f"{', '.join(f'{p} {x:.1e}' for x, p in worst[:3])}, "
+                f"{rec['equal_leaves']} of {len(worst)} bit-equal")
+        far = None
+        if rec["far"]:
+            far = {
+                "leaf": (max(rec["far"].values()),
+                         max(rec["one_far"].values())),
+                "gnorm": (abs(rec["gnorm"] / rec["truth_gnorm"] - 1),
+                          abs(rec["want_gnorm"] / rec["truth_gnorm"] - 1))}
+            line += ("; from the float64 truth (split / one process, at "
+                     f"most {SPLIT_ROUNDING}x): " + ", ".join(
+                         f"{k} {a:.2e} / {b:.2e}" for k, (a, b) in
+                         far.items()) + ", loss "
+                     f"{abs(rec['loss'] / rec['truth_loss'] - 1):.2e} / "
+                     f"{abs(rec['want_loss'] / rec['truth_loss'] - 1):.2e}")
+        log(f"{line}; {rec['wall']:.2f} s the split step, "
+            f"{rec['one_wall']:.2f} s the one-process step (host clock), "
+            f"peak {rec['peak']:.2f} GiB on rank 0")
+        if rec["one"] != want or any(r != want for r in rec["split"]):
+            fail(f"split train step ({rec['dtype']}): launches "
+                 f"{rec['split']} (one process {rec['one']}), want {want} "
+                 f"on every rank")
+        if not rec["finite"] or any(
+                tol[k] is not None and rel[k] > tol[k] for k in rel):
+            fail(f"split train step ({rec['dtype']}): loss, grad norm or a "
+                 f"gradient leaf out of its bound against the one-process "
+                 f"step")
+        if far and any(a > SPLIT_ROUNDING * b for a, b in far.values()):
+            fail(f"split train step ({rec['dtype']}): farther from the "
+                 f"float64 truth than {SPLIT_ROUNDING} x the one-process "
+                 f"step")
+        for k in launched:
+            launched[k] += rec["split"][0][k]
+    return launched
+
+
+def wkv_split_check(kw):
+    """In bf16 and in float32: K3 over the split train step's T in two
+    launches (the first half from s0, the second from its final state)
+    against one launch over T, y and the final state, each element within
+    ``WKV_TOL``; K3b in two
+    launches in the reverse order (the second half's initial-state
+    gradient handed to the first as its final-state gradient) against one
+    launch, every output within ``WKV_TOL``'s atol plus its rtol of the
+    output's largest element (du, a sum over time of terms of both signs,
+    is the halves' two sums added: the order moves its small elements by
+    more than their own 1e-4, read on the card at 6.7e-4 against a
+    largest element of 1.27e3).  Bit-equality is reported.  Returns the
+    largest |difference|."""
+    worst = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        worst = max(worst, _wkv_split_check(kw, dtype))
+    return worst
+
+
+def _wkv_split_check(kw, dtype):
+    shape = (SPLIT_BATCH, SPLIT_SEQ) + TRAIN_SHAPE[2:]
+    half = SPLIT_SEQ // 2
+    r, k, v, w, u, s0 = rand_wkv(*shape, dtype, "model", seed=31)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 32)
+    dy = torch.randn(shape, generator=gen, device="cuda")
+    ds_t = torch.randn(s0.shape, generator=gen, device="cuda")
+    part = lambda x, sl: x[:, sl].contiguous()
+    first, second = slice(0, half), slice(half, None)
+    y, s = kw.wkv(r, k, v, w, u, s0)
+    y0, s_mid = kw.wkv(*(part(x, first) for x in (r, k, v, w)), u, s0)
+    y1, s_end = kw.wkv(*(part(x, second) for x in (r, k, v, w)), u, s_mid)
+    g = kw.wkv_bwd(r, k, v, w, u, s0, dy, ds_t)
+    g1 = kw.wkv_bwd(*(part(x, second) for x in (r, k, v, w)), u, s_mid,
+                    part(dy, second), ds_t)
+    g0 = kw.wkv_bwd(*(part(x, first) for x in (r, k, v, w)), u, s0,
+                    part(dy, first), g1[5])
+    torch.cuda.synchronize()
+    pairs = {"y": (torch.cat([y0, y1], dim=1), y), "state": (s_end, s)}
+    for i, name in enumerate(WKV_BWD_OUTPUTS[:4]):
+        pairs[name] = (torch.cat([g0[i], g1[i]], dim=1), g[i])
+    pairs["du"] = (g0[4] + g1[4], g[4])
+    pairs["ds0"] = (g0[5], g[5])
+    worst = 0.0
+    for name, (a, b) in pairs.items():
+        err = (a.float() - b.float()).abs().max().item()
+        worst = max(worst, err)
+        top = b.float().abs().max().item()
+        ok = torch.allclose(a.float(), b.float(), **WKV_TOL) if name in (
+            "y", "state") else err <= WKV_TOL["atol"] + WKV_TOL["rtol"] * top
+        log(f"  {'K3' if name in ('y', 'state') else 'K3b'} {name} over "
+            f"{shape} {str(dtype)[6:]} in two launches at {half} vs one: "
+            f"max|diff| {err:.3e} "
+            f"(|x| <= {top:.3g}), "
+            f"{'bit-equal' if torch.equal(a, b) else 'not bit-equal'}"
+            f"{'' if ok else ' MISMATCH'}")
+        if not ok:
+            fail(f"the two-launch chain's {name} differs from one launch "
+                 f"(atol {WKV_TOL['atol']}, rtol {WKV_TOL['rtol']})")
+    return worst
+
+
+#: Phase 11's dry-run cells, each on the fake (32, 8) world (or, marked
+#: multi-pod, (2, 32, 8)) in a process of its own, all at once.
+MESH_DRYRUN_CELLS = ((DENSE_ARCH, "decode_32k", False),
+                     (DENSE_ARCH, "train_4k", False),
+                     (MOE_ARCH, "train_4k", False),
+                     (SSM_ARCH, "train_4k", False),
+                     (HYBRID_ARCH, "decode_32k", False),
+                     (SSM_ARCH, "prefill_32k", True),
+                     (DENSE_ARCH, "prefill_32k", True))
+#: The multi-pod cells' FLOPs a chip on the CPU's torch 2.13
+#: (``launch.dryrun``, each sequence split in halves over ``pod``); the
+#: card's torch 2.11 must read within 0.9-1.1 of them.  (Replicated over
+#: the pod as before the split, stablelm-1.6b read 3.743e15.)
+MULTI_POD_FLOPS = {(SSM_ARCH, "prefill_32k"): 2.535e13,
+                   (DENSE_ARCH, "prefill_32k"): 7.437e13}
+
+
+def start_dryrun_cells(cells=MESH_DRYRUN_CELLS):
+    """Start dry-run cells (arch, shape, multi-pod) on the (32, 8) mesh of
+    a fake 256-rank world or the (2, 32, 8) mesh of a 512-rank one, each
+    in a process of its own (the fake world never shares a process with
+    NCCL; no card), all at once; decode cells lay the cache out
+    channelized.  :func:`finish_dryrun_cells` reads them."""
     import os
     out = HERE / "dryrun_out"
-    return time.perf_counter(), out, [(arch, shape, subprocess.Popen(
+    return time.perf_counter(), out, [(arch, shape, multi, subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-         "--shape", shape, "--out", str(out)], stdout=subprocess.PIPE,
+         "--shape", shape, "--out", str(out)] +
+        (["--multi-pod"] if multi else []), stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True, cwd=HERE,
         env={**os.environ, "PYTHONPATH": str(HERE / "src")}))
-        for arch, shape in MESH_DRYRUN_CELLS]
+        for arch, shape, multi in cells]
 
 
 def finish_dryrun_cells(started):
     """Wait for the cells :func:`start_dryrun_cells` started; each must
-    read ``ok``, and its FLOP, collective and argument line is printed."""
+    read ``ok``, and its FLOP, collective and argument line is printed; a
+    multi-pod cell's FLOPs a chip must lie within 0.9-1.1 of the CPU's
+    (``MULTI_POD_FLOPS``)."""
     t0, out, runs = started
     results = []
-    for arch, shape, run in runs:
+    for arch, shape, multi, run in runs:
+        mesh = "2x32x8" if multi else "32x8"
         try:
             _, err = run.communicate(timeout=600)
         except subprocess.TimeoutExpired:
             run.kill()
             run.communicate()
-            fail(f"dry run {arch} {shape}: no result in 600 s")
-        path = out / f"{arch}__{shape}__32x8__baseline.json"
+            fail(f"dry run {arch} {shape} {mesh}: no result in 600 s")
+        path = out / f"{arch}__{shape}__{mesh}__baseline.json"
         res = json.loads(path.read_text()) if path.exists() else {
             "status": "missing", "error": ""}
         if run.returncode != 0 or res["status"] != "ok":
-            fail(f"dry run {arch} {shape}: exit {run.returncode}, "
+            fail(f"dry run {arch} {shape} {mesh}: exit {run.returncode}, "
                  f"{res['status']}: {res['error']}\n{err[-2000:]}")
-        log(f"dry run {arch} {shape} on the fake (32, 8) world: "
-            f"{res['flops_per_chip']:.4e} FLOP a chip, collectives "
-            f"{res['collectives']['total']:.4e} B a chip, argument bytes "
-            f"{res['memory']['argument_bytes'] / 2**30:.2f} GiB a chip, "
+        cpu = MULTI_POD_FLOPS.get((arch, shape)) if multi else None
+        vs = "" if cpu is None else (
+            f" ({res['flops_per_chip'] / cpu:.3f} of torch 2.13's "
+            f"{cpu:.4e})")
+        log(f"dry run {arch} {shape} on the fake {mesh.replace('x', ', ')} "
+            f"world: {res['flops_per_chip']:.4e} FLOP a chip{vs}"
+            f", collectives {res['collectives']['total']:.4e} B a chip, "
+            f"argument bytes {res['memory']['argument_bytes'] / 2**30:.2f} "
+            f"GiB a chip, sequences in {res.get('seq_parts', 1)} part(s), "
             f"{res['seconds']:.1f} s in the cell")
+        if cpu is not None and not 0.9 <= res["flops_per_chip"] / cpu <= 1.1:
+            fail(f"dry run {arch} {shape} {mesh}: {res['flops_per_chip']:.4e}"
+                 f" FLOP a chip, outside 0.9-1.1 of torch 2.13's {cpu:.4e}")
         results.append(res)
     log(f"dry run: {len(runs)} cells in {time.perf_counter() - t0:.1f} s "
         f"with their processes")
@@ -3588,15 +3976,19 @@ def mesh_phase():
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
     from repro_torch.kernels import memsim_scan as ms
+    from repro_torch.kernels import rwkv_wkv as kw
     from repro_torch.launch import serve
     t_phase = time.perf_counter()
     kernels = dict(serve.PATH_KERNELS["dense"])
     kernels.update(ms.KERNELS)
-    build.load_all([kern.library for kern in kernels.values()])
+    build.load_all([kern.library for kern in kernels.values()] +
+                   [kw.KERNEL.library, kw.KERNEL_BWD.library])
     launches = mesh_des_check(kernels)
     launches["decode_attn"] = mesh_serve(get_config(DENSE_ARCH), kernels)
-    launches["decode_attn_partials"] = 0
-    # The dry-run cells (host only) and the two-rank serves run at once.
+    launches.update(decode_attn_partials=0, wkv=0, wkv_bwd=0)
+    wkv_split_check(kw)
+    # The dry-run cells (host only) and the two-rank serves and the split
+    # train step run at once.
     dry = start_dryrun_cells()
     for wave in WORLD_WAVES:
         for got, _ in world_serves(wave).values():
@@ -3605,6 +3997,27 @@ def mesh_phase():
     finish_dryrun_cells(dry)
     log(f"phase 11 took {time.perf_counter() - t_phase:.1f} s (host clock)")
     return launches
+
+
+def split_phase():
+    """Phase 11's split sequences alone: K3's and K3b's two-launch chains
+    against one launch (:func:`wkv_split_check`), the split train step
+    (:data:`SPLIT_TRAIN`) while the multi-pod ``prefill_32k`` dry-run
+    cells run.  Returns rank 0's launches.  Alone: ``python3 -c "import
+    chip_smoke; chip_smoke.split_phase()"``."""
+    if not torch.cuda.is_available():
+        fail("torch sees no CUDA card; this script runs only on one")
+    from repro_torch.kernels import build
+    from repro_torch.kernels import rwkv_wkv as kw
+    t_phase = time.perf_counter()
+    build.load_all([kw.KERNEL.library, kw.KERNEL_BWD.library])
+    wkv_split_check(kw)
+    dry = start_dryrun_cells([c for c in MESH_DRYRUN_CELLS if c[2]])
+    got, _ = world_serves(("rwkv6-split-all",))["rwkv6-split-all"]
+    finish_dryrun_cells(dry)
+    log(f"split phase took {time.perf_counter() - t_phase:.1f} s (host "
+        f"clock)")
+    return got
 
 
 def main():

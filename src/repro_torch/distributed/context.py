@@ -33,6 +33,13 @@ in place, vocab-parallel (``models/layers.embed_apply`` and
 ``chunked_ce_loss``): DTensor's own masked lookup leaves a partial sum
 that its later reduction mis-shapes.
 
+A step whose batch rows are the parts of split sequences
+(``sharding.split_sequences``) runs under a ``seq_pair`` rule, the
+:class:`~repro_torch.distributed.layout.SeqPair` of the ranks that hold
+the parts of the same sequences (:func:`seq_pair`): the blocks hand
+what crosses a part's edge over it (the token shift's and the conv's
+tails, the recurrences' states, attention's keys and values).
+
 Nothing here changes a value: with no active rules every path is
 numerically exactly what it is without this module.
 """
@@ -40,7 +47,7 @@ numerically exactly what it is without this module.
 from __future__ import annotations
 
 import contextlib
-import threading
+import types
 
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
@@ -48,13 +55,16 @@ from repro_torch.distributed.layout import (axis_sizes, local_part,
                                             placements,
                                             replicate_plain_tensors)
 
-_STATE = threading.local()
+# Process-wide, not a thread's own: autograd runs a CUDA backward, and the
+# recompute of a remat layer inside it, on a device thread of its own,
+# where the model's hooks must see the same rules as in the forward.
+_STATE = types.SimpleNamespace(value=None)
 
 
 @contextlib.contextmanager
 def activation_rules(mesh, rules: dict):
     """Enable logical->mesh activation constraints inside the block."""
-    old = getattr(_STATE, "value", None)
+    old = _STATE.value
     _STATE.value = (mesh, rules)
     try:
         with replicate_plain_tensors():
@@ -65,12 +75,45 @@ def activation_rules(mesh, rules: dict):
 
 def active():
     """(mesh, rules) of the enclosing ``activation_rules``, or None."""
-    return getattr(_STATE, "value", None)
+    return _STATE.value
 
 
 def flag(name: str) -> bool:
     state = active()
     return bool(state and state[1].get(name))
+
+
+def seq_pair():
+    """The active rules' ``seq_pair`` (a ``layout.SeqPair``: each
+    sequence of the batch split into parts over the ``pod`` axis,
+    ``sharding.split_sequences``), or None."""
+    state = active()
+    return state[1].get("seq_pair") if state else None
+
+
+def pair_shift(send, first=None):
+    """:meth:`SeqPair.shift <repro_torch.distributed.layout.SeqPair.shift>`
+    of the active ``seq_pair`` on the local shards of a DTensor ``send``
+    (``first`` laid out as ``send``; a plain tensor counts as
+    replicated): the rows' tails handed to the next part of each
+    sequence."""
+    pair = seq_pair()
+    if not isinstance(send, DTensor):
+        return pair.shift(send, first)
+    mesh = send.device_mesh
+    want = [Replicate() if p.is_partial() else p for p in send.placements]
+    if tuple(want) != tuple(send.placements):
+        send = send.redistribute(mesh, want)
+    if first is not None:
+        if not isinstance(first, DTensor):
+            first = DTensor.from_local(first, mesh,
+                                       [Replicate()] * mesh.ndim,
+                                       run_check=False)
+        if tuple(first.placements) != tuple(want):
+            first = first.redistribute(mesh, want)
+        first = first.to_local()
+    return DTensor.from_local(pair.shift(send.to_local(), first), mesh,
+                              want, run_check=False)
 
 
 def _fit(x, parts, sizes) -> tuple:

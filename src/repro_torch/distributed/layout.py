@@ -14,6 +14,12 @@ layer does not depend on the model package.
   gradient is a pending sum over the ranks that each use a part of it.
 * :func:`replicate_plain_tensors`: inside the block a plain tensor that
   meets a DTensor counts as replicated.
+* :class:`SeqPair`: the two ranks that hold the halves of the same
+  sequences (a step whose batch does not divide its data ranks splits each
+  sequence over a ``pod`` axis of two, ``sharding.split_sequences``), and
+  the collectives they run on local tensors: half 0's tail handed to half
+  1 (:meth:`SeqPair.shift`, differentiable; :meth:`SeqPair.hand_over`,
+  not) and the halves gathered (:meth:`SeqPair.gather`).
 """
 
 from __future__ import annotations
@@ -21,6 +27,9 @@ from __future__ import annotations
 import contextlib
 import threading
 
+import torch
+import torch.distributed as dist
+import torch.distributed._functional_collectives as funcol
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import implicit_replication
 
@@ -115,3 +124,116 @@ def replicate_plain_tensors():
             if _DEPTH[0] == 0:
                 outer, _OUTER[0] = _OUTER[0], None
                 outer.__exit__(None, None, None)
+
+
+# ---------------------------------------------------------------------------
+# The ranks that share sequences.
+# ---------------------------------------------------------------------------
+
+def _wait(x):
+    """A functional collective's result, waited for."""
+    return torch.ops._c10d_functional.wait_tensor(x)
+
+
+class SeqPair:
+    """The two ranks that hold the two halves of the same sequences, this
+    rank holding half ``index``; ``group`` is their process group (a
+    mesh's ``pod`` group), whose ranks are in half order.
+
+    A train or prefill step whose global batch does not divide its data
+    ranks splits each sequence in halves over a ``pod`` axis of two
+    (``sharding.split_sequences``).  The blocks then run on each rank's
+    half and exchange what crosses the halves' edge over ``group``, by
+    functional collectives on local tensors (DTensor never sees the split,
+    so its strategy search stays on the folded two-dimensional mesh):
+    the token shift's and the causal conv's tails (:meth:`shift`), the
+    recurrences' states (:meth:`hand_over`, ``kernels/ops.wkv`` and
+    ``models/ssm``), and attention's keys and values (:meth:`gather`).
+    Both ranks issue the same collectives in the same order, forward and
+    backward, whatever their half."""
+
+    size = 2
+
+    def __init__(self, index: int, group):
+        if index not in (0, 1):
+            raise ValueError(f"half {index} of a sequence")
+        if dist.get_world_size(group) != 2:
+            raise ValueError(f"a pair over a group of "
+                             f"{dist.get_world_size(group)} ranks")
+        self.index, self.group = index, group
+
+    @classmethod
+    def over(cls, mesh, axis: str = "pod"):
+        """The pair of ``mesh``'s ``axis``, which must have two ranks: this
+        rank's coordinate there is its half."""
+        i = mesh.mesh_dim_names.index(axis)
+        if mesh.size(i) != 2:
+            raise ValueError(f"sequences split over a {axis} axis of "
+                             f"{mesh.size(i)}: only halves over two ranks")
+        return cls(mesh.get_coordinate()[i], mesh.get_group(axis))
+
+    def __repr__(self):
+        return f"SeqPair(half {self.index})"
+
+    def hand_over(self, x, back: bool = False):
+        """Half 0's ``x`` on half 1 (with ``back``, half 1's on half 0):
+        an all-reduce to which the receiving half adds zeros, so it passes
+        a tensor of the same shape and dtype, whose values it does not
+        use.  No gradient."""
+        sender = self.index == (1 if back else 0)
+        return _wait(torch.ops._c10d_functional.all_reduce(
+            (x if sender else torch.zeros_like(x)).contiguous(), "sum",
+            self.group.group_name))
+
+    def shift(self, send, first=None):
+        """On half 1, half 0's ``send``; on half 0, ``first`` (zeros where
+        None): a tail handed across the halves' edge, with its gradient
+        handed back."""
+        return _Shift.apply(self, send,
+                            torch.zeros_like(send) if first is None
+                            else first)
+
+    def gather(self, x, dim: int):
+        """Both halves' ``x`` joined along ``dim``, half 0 first; the
+        gradient of each half's own slice is the sum over the pair."""
+        return _Gather.apply(self, x, dim % x.dim())
+
+
+class _Shift(torch.autograd.Function):
+    """:meth:`SeqPair.shift`: half 0's ``send`` handed to half 1, and half
+    1's gradient of it handed back (:meth:`SeqPair.hand_over`)."""
+
+    @staticmethod
+    def forward(ctx, pair, send, first):
+        ctx.pair = pair
+        got = pair.hand_over(send)
+        return first.clone() if pair.index == 0 else got
+
+    @staticmethod
+    def backward(ctx, g):
+        pair = ctx.pair
+        got = pair.hand_over(g, back=True)
+        if pair.index == 0:
+            return None, got, g
+        return None, torch.zeros_like(g), None
+
+
+class _Gather(torch.autograd.Function):
+    """:meth:`SeqPair.gather`: an all-gather forward, a reduce-scatter of
+    the gradient backward."""
+
+    @staticmethod
+    def forward(ctx, pair, x, dim):
+        ctx.pair, ctx.dim = pair, dim
+        gather = getattr(funcol, "all_gather_single", None) or \
+            funcol.all_gather_tensor
+        out = gather(x.contiguous(), dim, pair.group)
+        return out.wait() if hasattr(out, "wait") else out
+
+    @staticmethod
+    def backward(ctx, g):
+        pair, dim = ctx.pair, ctx.dim
+        part = _wait(torch.ops._c10d_functional.reduce_scatter_tensor(
+            g.movedim(dim, 0).contiguous(), "sum", pair.size,
+            pair.group.group_name))
+        return None, part.movedim(0, dim), None

@@ -139,6 +139,47 @@ def batch_shardings(mesh, batch_tree) -> dict:
     return L.map_tree(one, batch_tree)
 
 
+def sequence_parts(mesh, global_batch: int, seq_len: int) -> int:
+    """The parts a train or prefill step splits each sequence into on
+    ``mesh``: 1 where the batch divides the data ranks (``pod`` x
+    ``data``); else the ``pod`` axis's size P, where P x the batch divides
+    them and P divides the sequence (the multi-pod ``prefill_32k`` cells:
+    32 sequences on 64 data ranks, two halves each).  Anything else
+    raises: a step never replicates its batch over data ranks."""
+    n = axis_size(mesh, fsdp_axes(mesh))
+    if global_batch % n == 0:
+        return 1
+    pod = axis_sizes(mesh).get("pod", 1)
+    if pod > 1 and (pod * global_batch) % n == 0 and seq_len % pod == 0:
+        return pod
+    raise ValueError(f"a batch of {global_batch} x {seq_len} does not "
+                     f"divide the {n} data ranks of {axis_sizes(mesh)}, nor "
+                     f"do its sequences split over its pod axis")
+
+
+def split_sequences(mesh, batch: dict, parts: int) -> dict:
+    """A batch of whole sequences (every leaf (B, S, ...)) re-indexed as
+    the parts of its sequences: (P B, S / P, ...), row p B + b holding
+    part p (positions p S / P on) of sequence b.  Sharded over the folded
+    (pod x data) axis, pod major, rank p D + d then holds part p of the
+    sequences of data rank d.  ``parts`` must be ``mesh``'s ``pod`` size
+    and divide S, else this raises."""
+    pod = axis_sizes(mesh).get("pod", 1)
+    if parts != pod:
+        raise ValueError(f"{parts} parts a sequence over a pod axis of "
+                         f"{pod}")
+
+    def one(x):
+        b, s = x.shape[:2]
+        if s % parts:
+            raise ValueError(f"a sequence of {s} does not split into "
+                             f"{parts} parts")
+        rest = tuple(x.shape[2:])
+        return x.reshape((b, parts, s // parts) + rest).swapaxes(0, 1) \
+            .reshape((parts * b, s // parts) + rest)
+    return L.map_tree(one, batch)
+
+
 def cache_shardings(cfg: ModelConfig, mesh, cache_tree,
                     kv_channels: bool = True) -> dict:
     """Decode-cache shardings.

@@ -26,7 +26,11 @@ ranks' (m, l, acc) by two all-reduces over that dimension's group, which
 DTensor issues.  Other CPU DTensors run the plain version through
 DTensor's own propagation (the tensors it makes itself count as
 replicated).  A ``wkv`` input whose time axis is split raises: K3 sees
-whole rows, and nothing is gathered behind the caller's back.  Ranks that
+whole rows, and nothing is gathered behind the caller's back.  Rows
+that are halves of split sequences (``wkv``'s ``pair``, a
+``layout.SeqPair``) run on every device on their local shards, half 1's
+K3 from the state half 0 hands over, K3b in the reverse order
+(:class:`_WkvParts`).  Ranks that
 hold a cache whole take shares of the work: a channelized cache that the
 data ranks do not split (batch 1) has its KV heads split over them, and
 a query whose heads split inside KV groups runs against its group's KV
@@ -115,7 +119,9 @@ def _per_shard(fn, lead, args: dict, out_roles: tuple, what: str,
 
     An argument named in ``shared`` that has no "head" role is whole over
     the lead's head split, and each rank uses its own part of it (a query
-    head group's KV head): its gradient is a pending sum there.  The mesh
+    head group's KV head): its gradient is a pending sum there.  So is the
+    gradient of an argument with no "batch" role over the lead's batch
+    split (``wkv``'s bonus ``u``: each rank's rows use all of it).  The mesh
     dimensions in ``heads_over``, on which the lead is whole, split the
     "head" dimension of every argument and output that has one (each
     rank takes its share of the heads: a slice, no collective)."""
@@ -170,8 +176,8 @@ def _per_shard(fn, lead, args: dict, out_roles: tuple, what: str,
                                  f"is laid out {t.placements}, not {want}")
             t = t.redistribute(mesh, want)
         local[name] = local_part(t, [
-            i for i, r in enumerate(roles)
-            if r == "head" and name in shared and r not in dim_map])
+            i for i, r in enumerate(roles) if r not in dim_map and (
+                r == "batch" or (r == "head" and name in shared))])
     if "seq" in roles:
         seq = [i for i, r in enumerate(roles) if r == "seq"]
         out = partials(shard_start(x, dims["seq"]), lambda t, op: (
@@ -411,27 +417,88 @@ class _Wkv(torch.autograd.Function):
             return (None, *bwd(r, k, v, w, u, state, dy, ds_t))
 
 
-def wkv(r, k, v, w, u, state, state_out=None, plain: bool = False):
+class _WkvParts(torch.autograd.Function):
+    """wkv over sequences split in halves (``layout.SeqPair``), this rank
+    holding half ``pair.index`` of each: half 0 runs from ``state`` and
+    hands its final state to half 1, which runs from it; the backward runs
+    in the reverse order, half 1's initial-state gradient handed back as
+    half 0's final-state gradient.  Both ranks issue the same one
+    hand-over of a (B, H, D, D) state each way (float32, or float64 where
+    the inputs are) and run their own half once: K3 forward, K3b backward
+    (on the CPU and with ``plain`` their plain versions, on ``meta`` their
+    stand-ins, each charging this half's T)."""
+
+    @staticmethod
+    def forward(ctx, plain, pair, r, k, v, w, u, state):
+        ctx.meta = r.device.type == "meta"
+        ctx.plain = plain or _all_on_cpu(r, k, v, w, u, state, meta=True)
+        ctx.pair = pair
+        ctx.set_materialize_grads(False)
+        fwd = (_wkv_meta if ctx.meta else ref.wkv_ref if ctx.plain
+               else _wkv.wkv)
+        # The states' dtype, the same on both ranks: what wkv returns.
+        ctx.acc = torch.promote_types(r.dtype, torch.float32)
+        first = pair.index == 0
+        out = fwd(r, k, v, w, u, state) if first else None
+        got = pair.hand_over(out[1] if first else state.to(ctx.acc))
+        start = state if first else got
+        if not first:
+            out = fwd(r, k, v, w, u, start)
+        ctx.save_for_backward(r, k, v, w, u, start)
+        return out
+
+    @staticmethod
+    def backward(ctx, dy, ds_t):
+        r, k, v, w, u, start = ctx.saved_tensors
+        dy = torch.zeros(r.shape, dtype=torch.float32, device=r.device) \
+            if dy is None else dy.float().contiguous()
+        ds = None if ds_t is None else ds_t.float().contiguous()
+        bwd = (_wkv_bwd_meta if ctx.meta else
+               ref.wkv_bwd_ref if ctx.plain else _wkv.wkv_bwd)
+        last = ctx.pair.index == 1
+        grads = bwd(r, k, v, w, u, start, dy, ds) if last else None
+        got = ctx.pair.hand_over(grads[5] if last else start.to(ctx.acc),
+                                 back=True)
+        if not last:
+            grads = bwd(r, k, v, w, u, start, dy,
+                        got if ds is None else ds + got)
+        # Only half 0 starts from ``state``.
+        return (None, None, *grads[:5], None if last else grads[5])
+
+
+def wkv(r, k, v, w, u, state, state_out=None, plain: bool = False,
+        pair=None):
     """r/k/v/w: (B, T, H, D); u: (H, D); state: (B, H, D, D) fp32.
 
     Returns (y (B, T, H, D) fp32, final state (B, H, D, D) fp32), with a
     gradient (K3b on the card) for every input.  With ``state_out`` the
     final state goes into it (it may be ``state``): the decode cache's
     in-place update, which has no gradient and raises if one is asked for.
-    ``plain`` takes the plain versions on any device (path comparison)."""
+    ``plain`` takes the plain versions on any device (path comparison).
+
+    ``pair`` (a ``layout.SeqPair``): each row is this rank's half of a
+    sequence split over the pair's ranks (:class:`_WkvParts`); ``state``
+    seeds half 0, and the final state returned is this half's (half 1's
+    is the sequence's).  DTensor inputs then run on
+    their local shards on every device."""
     extra = () if state_out is None else (state_out,)
     on_cpu = _all_on_cpu(r, k, v, w, u, state, *extra, meta=True)
     meta = r.device.type == "meta"
-    if isinstance(r, DTensor) and (meta or not on_cpu):
+    if isinstance(r, DTensor) and (meta or not on_cpu or pair is not None):
         seq = {"batch": 0, "whole": 1, "head": 2}
         st = {"batch": 0, "head": 1}
         return _per_shard(
             lambda r, k, v, w, u, state, state_out: wkv(
-                r, k, v, w, u, state, state_out, plain),
+                r, k, v, w, u, state, state_out, plain, pair),
             "r", {"r": (r, seq), "k": (k, seq), "v": (v, seq),
                   "w": (w, seq), "u": (u, {"head": 0}),
                   "state": (state, st), "state_out": (state_out, st)},
             (seq, st), "wkv", written=("state_out",))
+    if pair is not None:
+        if state_out is not None:
+            raise ValueError("wkv: an in-place state update of split "
+                             "sequences")
+        return _WkvParts.apply(plain, pair, r, k, v, w, u, state)
     if state_out is None:
         return _Wkv.apply(plain, r, k, v, w, u, state)
     if torch.is_grad_enabled() and any(

@@ -33,6 +33,16 @@ the step itself, eagerly, in a world that costs nothing:
      (``--out``, default ``dryrun_out/`` at the repository's root, which
      git ignores).
 
+A train or prefill cell whose global batch does not divide the data
+ranks (the multi-pod ``prefill_32k`` cells: 32 sequences on (2 x 32)
+data ranks, where the reference's (2 x 16) divide them) splits each
+sequence in halves over ``pod`` (``sharding.sequence_parts``,
+``split_sequences``): rank p x 32 + d holds half p of sequence d, and
+the blocks exchange what crosses the halves' edge over the pod group
+(the ``seq_pair`` rule, ``distributed/layout.SeqPair``), so each chip
+does 1/512 of the step; a batch that splits neither way raises.  Rank 0
+runs half 0; half 1 issues the same products and collectives.
+
 The decode cache is laid out as the reference's default: batch over the
 data axes and the sequence over ``model``, the channelized cache
 (``cache_shardings(kv_channels=True)``): each ``model`` rank holds and
@@ -79,7 +89,7 @@ from torch.distributed.tensor import DTensor
 from repro_torch.configs import ARCHS, SHAPES, cell_status, get_config, \
     get_shape
 from repro_torch.core import hloparse
-from repro_torch.distributed import context
+from repro_torch.distributed import context, layout
 from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.step import (TrainStepConfig, make_serve_step,
                                           make_train_step, train_state_specs)
@@ -166,13 +176,20 @@ class CellResult:
     chips: int = 0
     error: str = ""
     variant: str = "baseline"
+    seq_parts: int = 1                # parts of each sequence over pod
 
     def to_json(self):
         return dataclasses.asdict(self)
 
 
-def _train_cell(model, mesh, shape, compress_grads, microbatch):
+def _train_cell(model, mesh, shape, compress_grads, microbatch,
+                full_mesh=None, parts=1):
+    """The train step and its arguments on the step's ``mesh``; with
+    ``parts`` > 1 the batch's rows are the parts of its sequences over
+    ``full_mesh``'s ``pod`` axis (``sharding.split_sequences``)."""
     cfg = model.cfg
+    if parts > 1 and microbatch > 1:
+        raise ValueError("microbatches of a batch of split sequences")
     rules = shd.train_rules(mesh, cfg)
     step_cfg = TrainStepConfig(compress_grads=compress_grads,
                                microbatch=microbatch)
@@ -185,6 +202,8 @@ def _train_cell(model, mesh, shape, compress_grads, microbatch):
     state = _place(specs, state_sh)
     state["step"] = torch.zeros((), dtype=torch.int32)
     batch = batch_spec(cfg, shape.global_batch, shape.seq_len)
+    if parts > 1:
+        batch = shd.split_sequences(full_mesh, batch, parts)
     batch = _place(batch, shd.batch_shardings(mesh, batch))
     return make_train_step(model, step_cfg), (state, batch)
 
@@ -210,27 +229,41 @@ def _decode_cell(model, mesh, shape, kv_channels):
 def run_step(cfg, shape, mesh, res: CellResult, *, kv_channels=True,
              compress_grads=False, act_shard="none", microbatch=1,
              kv_select_update=False) -> CellResult:
-    """One cell's step on ``mesh`` (a mesh of the current world) under the
-    meter, its costs written into ``res``.  ``kv_channels`` lays a decode
-    cache's sequence over ``model`` (module note)."""
-    act_rules = {"batch": shd.fsdp_axes(mesh)}
+    """One cell's step on ``mesh`` (a mesh of the current world, its
+    ``pod`` axis folded for the step: :func:`fold_pod`) under the meter,
+    its costs written into ``res``.  ``kv_channels`` lays a decode cache's
+    sequence over ``model`` (module note).
+
+    A train or prefill step whose batch does not divide the data ranks
+    splits each sequence in halves over ``pod`` (``sharding.sequence_parts``;
+    it raises where that does not divide either) under a ``seq_pair``
+    rule, and runs as this rank's half (rank 0's: half 0).  Both halves
+    issue the same products and collectives (``layout.SeqPair``), so
+    either's counts are the cell's."""
+    step_mesh = fold_pod(mesh)
+    parts = shd.sequence_parts(mesh, shape.global_batch, shape.seq_len) \
+        if shape.kind in ("train", "prefill") else 1
+    act_rules = {"batch": shd.fsdp_axes(step_mesh)}
     if act_shard == "seq":
         act_rules["seq"] = "model"
     if kv_select_update:
         act_rules.update(kv_select_update=True, kv_partials=True,
                          kv_seq="model")
     model = Model(cfg, device="cpu")
+    if parts > 1:
+        act_rules["seq_pair"] = layout.SeqPair.over(mesh, "pod")
     if shape.kind in ("train", "prefill"):
-        fn, args = _train_cell(model, mesh, shape, compress_grads,
-                               microbatch)
+        fn, args = _train_cell(model, step_mesh, shape, compress_grads,
+                               microbatch, mesh, parts)
     else:
-        fn, args = _decode_cell(model, mesh, shape, kv_channels)
+        fn, args = _decode_cell(model, step_mesh, shape, kv_channels)
     arg_bytes = sum(_local_bytes(a) for a in args)
-    with context.activation_rules(mesh, act_rules), \
+    with context.activation_rules(step_mesh, act_rules), \
             hloparse.Meter() as meter:
         out = fn(*args)
     out_bytes = sum(_local_bytes(o) for o in out)
     cost = meter.cost
+    res.seq_parts = parts
     res.flops_per_chip = float(cost.flops)
     res.bytes_per_chip = float(cost.bytes)
     res.hbm_bytes_per_chip = float(cost.bytes_hbm)
@@ -260,7 +293,7 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
         fake_world(512 if multi_pod else 256)
         mesh = make_production_mesh(multi_pod=multi_pod)
         res.chips = mesh.size()
-        run_step(cfg, shape, fold_pod(mesh), res, **step_kw)
+        run_step(cfg, shape, mesh, res, **step_kw)
     except Exception as e:          # noqa: BLE001 -- record, don't crash --all
         res.status = "error"
         # The message, then the innermost frames of the traceback.

@@ -16,7 +16,9 @@ K2's partial build on each rank's keys and merges the ranks' terms
 
 ``flash_attention`` is the uncached pass over more than 256 tokens (the
 training path, hubert's every pass): an online softmax over KV chunks, so
-no S x S score tensor forms.  ``decode_attention`` is the plain einsum form.  It serves prefill (a block
+no S x S score tensor forms.  Over sequences split into parts
+(``over_parts``) each part's queries attend to every part's keys,
+gathered over the ranks that hold them.  ``decode_attention`` is the plain einsum form.  It serves prefill (a block
 of new tokens with ``q_start``) and is the plain version of the one-token
 decode step, whose hot path is the hand kernel behind
 ``repro_torch.kernels.ops.decode_attn``.
@@ -73,22 +75,25 @@ def _expand_kv(k, groups: int):
     return torch.repeat_interleave(k, groups, dim=2)
 
 
-def reference_attention(q, k, v, causal: bool = True):
-    """O(S^2) oracle used by tests and tiny models.  (B,S,H,D) layout."""
+def reference_attention(q, k, v, causal: bool = True, q_start=None):
+    """O(S^2) oracle used by tests and tiny models.  (B,S,H,D) layout.
+    Query i sits at key position ``q_start + i`` for the causal mask
+    (``q_start`` None: the queries are the last ``Sq`` of the keys)."""
     groups = q.shape[2] // k.shape[2]
     k, v = _expand_kv(k, groups), _expand_kv(v, groups)
     scale = q.shape[-1] ** -0.5
     logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
     if causal:
         sq, sk = logits.shape[-2], logits.shape[-1]
-        mask = torch.ones((sq, sk), dtype=torch.bool,
-                          device=q.device).tril(diagonal=sk - sq)
+        mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device).tril(
+            diagonal=sk - sq if q_start is None else q_start)
         logits = torch.where(mask, logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
-def flash_attention(q, k, v, causal: bool = True, chunk: int = 512):
+def flash_attention(q, k, v, causal: bool = True, chunk: int = 512,
+                    q_start=None):
     """Online-softmax attention over KV chunks.  (B,S,H,D) layout.
 
     The reference's ``lax.scan`` over ``S / chunk`` KV blocks, as a Python
@@ -96,7 +101,8 @@ def flash_attention(q, k, v, causal: bool = True, chunk: int = 512):
     denominator and float32 accumulator, the same roundings (q * scale and
     the probabilities in q's dtype), the same fallback to one chunk when
     ``chunk`` does not divide the keys, and the causal mask offset by
-    ``sk - sq``.  Autograd differentiates it, as JAX does the scan.
+    ``sk - sq`` (or query i at key position ``q_start + i``).  Autograd
+    differentiates it, as JAX does the scan.
     """
     b, sq, hq, d = q.shape
     sk = k.shape[1]
@@ -116,7 +122,8 @@ def flash_attention(q, k, v, causal: bool = True, chunk: int = 512):
         logits = torch.einsum("bqhd,bkhd->bhqk", q_scaled, kc).float()
         if causal:
             k_pos = idx * chunk + torch.arange(chunk, device=q.device)
-            mask = q_pos[:, None] + (sk - sq) >= k_pos[None, :]
+            mask = q_pos[:, None] + (sk - sq if q_start is None
+                                     else q_start) >= k_pos[None, :]
             logits = torch.where(mask[None, None], logits, NEG_INF)
         m_new = torch.maximum(m, logits.amax(dim=-1))
         p = torch.exp(logits - m_new[..., None])
@@ -127,6 +134,19 @@ def flash_attention(q, k, v, causal: bool = True, chunk: int = 512):
         m = m_new
     out = acc / torch.clamp(denom[..., None], min=1e-30)
     return out.transpose(1, 2).to(q.dtype)                 # (B, S, H, D)
+
+
+def over_parts(attend, pair):
+    """``attend`` (:func:`reference_attention` or :func:`flash_attention`)
+    for queries that are half ``pair.index`` of sequences split in halves
+    over ``pair`` (``layout.SeqPair``): both halves' keys and values
+    gathered, in order, and the causal mask at the queries' own positions.
+    Each half's rank so computes its queries' share of the whole
+    sequence's attention, as one device does for them."""
+    def attend_part(q, k, v, causal=True):
+        return attend(q, pair.gather(k, 1), pair.gather(v, 1), causal=causal,
+                      q_start=pair.index * q.shape[1])
+    return attend_part
 
 
 def decode_attention(q, k_cache, v_cache, cache_len, q_start=None):

@@ -34,6 +34,11 @@ the residual stream.  The auxiliary losses are global means: local sums,
 all-reduced.  On plain tensors, or a mesh of one rank, :func:`moe_apply`
 is the one-device code above, bit for bit.
 
+Where the batch's rows are parts of split sequences (a ``seq_pair``
+rule: ``sharding.split_sequences``), the ranks still count slots in the
+sequences' own (b, s) order (:func:`global_ranks`' ``parts``), so the
+same tokens overflow as in one process.
+
 Two details carry the reference's exact order:
   * ``jax.lax.top_k`` puts the lower index first among equal values, and
     the slot order feeds the cumsum priority.  ``torch.topk`` promises no
@@ -170,27 +175,67 @@ def slot_ranks(n_experts: int, eid):
     return csum.gather(0, eid[None, :])[0] - 1, csum[:, -1]
 
 
-def global_ranks(n_experts: int, eid, mesh, tok_dims):
+def global_ranks(n_experts: int, eid, mesh, tok_dims, parts: int = 1,
+                 rows: int = 1):
     """Local (token, slot)s' ranks within their experts over the whole
     batch: the local ranks plus the slots the token shards before this one
     send to each expert.  Each shard fills its own row of a (shards, E)
     table of counts, and one all-reduce over ``tok_dims`` gives every
-    shard all of them."""
+    shard all of them.
+
+    With ``parts`` > 1 the shard's ``rows`` batch rows are parts of split
+    sequences (``sharding.split_sequences``: global row p B + b holds part
+    p of sequence b), and the order is still the sequences' own, (b, s),
+    as one device ranks them, so that the same tokens overflow: the table
+    holds each row's counts, and a row's offset sums those of every row
+    of an earlier sequence and of its own sequence's earlier parts."""
+    if parts > 1:
+        return _part_ranks(n_experts, eid, mesh, tok_dims, parts, rows)
     rank, counts = slot_ranks(n_experts, eid)
     if not tok_dims:
         return rank
-    shards = 1
-    for i in tok_dims:
-        shards *= mesh.size(i)
-    coord, index = mesh.get_coordinate(), 0
-    for i in tok_dims:
-        index = index * mesh.size(i) + coord[i]
+    shards, index = _shard_index(mesh, tok_dims)
     table = torch.zeros((shards, n_experts), dtype=counts.dtype,
                         device=counts.device)
     table[index] = counts
     table = all_reduce_local(table, mesh, tok_dims,
                              [Replicate()] * mesh.ndim, "sum")
     return rank + table[:index].sum(dim=0)[eid]
+
+
+def _shard_index(mesh, tok_dims):
+    """(shards over ``tok_dims``, this rank's index among them, the first
+    dimension major)."""
+    coord, shards, index = mesh.get_coordinate(), 1, 0
+    for i in tok_dims:
+        shards *= mesh.size(i)
+        index = index * mesh.size(i) + coord[i]
+    return shards, index
+
+
+def _part_ranks(n_experts: int, eid, mesh, tok_dims, parts: int,
+                rows: int):
+    """:func:`global_ranks` of a shard whose ``rows`` rows are parts of
+    split sequences."""
+    ids = eid.view(rows, -1)                                  # (rows, n)
+    hit = ids[:, None, :] == torch.arange(n_experts,
+                                          device=eid.device)[None, :, None]
+    csum = torch.cumsum(hit, dim=2)                           # (rows, E, n)
+    within = csum.gather(1, ids[:, None, :])[:, 0] - 1
+    shards, index = _shard_index(mesh, tok_dims)
+    table = torch.zeros((shards * rows, n_experts), dtype=csum.dtype,
+                        device=eid.device)
+    table[index * rows:(index + 1) * rows] = csum[:, :, -1]
+    table = all_reduce_local(table, mesh, tok_dims,
+                             [Replicate()] * mesh.ndim, "sum")
+    seqs = shards * rows // parts
+    # The rows in the sequences' order: row b parts + p is part p of b.
+    ordered = table.view(parts, seqs, n_experts).transpose(0, 1).reshape(
+        -1, n_experts)
+    before = torch.cumsum(ordered, dim=0) - ordered
+    g = index * rows + torch.arange(rows, device=eid.device)
+    key = (g % seqs) * parts + g // seqs
+    return (within + before[key].gather(1, ids)).reshape(-1)
 
 
 def _gathered(x, mesh, tok_dims, partial_dims=()):
@@ -225,7 +270,10 @@ def _moe_sharded(cfg: ModelConfig, p: dict, x, return_aux: bool):
     gate_logits, gates, topw, topi = route(cfg, router, x_loc)
     cap = capacity(cfg, t)
     eid = topi.reshape(-1)
-    rank_of = global_ranks(e, eid, mesh, tok_dims).reshape(topi.shape)
+    pair = context.seq_pair()
+    rank_of = global_ranks(e, eid, mesh, tok_dims,
+                           1 if pair is None else pair.size,
+                           x_loc.shape[0] // s).reshape(topi.shape)
     keep = rank_of < cap
     w_disp = (topw * keep).to(x.dtype).reshape(-1)
 

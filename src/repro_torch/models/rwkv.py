@@ -16,6 +16,11 @@ hooks stand where it has them (no-ops without active rules).
 
 Channel-mix: token-shift + squared-ReLU MLP with a sigmoid receptance gate.
 
+Where the rows are parts of split sequences (a ``seq_pair`` rule:
+``sharding.split_sequences``), each part's token shift starts from the
+part before's last row and its WKV from that part's final state, handed
+over the ranks that share the sequences (``ops.wkv``'s ``pair``).
+
 Each block returns its new shift and WKV states, as the reference does.
 ``time_mix`` writes the new WKV state into ``state_out`` when given, which
 may be the input state itself: the stack updates its decode cache in place
@@ -60,7 +65,12 @@ def rwkv_specs(cfg: ModelConfig, layered: bool = True) -> dict:
 
 
 def _token_shift(x, prev):
-    """Shift right by one: position t sees x_{t-1}; ``prev`` seeds t=0."""
+    """Shift right by one: position t sees x_{t-1}; ``prev`` seeds t=0.
+    Where the rows are parts of split sequences (a ``seq_pair`` rule),
+    a part's t=0 sees the previous part's last row (the first part's,
+    ``prev``)."""
+    if context.seq_pair() is not None:
+        prev = context.pair_shift(x[:, -1, :], prev)
     return torch.cat([prev[:, None, :], x[:, :-1, :]], dim=1)
 
 
@@ -71,9 +81,11 @@ def _wkv_scan(r, k, v, w, u, state, plain_kernels: bool = False,
     r/k/v: (B, S, H, hd); w: (B, S, H, hd) fp32 decays in (0,1);
     u: (H, hd) fp32 bonus; state: (B, H, hd, hd) fp32 (key x value
     layout).  Returns y (B, S, H, hd) fp32, new_state (``state_out`` when
-    given).
+    given).  Parts of split sequences run in order, each from the state
+    the part before hands over (``ops.wkv``'s ``pair``).
     """
-    return ops.wkv(r, k, v, w, u, state, state_out, plain=plain_kernels)
+    return ops.wkv(r, k, v, w, u, state, state_out, plain=plain_kernels,
+                   pair=context.seq_pair())
 
 
 def time_mix(cfg: ModelConfig, p: dict, x, shift_state, wkv_state,

@@ -29,6 +29,12 @@ sizes, the scan and the gated output (:func:`_conv_window`,
 tensors, or a mesh of one rank, :func:`mamba_apply` is the one-device
 code, bit for bit.
 
+Where the rows are halves of split sequences (a ``seq_pair`` rule:
+``sharding.split_sequences``) the block runs on local tensors in either
+case: half 1's conv starts from half 0's last inputs, and its SSD from
+half 0's final state (:func:`_from_parts`), both handed over the pair of
+ranks that share the sequences.
+
 Dtypes as in the reference: the projections and the causal conv run in
 the model dtype, the SSD and the decode step in float32; ``y`` is cast to
 ``x.dtype`` before the gate, and the gated RMS norm takes its variance in
@@ -96,7 +102,7 @@ def _causal_conv(x, w, b):
     return out + b
 
 
-def _ssd_chunked(xh, dt, a, bmat, cmat, init_state=None):
+def _ssd_chunked(xh, dt, a, bmat, cmat, init_state=None, pair=None):
     """Chunked SSD.
 
     xh:   (B, S, H, P) inputs
@@ -105,6 +111,8 @@ def _ssd_chunked(xh, dt, a, bmat, cmat, init_state=None):
     bmat: (B, S, N)    input->state projection (shared across heads)
     cmat: (B, S, N)    state->output projection
     init_state: optional (B, H, N, P) carried state (prefill continuation)
+    pair: optional ``layout.SeqPair``: each row is this rank's half of a
+          sequence split over the pair's ranks (:func:`_from_parts`)
     returns y (B, S, H, P) float32, final_state (B, H, N, P) float32
 
     A prompt whose length is not a multiple of ``SSD_CHUNK`` is one chunk
@@ -152,7 +160,8 @@ def _ssd_chunked(xh, dt, a, bmat, cmat, init_state=None):
     del xw
 
     state = (torch.zeros((bsz, h, n, p), dtype=f32, device=xh.device)
-             if init_state is None else init_state.to(f32))
+             if init_state is None or pair is not None
+             else init_state.to(f32))
     growth = torch.exp(total)                              # (B,nc,H)
     prev = []                                              # state *before* c
     for c in range(nc):
@@ -163,8 +172,30 @@ def _ssd_chunked(xh, dt, a, bmat, cmat, init_state=None):
     # Off-diagonal term: prior state read out through C with decay.
     y_off = torch.einsum("bcqn,bchnp->bcqhp", cm, prev_states)
     y_off = y_off * torch.exp(seg)[..., None]
-    y = (y_diag + y_off).reshape(bsz, s, h, p)
-    return y, state
+    y = y_diag + y_off
+    if pair is not None:
+        y, state = _from_parts(pair, y, state, cm, seg, total, init_state)
+    return y.reshape(bsz, s, h, p), state
+
+
+def _from_parts(pair, y, final, cm, seg, total, init_state):
+    """The SSD of this rank's half of split sequences (``y`` (B, nc, Q, H,
+    P) and ``final`` from a zero state) made the SSD from the state its
+    half starts from: the scan is linear in that state, whose read-out
+    decays from the half's start, exp(the decays' cumulative sum up to
+    each position) times C . state, and whose share of the final state is
+    it decayed over the whole half.  Half 0 starts from ``init_state``
+    (zeros where None), half 1 from half 0's final state, handed over
+    (``SeqPair.shift``).  Both ranks run the same ops and collectives;
+    exactly the chunked SSD from that state, summed in another order."""
+    into = torch.cumsum(total, dim=1) - total               # (B,nc,H)
+    lead = torch.exp(into[:, :, None, :] + seg)             # (B,nc,Q,H)
+    over = torch.exp(total.sum(dim=1))[..., None, None]     # (B,H,1,1)
+    first = None if init_state is None else init_state.float()
+    start = pair.shift(final if first is None else final + over * first,
+                       first)
+    y = y + torch.einsum("bcqn,bhnp->bcqhp", cm, start) * lead[..., None]
+    return y, final + over * start
 
 
 def _conv_window(conv_in, w, b, conv_state, s: int, cw: int):
@@ -184,13 +215,15 @@ def _step_sizes(dt, dt_bias, a_log):
     return torch.logaddexp(dt, dt.new_zeros(())), -torch.exp(a_log.float())
 
 
-def _scan(xh, dt, a, bmat, cmat, state, place=lambda t: t):
+def _scan(xh, dt, a, bmat, cmat, state, place=lambda t: t, pair=None):
     """The SSD over a prompt (``state`` None, or a prefill continuation
-    seeded with it), or the recurrent decode step (S == 1); the new state
-    goes through ``place`` before the step reads it out.  Returns (y
-    (B, S, H, P) float32, new state (B, H, N, P))."""
-    if state is None or xh.shape[1] > 1:
-        return _ssd_chunked(xh, dt, a, bmat, cmat, init_state=state)
+    seeded with it; each row a half of a split sequence with ``pair``), or
+    the recurrent decode step (S == 1); the new state goes through
+    ``place`` before the step reads it out.  Returns (y (B, S, H, P)
+    float32, new state (B, H, N, P))."""
+    if state is None or xh.shape[1] > 1 or pair is not None:
+        return _ssd_chunked(xh, dt, a, bmat, cmat, init_state=state,
+                            pair=pair)
     da = torch.exp(dt[:, 0] * a)                          # (B,H)
     xs = dt[:, 0, :, None] * xh[:, 0].float()             # (B,H,P)
     upd = bmat[:, 0].float()[:, None, :, None] * xs[:, :, None, :]
@@ -228,7 +261,8 @@ def mamba_apply(cfg: ModelConfig, p: dict, x, state=None, conv_state=None):
     p = context.use_params(p, {"in_proj": (None, None),
                                "out_proj": (None, None)})
     dim = context.model_dim(x, h)
-    if dim is not None:
+    if dim is not None or (isinstance(x, DTensor) and
+                           context.seq_pair() is not None):
         return _mamba_sharded(cfg, p, x, state, conv_state, dim)
     proj = x @ p["in_proj"]
     z, xc, bmat, cmat, dt = _split_proj(cfg, proj)
@@ -268,13 +302,20 @@ def state_layout(cfg: ModelConfig, states):
 
 
 def _mamba_sharded(cfg: ModelConfig, p: dict, x, state, conv_state,
-                   dim: int):
+                   dim):
     """:func:`mamba_apply` with the heads split over mesh dimension
-    ``dim`` (module note), on each rank's local tensors."""
+    ``dim`` (module note; None: every head on every rank), on each rank's
+    local tensors.  Where the rows are halves of split sequences (a
+    ``seq_pair`` rule) half 1's conv starts from half 0's last inputs and
+    its SSD from half 0's final state (``SeqPair.shift``,
+    :func:`_from_parts`)."""
     bsz, s, _ = x.shape
     di, n, h, pdim = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
     mesh = x.device_mesh
-    ranks, rank = mesh.size(dim), mesh.get_coordinate()[dim]
+    pair = context.seq_pair()
+    ranks, rank = (1, 0) if dim is None else (mesh.size(dim),
+                                              mesh.get_coordinate()[dim])
+    split = [] if dim is None else [dim]
     hl = h // ranks
     dl = hl * pdim
     # The batch split as it comes, everything else whole; each rank's
@@ -284,8 +325,8 @@ def _mamba_sharded(cfg: ModelConfig, p: dict, x, state, conv_state,
     if tuple(x.placements) != tuple(rows):
         x = x.redistribute(mesh, rows)
     batch = [i for i, pl in enumerate(rows) if pl.is_shard()]
-    parts = [dim] + batch
-    xl = context.local_part(x, [dim])
+    parts = split + batch
+    xl = context.local_part(x, split)
     w = {name: context.whole_local(t, parts) for name, t in p.items()}
     mine_heads = [Shard(1) if i == dim else pl for i, pl in enumerate(rows)]
 
@@ -310,11 +351,13 @@ def _mamba_sharded(cfg: ModelConfig, p: dict, x, state, conv_state,
 
     # The conv's channels: this rank's x channels, then B and C whole.
     chans = torch.cat([mine, di + torch.arange(2 * n, device=dev)])
-    conv, new_conv = _conv_window(
-        torch.cat([xc, bmat, cmat], dim=-1), w["conv_w"][:, chans],
-        w["conv_b"][chans],
-        None if state is None else rows_of(conv_state)[..., chans], s,
-        cfg.ssm_conv)
+    conv_in = torch.cat([xc, bmat, cmat], dim=-1)
+    window = None if state is None else rows_of(conv_state)[..., chans]
+    if pair is not None:
+        window = pair.shift(conv_in[:, -(cfg.ssm_conv - 1):], window)
+    conv, new_conv = _conv_window(conv_in, w["conv_w"][:, chans],
+                                  w["conv_b"][chans], window, s,
+                                  cfg.ssm_conv)
     xc, bmat, cmat = conv[..., :dl], conv[..., dl:dl + n], conv[..., dl + n:]
 
     xh = xc.reshape(xl.shape[0], s, hl, pdim)
@@ -326,7 +369,7 @@ def _mamba_sharded(cfg: ModelConfig, p: dict, x, state, conv_state,
         st = state.to_local()       # this rank's heads already (state_layout)
     else:
         st = rows_of(state)[:, heads]
-    y, new_state = _scan(xh, dt, a, bmat, cmat, st)
+    y, new_state = _scan(xh, dt, a, bmat, cmat, st, pair=pair)
 
     def mean_square(g32):
         # The mean of squares over the whole d_inner: each rank's sum,
@@ -334,7 +377,7 @@ def _mamba_sharded(cfg: ModelConfig, p: dict, x, state, conv_state,
         return context.local_part(DTensor.from_local(
             g32.square().sum(dim=-1, keepdim=True), mesh,
             [Partial() if i == dim else pl for i, pl in enumerate(rows)],
-            run_check=False).redistribute(mesh, rows), [dim]) / di
+            run_check=False).redistribute(mesh, rows), split) / di
     out = _gated_out(cfg, y, xh, z, w["d_skip"][heads], w["gate_norm"][mine],
                      w["out_proj"][mine], mean_square, x.dtype)
     out = DTensor.from_local(out, mesh, [

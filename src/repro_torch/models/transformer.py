@@ -222,8 +222,14 @@ def _attn_block(cfg: ModelConfig, pl, x, positions, causal, kv_cache,
     q = context.grouped_heads(q, cfg.n_heads, cfg.n_kv_heads, dim=2)
     b, s = x.shape[:2]
     if kv_cache is None:
-        attend = (attention.reference_attention if s <= 256 else
+        # Over split sequences (a ``seq_pair`` rule) the whole sequence's
+        # length picks the form, and each part attends to every part's keys.
+        pair = context.seq_pair()
+        attend = (attention.reference_attention
+                  if s * (pair.size if pair else 1) <= 256 else
                   attention.flash_attention)
+        if pair is not None:
+            attend = attention.over_parts(attend, pair)
         o = _attend_local(attend, q, k, v, causal)
     else:
         k_cache, v_cache, cache_len = kv_cache

@@ -11,8 +11,10 @@
   slice, merged over ``model``), its FLOPs a chip within 1% of the
   reference's ``run_cell`` (in a process of its own), and with the whole
   cache on every ``model`` rank (``--no-kv-channels``); zamba2-2.7b's
-  ``long_500k`` on both meshes; the decode step's K2 stand-in; the int8
-  collective proof; the CLI's records; the meter's mark on DTensor's
+  ``long_500k`` on both meshes; a prefill step whose batch does not
+  divide its data ranks, each sequence split over ``pod`` (half the
+  FLOPs a rank of the single-pod step); the decode step's K2 stand-in;
+  the int8 collective proof; the CLI's records; the meter's mark on DTensor's
   propagation, taken away when the last meter closes.
 
 A fake process group (every collective returns at once) stands in for
@@ -39,6 +41,8 @@ from repro.models.config import smoke_variant as jsmoke
 from repro_torch.configs import Shape, get_config
 from repro_torch.core import hloparse
 from repro_torch.data.pipeline import SyntheticDataset
+from repro_torch.distributed import layout
+from repro_torch.distributed import sharding as shd
 from repro_torch.distributed import step as pstep
 from repro_torch.launch import dryrun
 from repro_torch.models import Model, smoke_variant
@@ -129,6 +133,47 @@ def _step(arch, mesh_shape, kind, seq=WORLD_S):
                             mesh_dim_names=("data", "model"))
     res = dryrun.CellResult(arch, kind, str(mesh_shape), "ok")
     return dryrun.run_step(cfg, Shape("smoke", seq, B, kind), mesh, res)
+
+
+def test_split_sequences_halve_the_flops_a_rank_and_refuse_other_splits(
+        monkeypatch):
+    """A prefill step of 2 sequences on a fake (pod 2, data 2, model 2)
+    world: the batch does not divide the 4 data ranks, so each sequence
+    splits into halves over ``pod`` and each rank's FLOPs are half of the
+    same step's on the (2, 2) single-pod mesh, where each rank holds a
+    whole sequence (attention: each half's queries against all keys),
+    the same for either half's rank (the dry run runs rank 0's half 0;
+    half 1 is run here as a pair of index 1).  A split other than the
+    pod's size, or a sequence it does not divide, raises."""
+    cfg = smoke_variant(get_config("stablelm-1.6b"), remat="none")
+    shape = Shape("smoke", WORLD_S, 2, "prefill")
+    dryrun.fake_world(4)
+    single = dryrun.run_step(cfg, shape, init_device_mesh(
+        "cuda", (2, 2), mesh_dim_names=("data", "model")),
+        dryrun.CellResult("stablelm", "smoke", "2x2", "ok"))
+    dryrun.fake_world(8)
+    mesh = init_device_mesh("cuda", (2, 2, 2),
+                            mesh_dim_names=("pod", "data", "model"))
+    halves = []
+    for index in (0, 1):
+        monkeypatch.setattr(layout.SeqPair, "over", classmethod(
+            lambda cls, m, axis="pod", index=index: cls(
+                index, m.get_group(axis))))
+        halves.append(dryrun.run_step(cfg, shape, mesh, dryrun.CellResult(
+            "stablelm", "smoke", "2x2x2", "ok")))
+    monkeypatch.undo()
+    assert single.seq_parts == 1
+    assert all(half.seq_parts == 2 for half in halves)
+    assert [half.flops_per_chip for half in halves] == \
+        [single.flops_per_chip / 2] * 2
+    batch = {"tokens": torch.empty((2, WORLD_S), device="meta")}
+    with pytest.raises(ValueError, match="parts a sequence over a pod"):
+        shd.split_sequences(mesh, batch, 4)
+    with pytest.raises(ValueError, match="does not split"):
+        shd.split_sequences(mesh, {"tokens": batch["tokens"][:, 1:]}, 2)
+    with pytest.raises(ValueError, match="does not divide"):
+        dryrun.run_step(cfg, Shape("smoke", WORLD_S - 1, 2, "prefill"),
+                        mesh, dryrun.CellResult("stablelm", "s", "m", "ok"))
 
 
 def test_data_parallel_flops_per_rank_are_one_device_over_n():

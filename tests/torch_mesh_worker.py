@@ -497,6 +497,65 @@ def batch1_job(rank, payload):
             for arch, case in payload.items()}
 
 
+def context_parallel_job(rank, payload):
+    """Smoke models' loss and gradients with each sequence split over
+    ``pod`` on a (pod 2, data 2, model 1) mesh, folded to (4, 1) for the
+    step (``launch/dryrun.fold_pod``): the batch re-indexed as the halves
+    of its sequences (``sharding.split_sequences``) under the
+    ``seq_pair`` rule; whole, with each rank's calls of the WKV's plain
+    versions (K3 and K3b's stand-ins on the CPU)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import context, layout
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.step import _grads
+    from repro_torch.kernels import ref
+    from repro_torch.launch.dryrun import fold_pod
+    from repro_torch.models import Model, smoke_variant
+    from repro_torch.models import layers as L
+
+    full = init_device_mesh("cpu", (2, 2, 1),
+                            mesh_dim_names=("pod", "data", "model"))
+    mesh = fold_pod(full)
+    pair = layout.SeqPair.over(full)
+    calls = {"wkv_ref": 0, "wkv_bwd_ref": 0}
+    saved = {name: getattr(ref, name) for name in calls}
+
+    def counted(name):
+        def fn(*args):
+            calls[name] += 1
+            return saved[name](*args)
+        return fn
+    out = {}
+    try:
+        for name in calls:
+            setattr(ref, name, counted(name))
+        for arch, case in payload.items():
+            cfg = smoke_variant(get_config(arch), **case.get("over", {}))
+            model = Model(cfg, device="cpu")
+            params = shd.distribute(_tensors(case["params"]),
+                                    shd.param_shardings(
+                                        model, mesh,
+                                        shd.train_rules(mesh, cfg)))
+            for _, p in L.flatten_tree(params, torch.is_tensor):
+                p.requires_grad_(True)
+            batch = shd.split_sequences(full, _tensors(case["batch"]), 2)
+            batch = shd.distribute(batch, shd.batch_shardings(mesh, batch))
+            calls.update(dict.fromkeys(calls, 0))
+            rules = {"batch": shd.fsdp_axes(mesh), "seq_pair": pair}
+            with context.activation_rules(mesh, rules):
+                loss, _ = model.loss(params, batch)
+                grads = _grads(loss, params)
+            out[arch] = dict(loss=float(_full(loss)),
+                             grads=L.map_tree(_full, grads),
+                             calls=_every_rank(sorted(calls.items())))
+    finally:
+        for name, fn in saved.items():
+            setattr(ref, name, fn)
+    return out
+
+
 def sharding_job(rank, payload):
     return dict(model_job(rank, payload["model"]),
                 batch1=batch1_job(rank, payload["batch1"]),
@@ -506,4 +565,5 @@ def sharding_job(rank, payload):
                 grouped=grouped_job(rank, payload["grouped"]))
 
 
-JOBS = {"sharding": sharding_job, "int8": int8_job}
+JOBS = {"sharding": sharding_job, "int8": int8_job,
+        "context_parallel": context_parallel_job}

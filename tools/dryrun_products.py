@@ -1,7 +1,7 @@
 """The products behind a dry-run cell's FLOPs a chip, port and reference.
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tools/dryrun_products.py \
-        ARCH SHAPE [--top N] [--port-only]
+        ARCH SHAPE [--top N] [--port-only] [--multi-pod]
 
 Lists the largest terms of one cell's FLOPs a chip, each side in a
 process of its own, largest first:
@@ -15,7 +15,8 @@ process of its own, largest first:
     shapes.
 A term's shapes are a rank's local ones, so they show how each side
 splits the work.  ``--port-only`` runs the port's side alone (where JAX
-is not installed).  This script imports neither package itself.
+is not installed); ``--multi-pod`` takes the cell on the multi-pod mesh.
+This script imports neither package itself.
 """
 
 from __future__ import annotations
@@ -44,7 +45,7 @@ def charged(flops, nbytes):
     terms[("charge", traceback.extract_stack(limit=3)[0].name, "")] += flops
     return charge(flops, nbytes)
 H.Meter._count, H.charge = counted, charged
-res = dryrun.run_cell(sys.argv[1], sys.argv[2])
+res = dryrun.run_cell(sys.argv[1], sys.argv[2], multi_pod=sys.argv[4] == "1")
 print(f"port {res.status} {res.flops_per_chip:.4e} FLOP a chip {res.error[:300]}")
 for key, flops in terms.most_common(int(sys.argv[3])):
     print(f"  {flops:.3e}", *key)
@@ -57,7 +58,7 @@ from repro.launch import dryrun
 texts = []
 analyze = H.analyze
 H.analyze = lambda text: texts.append(text) or analyze(text)
-res = dryrun.run_cell(sys.argv[1], sys.argv[2])
+res = dryrun.run_cell(sys.argv[1], sys.argv[2], multi_pod=sys.argv[4] == "1")
 print(f"reference {res.status} {res.flops_per_chip:.4e} FLOP a chip")
 comps = H.parse_computations(texts[0]) if texts else {}
 terms = collections.Counter()
@@ -89,10 +90,11 @@ for key, flops in terms.most_common(int(sys.argv[3])):
 """
 
 
-def _run(code: str, arch: str, shape: str, top: int) -> str:
+def _run(code: str, arch: str, shape: str, top: int, multi_pod: bool) -> str:
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
            "JAX_PLATFORMS": "cpu"}
-    run = subprocess.run([sys.executable, "-c", code, arch, shape, str(top)],
+    run = subprocess.run([sys.executable, "-c", code, arch, shape, str(top),
+                          "1" if multi_pod else "0"],
                          capture_output=True, text=True, env=env, cwd=ROOT,
                          timeout=3600)
     if run.returncode:
@@ -107,10 +109,13 @@ def main(argv=None) -> int:
     ap.add_argument("shape")
     ap.add_argument("--top", type=int, default=20)
     ap.add_argument("--port-only", action="store_true")
+    ap.add_argument("--multi-pod", action="store_true")
     args = ap.parse_args(argv)
-    print(_run(_PORT, args.arch, args.shape, args.top), end="", flush=True)
+    print(_run(_PORT, args.arch, args.shape, args.top, args.multi_pod),
+          end="", flush=True)
     if not args.port_only:
-        print(_run(_REFERENCE, args.arch, args.shape, args.top), end="")
+        print(_run(_REFERENCE, args.arch, args.shape, args.top,
+                   args.multi_pod), end="")
     return 0
 
 

@@ -5,8 +5,9 @@
         [--port-only] [--json OUT]
 
 For each of the 21 single-pod cells (``CELLS``: every architecture's
-``train_4k`` and ``decode_32k`` and the ``long_500k`` cells), runs the
-reference's
+``train_4k`` and ``decode_32k`` and the ``long_500k`` cells), or with
+``--multi-pod`` the ten multi-pod ``prefill_32k`` cells
+(``MULTI_POD_CELLS``), runs the reference's
 ``repro.launch.dryrun.run_cell`` in a process of its own (that module fakes
 512 host devices when it is imported, and ``run_cell`` returns its result
 without writing it anywhere) and the port's ``python -m
@@ -16,6 +17,14 @@ and argument GiB a chip of each, with the port's over the reference's
 collective counted once, not scaled by its loop's trip count).
 The reference's mesh is its own (16, 16), or (2, 16, 16) with
 ``--multi-pod``; the port's (32, 8) or (2, 32, 8).
+
+Beside them stands a yardstick that does not depend on either layout: the
+reference's FLOPs of the same step compiled for one device (its
+``hloparse.analyze`` of ``jax.jit(step)`` without shardings, in a process
+of its own) over the cell's chips, each chip's share of the whole step's
+work.  A chip that reads below its share leaves work out; above it, it
+repeats work that another chip also does (GSPMD's choice in the
+reference's counts, a replicated layout in the port's).
 
 ``--port-only`` runs the port's cells alone (where JAX is not installed:
 the card's machine, whose torch resolves DTensor's layouts its own way).
@@ -45,6 +54,13 @@ CELLS = tuple((arch, shape) for arch in (
     (arch == "hubert-xlarge" and shape != "train_4k") or
     (shape == "long_500k" and arch not in ("zamba2-2.7b", "rwkv6-1.6b"))))
 
+#: The ten multi-pod cells, ``--multi-pod``'s default: every arch's
+#: ``prefill_32k``, whose batch of 32 does not divide the port's 64 data
+#: ranks (each sequence splits in halves over ``pod``) and does divide
+#: the reference's 32.
+MULTI_POD_CELLS = tuple((arch, "prefill_32k") for arch, shape in CELLS
+                        if shape == "train_4k")
+
 #: What each side reports, by the result's keys.
 FIELDS = ("flops_per_chip", "collective_bytes", "argument_gib")
 
@@ -53,6 +69,33 @@ import dataclasses, json, sys
 from repro.launch import dryrun
 res = dryrun.run_cell(sys.argv[1], sys.argv[2], multi_pod=sys.argv[3] == "1")
 print(json.dumps(dataclasses.asdict(res)))
+"""
+
+
+_WHOLE = """
+import json, sys
+import jax
+from repro.launch import dryrun     # fakes 512 host devices on import
+from repro.configs import get_config, get_shape
+from repro.core import hloparse
+from repro.distributed.step import (TrainStepConfig, make_serve_step,
+                                    make_train_step, train_state_specs)
+from repro.models.model import Model, batch_spec, decode_batch_spec
+cfg, shape = get_config(sys.argv[1]), get_shape(sys.argv[2])
+model = Model(cfg)
+if shape.kind in ("train", "prefill"):
+    step_cfg = TrainStepConfig()
+    fn = make_train_step(model, step_cfg)
+    args = (train_state_specs(model, step_cfg),
+            batch_spec(cfg, shape.global_batch, shape.seq_len))
+else:
+    fn = make_serve_step(model)
+    args = (jax.eval_shape(lambda: model.init(jax.random.PRNGKey(0))),
+            decode_batch_spec(cfg, shape.global_batch),
+            jax.eval_shape(lambda: model.make_cache(shape.global_batch,
+                                                    shape.seq_len)))
+text = jax.jit(fn).lower(*args).compile().as_text()
+print(json.dumps({"flops": hloparse.analyze(text).flops}))
 """
 
 
@@ -91,6 +134,18 @@ def reference_cell(arch: str, shape: str, multi_pod: bool = False,
     return _summary(json.loads(run.stdout.strip().splitlines()[-1]))
 
 
+def reference_whole(arch: str, shape: str, timeout: float = 3600) -> float:
+    """The reference's FLOPs of the cell's whole step compiled for one
+    device, in a process of its own."""
+    run = subprocess.run([sys.executable, "-c", _WHOLE, arch, shape],
+                         capture_output=True, text=True, env=_env(),
+                         cwd=ROOT, timeout=timeout)
+    if run.returncode:
+        raise RuntimeError(f"reference whole step {arch} {shape}: exit "
+                           f"{run.returncode}\n{run.stderr[-2000:]}")
+    return json.loads(run.stdout.strip().splitlines()[-1])["flops"]
+
+
 def port_cell(arch: str, shape: str, multi_pod: bool = False,
               timeout: float = 3600) -> dict:
     """The port's dry-run CLI for one cell in a process of its own."""
@@ -119,14 +174,18 @@ def main(argv=None) -> int:
     ap.add_argument("--port-only", action="store_true")
     ap.add_argument("--json", default=None)
     args = ap.parse_args(argv)
-    cells = CELLS if args.cells is None else tuple(
-        tuple(c.split(":")) for c in args.cells.split(","))
+    cells = (MULTI_POD_CELLS if args.multi_pod else CELLS) \
+        if args.cells is None else tuple(
+            tuple(c.split(":")) for c in args.cells.split(","))
+    chips = 512 if args.multi_pod else 256
     rows = []
     for arch, shape in cells:
         row = {"arch": arch, "shape": shape,
                "port": port_cell(arch, shape, args.multi_pod)}
         if not args.port_only:
             row["reference"] = reference_cell(arch, shape, args.multi_pod)
+            row["whole_step_flops"] = reference_whole(arch, shape)
+            row["share"] = row["whole_step_flops"] / chips
         port, ref = row["port"], row.get("reference", {})
         text = [f"{arch:20s} {shape:11s}"]
         for key in FIELDS:
@@ -138,6 +197,14 @@ def main(argv=None) -> int:
                          f" / ref {_fmt(ref, key)}")
             elif ref:
                 line += f" / ref {_fmt(ref, key)}"
+            text.append(line)
+        if "share" in row:
+            line = f"share {row['share']:.4g}"
+            for side, cell in (("port", port), ("ref", ref)):
+                if "flops_per_chip" in cell:
+                    row[f"{side}_share_ratio"] = \
+                        cell["flops_per_chip"] / row["share"]
+                    line += f" {side} {row[f'{side}_share_ratio']:.3f}"
             text.append(line)
         print("  ".join(text), flush=True)
         rows.append(row)
