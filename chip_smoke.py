@@ -205,11 +205,12 @@ Phases; any failure exits non-zero and no phase swallows one:
      256-rank (32, 8) world (stablelm-1.6b decode_32k, channelized, and
      train_4k, olmoe-1b-7b and rwkv6-1.6b train_4k, zamba2-2.7b
      decode_32k) and rwkv6-1.6b's and stablelm-1.6b's prefill_32k on the
-     512-rank (2, 32, 8) one, sequences split over ``pod`` (FLOPs within
-     0.9-1.1 of the CPU's torch 2.13, ``MULTI_POD_FLOPS``), each in a
+     512-rank (2, 32, 8) one, sequences split over ``pod``, each in a
      process of its own, their FLOPs, collective bytes and argument GiB
-     a chip printed.  Alone: ``python3 -c "import chip_smoke;
-     chip_smoke.mesh_phase()"``; one serve:
+     a chip printed and held to the CPU's torch 2.13 (``DRYRUN_TORCH_213``:
+     FLOPs within 0.995-1.005, collective bytes within 0.9-1.1).  Alone:
+     ``python3 -c "import chip_smoke; chip_smoke.mesh_phase()"``; one
+     serve:
      ``chip_smoke.world_serve("olmoe")``; the split sequences alone:
      ``chip_smoke.split_phase()``.
 
@@ -3866,12 +3867,21 @@ MESH_DRYRUN_CELLS = ((DENSE_ARCH, "decode_32k", False),
                      (HYBRID_ARCH, "decode_32k", False),
                      (SSM_ARCH, "prefill_32k", True),
                      (DENSE_ARCH, "prefill_32k", True))
-#: The multi-pod cells' FLOPs a chip on the CPU's torch 2.13
-#: (``launch.dryrun``, each sequence split in halves over ``pod``); the
-#: card's torch 2.11 must read within 0.9-1.1 of them.  (Replicated over
-#: the pod as before the split, stablelm-1.6b read 3.743e15.)
-MULTI_POD_FLOPS = {(SSM_ARCH, "prefill_32k"): 2.535e13,
-                   (DENSE_ARCH, "prefill_32k"): 7.437e13}
+#: Each dry-run cell's FLOPs and collective bytes a chip on the CPU's torch
+#: 2.13 (``tools/dryrun_products.py --all``; the port splits every product
+#: itself, ``distributed/context.Ranks``): the card's torch 2.11 must read
+#: FLOPs within ``DRYRUN_FLOPS_BAND`` of them and collective bytes within
+#: ``DRYRUN_COLL_BAND``.
+DRYRUN_TORCH_213 = {
+    (DENSE_ARCH, "decode_32k", False): (4.6599e9, 2.7935e6),
+    (DENSE_ARCH, "train_4k", False): (5.6384e13, 1.7660e10),
+    (MOE_ARCH, "train_4k", False): (5.3659e13, 2.2942e11),
+    (SSM_ARCH, "train_4k", False): (4.7004e13, 5.6435e10),
+    (HYBRID_ARCH, "decode_32k", False): (4.8293e9, 9.0882e6),
+    (SSM_ARCH, "prefill_32k", True): (2.3502e13, 2.8804e10),
+    (DENSE_ARCH, "prefill_32k", True): (7.4372e13, 1.1485e10)}
+DRYRUN_FLOPS_BAND = (0.995, 1.005)
+DRYRUN_COLL_BAND = (0.9, 1.1)
 
 
 def start_dryrun_cells(cells=MESH_DRYRUN_CELLS):
@@ -3893,9 +3903,10 @@ def start_dryrun_cells(cells=MESH_DRYRUN_CELLS):
 
 def finish_dryrun_cells(started):
     """Wait for the cells :func:`start_dryrun_cells` started; each must
-    read ``ok``, and its FLOP, collective and argument line is printed; a
-    multi-pod cell's FLOPs a chip must lie within 0.9-1.1 of the CPU's
-    (``MULTI_POD_FLOPS``)."""
+    read ``ok``, and its FLOP, collective and argument line is printed;
+    its FLOPs and collective bytes a chip must lie within
+    ``DRYRUN_FLOPS_BAND`` and ``DRYRUN_COLL_BAND`` of the CPU's torch 2.13
+    (``DRYRUN_TORCH_213``)."""
     t0, out, runs = started
     results = []
     for arch, shape, multi, run in runs:
@@ -3912,19 +3923,23 @@ def finish_dryrun_cells(started):
         if run.returncode != 0 or res["status"] != "ok":
             fail(f"dry run {arch} {shape} {mesh}: exit {run.returncode}, "
                  f"{res['status']}: {res['error']}\n{err[-2000:]}")
-        cpu = MULTI_POD_FLOPS.get((arch, shape)) if multi else None
-        vs = "" if cpu is None else (
-            f" ({res['flops_per_chip'] / cpu:.3f} of torch 2.13's "
-            f"{cpu:.4e})")
+        flops, coll = DRYRUN_TORCH_213[(arch, shape, multi)]
+        got = (res["flops_per_chip"] / flops,
+               res["collectives"]["total"] / coll)
         log(f"dry run {arch} {shape} on the fake {mesh.replace('x', ', ')} "
-            f"world: {res['flops_per_chip']:.4e} FLOP a chip{vs}"
-            f", collectives {res['collectives']['total']:.4e} B a chip, "
-            f"argument bytes {res['memory']['argument_bytes'] / 2**30:.2f} "
-            f"GiB a chip, sequences in {res.get('seq_parts', 1)} part(s), "
+            f"world: {res['flops_per_chip']:.4e} FLOP a chip ({got[0]:.4f} "
+            f"of torch 2.13's {flops:.4e}), collectives "
+            f"{res['collectives']['total']:.4e} B a chip ({got[1]:.4f} of "
+            f"{coll:.4e}), argument bytes "
+            f"{res['memory']['argument_bytes'] / 2**30:.2f} GiB a chip, "
+            f"sequences in {res.get('seq_parts', 1)} part(s), "
             f"{res['seconds']:.1f} s in the cell")
-        if cpu is not None and not 0.9 <= res["flops_per_chip"] / cpu <= 1.1:
-            fail(f"dry run {arch} {shape} {mesh}: {res['flops_per_chip']:.4e}"
-                 f" FLOP a chip, outside 0.9-1.1 of torch 2.13's {cpu:.4e}")
+        for what, ratio, (lo, hi) in (("FLOP", got[0], DRYRUN_FLOPS_BAND),
+                                      ("collective B", got[1],
+                                       DRYRUN_COLL_BAND)):
+            if not lo <= ratio <= hi:
+                fail(f"dry run {arch} {shape} {mesh}: {what} a chip "
+                     f"{ratio:.4f} of torch 2.13's, outside {lo}-{hi}")
         results.append(res)
     log(f"dry run: {len(runs)} cells in {time.perf_counter() - t0:.1f} s "
         f"with their processes")

@@ -40,6 +40,16 @@ the parts of the same sequences (:func:`seq_pair`): the blocks hand
 what crosses a part's edge over it (the token shift's and the conv's
 tails, the recurrences' states, attention's keys and values).
 
+Where DTensor would choose a product's layout itself, the port splits it
+on local tensors with explicit collectives (:class:`Ranks`,
+:func:`column_product`, :func:`row_product`, ``models/rwkv``'s blocks):
+DTensor's cost model breaks ties between equally cheap strategies
+differently in different torch versions (2.11 and 2.13 split the same
+products otherwise), and the dry run's counts must not depend on the
+version.  What DTensor still propagates here is elementwise work, norms
+and reductions over tensors laid out alike, and the explicit
+redistributions of this module.
+
 Nothing here changes a value: with no active rules every path is
 numerically exactly what it is without this module.
 """
@@ -51,9 +61,11 @@ import types
 
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
-from repro_torch.distributed.layout import (axis_sizes, local_part,
+from repro_torch.distributed.layout import (all_reduce_local, axis_sizes,
+                                            gather_local, local_part,
                                             placements,
-                                            replicate_plain_tensors)
+                                            replicate_plain_tensors,
+                                            scatter_sum_local)
 
 # Process-wide, not a thread's own: autograd runs a CUDA backward, and the
 # recompute of a remat layer inside it, on a device thread of its own,
@@ -192,70 +204,6 @@ def grouped_heads(x, n_heads: int, n_kv_heads: int, dim: int = -1):
     return whole_heads(x, n_kv_heads, dim)
 
 
-def _batch_dims(x) -> list:
-    """The mesh dimensions of the active rules' batch axes."""
-    state = active()
-    if state is None or not isinstance(x, DTensor):
-        return []
-    axes = state[1].get("batch") or ()
-    axes = (axes,) if isinstance(axes, str) else axes
-    return [x.device_mesh.mesh_dim_names.index(a) for a in axes]
-
-
-def batch_rows(x):
-    """A DTensor ``x`` laid out on the active rules' batch axes as the
-    batch rule says: its rows split where they divide, else whole (what
-    :func:`idle_features` split made whole again); a plain tensor as it
-    is."""
-    dims = _batch_dims(x)
-    if not dims:
-        return x
-    want = [Shard(0) if p.is_shard(0) else Replicate() if i in dims else p
-            for i, p in enumerate(x.placements)]
-    return x if tuple(want) == tuple(x.placements) else x.redistribute(
-        x.device_mesh, want)
-
-
-def idle_columns(w, x):
-    """A DTensor weight ``w`` (in, out) with its output columns split over
-    the active rules' batch axes on which the activations ``x`` are not
-    split by rows (batch 1) where they divide, as :func:`idle_features`
-    splits the features of ``x`` there: a product ``h @ w`` then writes
-    each rank's part of the features (a slice of ``w``, no collective)."""
-    dims = [i for i in _batch_dims(x) if not x.placements[i].is_shard(0)]
-    if not dims or not isinstance(w, DTensor):
-        return w
-    mesh, want, split = w.device_mesh, list(w.placements), 1
-    for i in dims:
-        if w.placements[i].is_replicate() and mesh.size(i) > 1 and \
-                w.shape[-1] % (split * mesh.size(i)) == 0:
-            want[i] = Shard(w.dim() - 1)
-            split *= mesh.size(i)
-    return w if split == 1 else w.redistribute(mesh, want)
-
-
-def idle_features(x):
-    """A DTensor ``x`` (B, S, D) with its features split over the mesh
-    dimensions of the active rules' batch axes that hold it whole (the
-    batch does not divide them: batch 1) where their size divides D; a
-    plain tensor, or one whose batch they split, as it is.  The products
-    that read it then contract each rank's part of the features, as GSPMD
-    lays the reference's out at batch 1; DTensor left to itself picks
-    that layout in one torch version and runs every product whole on
-    every data rank in another."""
-    dims = _batch_dims(x)
-    if not dims:
-        return x
-    mesh = x.device_mesh
-    want, split = list(x.placements), 1
-    for i, p in enumerate(x.placements):
-        if i in dims and p.is_replicate() and mesh.size(i) > 1 and \
-                x.shape[-1] % (split * mesh.size(i)) == 0:
-            want[i] = Shard(x.dim() - 1)
-            split *= mesh.size(i)
-    return x if split == 1 else x.redistribute(mesh, want)
-
-
 def model_dim(x, n: int):
     """The mesh dimension named ``model`` when it has more than one rank
     and divides ``n``, else None: where a block splits ``n`` heads (or
@@ -266,6 +214,197 @@ def model_dim(x, n: int):
     i = x.device_mesh.mesh_dim_names.index("model")
     size = x.device_mesh.size(i)
     return i if size > 1 and n % size == 0 else None
+
+
+class Ranks:
+    """How the ranks of the mesh of DTensor activations ``x`` (rows first)
+    share a block that runs on local tensors with explicit collectives
+    (``models/rwkv``, :func:`column_product`, :func:`row_product`): the
+    split is the port's own, so it does not depend on how a torch
+    version's DTensor would propagate the block.
+
+    * ``rows``: the mesh dimensions of the rules' batch axes where the
+      batch divides them (each rank holds its rows), else none;
+    * ``model``: the mesh dimension ``model`` (given: a dimension of more
+      than one rank that splits the block's heads or columns) or None;
+    * ``idle``: the batch axes' dimensions that the batch does not divide
+      (batch 1), whose ranks each take a part of their model rank's block
+      where every count in ``widths`` (the widths split by the model
+      rank) divides, else repeat their model rank's work.
+
+    ``share`` lists the ranks that share the work, the model rank's block
+    major.  Inside a block every local tensor's gradient is a pending sum
+    over them; the rows' ranks each hold their own rows."""
+
+    def __init__(self, x, model, widths=()):
+        self.mesh = mesh = x.device_mesh
+        names = mesh.mesh_dim_names
+        state = active()
+        axes = (state[1].get("batch") or ()) if state else ()
+        axes = (axes,) if isinstance(axes, str) else axes
+        batch = [names.index(a) for a in axes
+                 if mesh.size(names.index(a)) > 1]
+        n = 1
+        for i in batch:
+            n *= mesh.size(i)
+        split = x.shape[0] % n == 0
+        self.rows = batch if split else []
+        self.model = model
+        m = 1 if model is None else mesh.size(model)
+        idle = [] if split else batch
+        k = 1
+        for i in idle:
+            k *= mesh.size(i)
+        self.idle = idle if all(w % (m * k) == 0 for w in widths) else []
+        self.share = ([] if model is None else [model]) + self.idle
+        self.placements = [Shard(0) if i in self.rows else Replicate()
+                           for i in range(mesh.ndim)]
+
+    def index(self, dims) -> tuple:
+        """(this rank's index among the ranks of ``dims``, the first
+        major; their number)."""
+        coord, index, n = self.mesh.get_coordinate(), 0, 1
+        for i in dims:
+            index = index * self.mesh.size(i) + coord[i]
+            n *= self.mesh.size(i)
+        return index, n
+
+    def part(self, n: int) -> tuple:
+        """(the dims, this rank's slice) of ``n`` split over the sharing
+        ranks where they divide it, else over the model dimension alone
+        where it does, else whole."""
+        for dims in (self.share, [] if self.model is None else [self.model]):
+            index, k = self.index(dims)
+            if n % k == 0:
+                return dims, slice(index * (n // k), (index + 1) * (n // k))
+        return [], slice(0, n)
+
+    def local(self, t):
+        """``t`` laid out as the rows, this rank's local tensor (a plain
+        tensor counts as replicated); its gradient a pending sum over the
+        sharing ranks."""
+        mesh = self.mesh
+        if not isinstance(t, DTensor):
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        if tuple(t.placements) != tuple(self.placements):
+            t = t.redistribute(mesh, self.placements)
+        return t.to_local(grad_placements=[
+            Partial() if i in self.share else p
+            for i, p in enumerate(self.placements)])
+
+    def whole(self, w):
+        """A weight whole on every rank, as a local tensor; each rank's use
+        of it a part of the work."""
+        return whole_local(w, self.rows + self.share)
+
+    def block(self, w, dim: int):
+        """The model rank's block of weight ``w``'s dimension ``dim``,
+        whole elsewhere: its own shard where ``w`` is split so over the
+        model dimension alone, else a slice of the whole."""
+        dim %= w.dim()
+        if self.model is not None and all(
+                p == Shard(dim) if i == self.model else p.is_replicate()
+                for i, p in enumerate(w.placements)):
+            return local_part(w, self.rows + self.idle)
+        whole = self.whole(w)
+        index, k = self.index([] if self.model is None else [self.model])
+        n = whole.shape[dim] // k
+        return whole.narrow(dim, index * n, n)
+
+    def sub(self, n: int) -> slice:
+        """This idle rank's slice of a model rank's block of ``n``."""
+        index, k = self.index(self.idle)
+        return slice(index * (n // k), (index + 1) * (n // k))
+
+    def gather(self, t, dims, partial_grad: bool = True):
+        """Local ``t``'s last dimension, split over ``dims``, gathered
+        (``layout.gather_local``)."""
+        return gather_local(t, self.mesh, dims, -1, self.placements,
+                            partial_grad)
+
+    def scatter(self, t, dims):
+        """A pending sum over ``dims``, summed into this rank's slice of the
+        last dimension (``layout.scatter_sum_local``)."""
+        return scatter_sum_local(t, self.mesh, dims, -1, self.placements)
+
+    def sum(self, t, dims):
+        """A pending sum over ``dims``, all-reduced."""
+        return all_reduce_local(t, self.mesh, dims, self.placements,
+                                "sum") if dims else t
+
+    def wrap(self, t, placements=None):
+        """A local result laid out as the rows (or as ``placements``), as a
+        DTensor."""
+        return DTensor.from_local(t, self.mesh, placements or
+                                  self.placements, run_check=False)
+
+
+def _split_dim(w, dim: int):
+    """The ``model`` mesh dimension where it has more than one rank and
+    splits DTensor ``w``'s dimension ``dim``, else None (a weight split
+    over the data ranks, FSDP's, is gathered whole)."""
+    names = w.device_mesh.mesh_dim_names or ()
+    if "model" not in names:
+        return None
+    i = names.index("model")
+    return i if w.placements[i].is_shard(dim % w.dim()) and \
+        w.device_mesh.size(i) > 1 else None
+
+
+def column_product(x, w):
+    """``x @ w`` (x (..., D) with its rows first, w (D, N)); on a mesh, on
+    local tensors: each rank multiplies its rows by the columns of ``w``
+    its rank of the dimension that splits them holds (the ``model`` rank's
+    block), an idle rank (batch 1: :class:`Ranks`) by a part of that
+    block, gathered over the idle ranks; no collective else.  The result
+    keeps ``w``'s column split."""
+    if not isinstance(x, DTensor) and not isinstance(w, DTensor):
+        return x @ w
+    mesh = (x if isinstance(x, DTensor) else w).device_mesh
+    if not isinstance(w, DTensor):
+        w = DTensor.from_local(w, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
+    if not isinstance(x, DTensor):
+        x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
+    model = _split_dim(w, -1)
+    rk = Ranks(x, model, (w.shape[-1],))
+    block = rk.block(w, -1)
+    cols = rk.sub(block.shape[-1])
+    out = rk.gather(rk.local(x) @ block[:, cols], rk.idle,
+                    partial_grad=False)
+    return rk.wrap(out, [Shard(x.dim() - 1) if i == model else p
+                         for i, p in enumerate(rk.placements)])
+
+
+def row_product(y, w):
+    """``y @ w`` (y (..., N) with its rows first, w (N, D)); on a mesh, on
+    local tensors: each rank multiplies its rank's block of the features
+    (the ``model`` rank's rows of ``w``; an idle rank's part of them) and
+    the ranks' pending sums are all-reduced.  The result is laid out as
+    the rows, whole elsewhere: the residual stream's layout."""
+    if not isinstance(y, DTensor) and not isinstance(w, DTensor):
+        return y @ w
+    mesh = (y if isinstance(y, DTensor) else w).device_mesh
+    if not isinstance(y, DTensor):
+        y = DTensor.from_local(y, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
+    if not isinstance(w, DTensor):
+        w = DTensor.from_local(w, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
+    model = _split_dim(w, 0)
+    rk = Ranks(y, model, (w.shape[0],))
+    last = y.dim() - 1
+    want = [Shard(last) if i == model else p
+            for i, p in enumerate(rk.placements)]
+    if tuple(y.placements) != tuple(want):
+        y = y.redistribute(mesh, want)
+    yl = y.to_local(grad_placements=[
+        Partial() if i in rk.idle else p for i, p in enumerate(want)])
+    block = rk.block(w, 0)
+    rows = rk.sub(block.shape[0])
+    return rk.wrap(rk.sum(yl[..., rows] @ block[rows], rk.share))
 
 
 def whole_local(x, partial_dims=()):

@@ -84,6 +84,42 @@ def all_reduce_local(x, mesh, dims, placements, op: str):
         mesh, whole).to_local()
 
 
+def gather_local(x, mesh, dims, dim: int, placements,
+                 partial_grad: bool = True):
+    """Local ``x``, this rank's slice of dimension ``dim`` split over the
+    mesh dimensions ``dims``, gathered whole: one all-gather a mesh
+    dimension, the last of ``dims`` first (so the first is the major
+    one).  ``placements`` are ``x``'s on the other mesh dimensions.  With
+    ``partial_grad`` the whole tensor's gradient is taken as a pending sum
+    over ``dims`` (each rank's use of it is a part of the work) and its
+    slice is reduced to each rank (a reduce-scatter); else as the same on
+    every rank, of which each takes its slice."""
+    dim %= x.dim()
+    for i in reversed(list(dims)):
+        split = [Shard(dim) if j == i else p for j, p in enumerate(placements)]
+        whole = [Replicate() if j == i else p for j, p in enumerate(placements)]
+        grad = [Partial() if j == i and partial_grad else p
+                for j, p in enumerate(whole)]
+        x = DTensor.from_local(x, mesh, split, run_check=False).redistribute(
+            mesh, whole).to_local(grad_placements=grad)
+    return x
+
+
+def scatter_sum_local(x, mesh, dims, dim: int, placements):
+    """Local ``x``, a pending sum over the mesh dimensions ``dims``, summed
+    and split along ``dim``: this rank's slice (one reduce-scatter a mesh
+    dimension, the first of ``dims`` first, so that it is the major one,
+    as :func:`gather_local` joins them).  ``placements`` are ``x``'s on
+    the other mesh dimensions."""
+    dim %= x.dim()
+    for i in dims:
+        pending = [Partial() if j == i else p for j, p in enumerate(placements)]
+        split = [Shard(dim) if j == i else p for j, p in enumerate(placements)]
+        x = DTensor.from_local(x, mesh, pending, run_check=False).redistribute(
+            mesh, split).to_local()
+    return x
+
+
 def local_part(x, partial_dims=()):
     """DTensor ``x``'s local shard, for work that each rank of the mesh
     dimensions ``partial_dims`` does on its own part of it (its heads, its

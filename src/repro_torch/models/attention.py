@@ -62,9 +62,9 @@ def qkv_project(cfg: ModelConfig, p: dict, x, positions):
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     heads = lambda t, n: context.whole_heads(t, n).reshape(b, s, n, hd)
-    q = heads(x @ p["wq"], cfg.n_heads)
-    k = heads(x @ p["wk"], cfg.n_kv_heads)
-    v = heads(x @ p["wv"], cfg.n_kv_heads)
+    q = heads(context.column_product(x, p["wq"]), cfg.n_heads)
+    k = heads(context.column_product(x, p["wk"]), cfg.n_kv_heads)
+    v = heads(context.column_product(x, p["wv"]), cfg.n_kv_heads)
     q, k = apply_rope(q, k, positions, hd, cfg.rope_theta,
                       cfg.mrope_sections)
     return q, k, v

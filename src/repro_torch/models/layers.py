@@ -226,16 +226,20 @@ MLP_USE_SPECS = {"wi": (None, "model"), "wg": (None, "model"),
 
 def mlp_apply(cfg: ModelConfig, p: dict, x):
     p = context.use_params(p, MLP_USE_SPECS)
+    # On a mesh each rank computes its columns of wi and wg and its rows of
+    # wo, whose pending sum is all-reduced into the residual stream's layout
+    # (context.column_product, row_product).
+    up = lambda name: context.column_product(x, p[name])
     if cfg.activation == "swiglu":
-        h = F.silu(x @ p["wg"]) * (x @ p["wi"])
+        h = F.silu(up("wg")) * up("wi")
     elif cfg.activation == "gelu":
         # jax.nn.gelu defaults to the tanh approximation.
-        h = F.gelu(x @ p["wi"], approximate="tanh")
+        h = F.gelu(up("wi"), approximate="tanh")
     elif cfg.activation == "relu2":
-        h = F.relu(x @ p["wi"]).square()
+        h = F.relu(up("wi")).square()
     else:
         raise ValueError(cfg.activation)
-    return h @ p["wo"]
+    return context.row_product(h, p["wo"])
 
 
 # ---------------------------------------------------------------------------

@@ -94,7 +94,9 @@ class Model:
 
     def _logits(self, params, h):
         w_head = layers.unembed_matrix(self.cfg, params["embed"])
-        return (h[:, -1, :] @ transformer.as_dtype(w_head, h.dtype)).float()
+        # On a mesh each rank scores its own vocabulary columns.
+        return context.column_product(
+            h[:, -1, :], transformer.as_dtype(w_head, h.dtype)).float()
 
     def prefill(self, params, batch, cache, plain_kernels: bool = False):
         """Run a prompt through the model from ``cache``, which is written

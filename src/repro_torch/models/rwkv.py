@@ -11,8 +11,8 @@ carried as an (H, hd, hd) fp32 state per head.  The recurrence is
 ``kernels.ops.wkv``: the hand ``wkv`` kernel on the card (and K3b, its
 backward, under autograd), their plain versions on the CPU;
 ``plain_kernels=True`` sends it to the plain versions on any device, to
-compare the two paths.  The reference's ``context.use_params`` sharding
-hooks stand where it has them (no-ops without active rules).
+compare the two paths.  On a mesh each block gathers its weights at use
+as the reference's ``context.use_params`` hooks say.
 
 Channel-mix: token-shift + squared-ReLU MLP with a sigmoid receptance gate.
 
@@ -20,6 +20,24 @@ Where the rows are parts of split sequences (a ``seq_pair`` rule:
 ``sharding.split_sequences``), each part's token shift starts from the
 part before's last row and its WKV from that part's final state, handed
 over the ranks that share the sequences (``ops.wkv``'s ``pair``).
+
+On a mesh (DTensor activations under ``distributed/context``'s rules)
+both blocks run on each rank's local tensors, split as the port chooses
+(``context.Ranks``), with explicit collectives: DTensor's own propagation
+picks other splits of the same products in different torch versions, so
+the layout, the FLOPs and the collectives a rank would depend on the
+version.  The rows split over the data ranks where the batch divides
+them; each ``model`` rank takes its heads (the columns of ``wr``, ``wk``,
+``wv``, ``wg`` and of the decay tower's second product, the WKV, the
+rows of ``wo``: a pending sum, all-reduced) and, where the batch leaves
+the data ranks idle (batch 1), each of those a part of its rank's head
+columns, gathered before the WKV.  The low-rank towers split their
+columns, and the five mixes their features, over the same ranks and are
+gathered (one all-gather of B x S x 5R and of B x S x 5 x D).  The
+channel mix splits ``cm_wk``'s columns and ``cm_wv``'s rows (a pending
+sum, reduce-scattered to the columns of ``cm_wr`` that the rank took)
+and gathers the gated product.  On plain tensors the blocks are the
+one-device code, bit for bit.
 
 Each block returns its new shift and WKV states, as the reference does.
 ``time_mix`` writes the new WKV state into ``state_out`` when given, which
@@ -31,6 +49,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch.distributed import context
 from repro_torch.kernels import ops
@@ -92,74 +111,179 @@ def time_mix(cfg: ModelConfig, p: dict, x, shift_state, wkv_state,
              plain_kernels: bool = False, state_out=None):
     """x: (B, S, D) -> (y, (new_shift, new_wkv)).  The new WKV state is
     written into ``state_out`` when given (it may be ``wkv_state``)."""
-    p = context.use_params(p, {"wr": (None, "model"), "wk": (None, "model"),
-                               "wv": (None, "model"), "wg": (None, "model"),
-                               "wo": ("model", None)})
+    if isinstance(x, DTensor):
+        return _time_mix_sharded(cfg, p, x, shift_state, wkv_state,
+                                 plain_kernels, state_out)
     b, s, d = x.shape
     h, hd = cfg.rwkv_heads, cfg.rwkv_head_dim
     xx = _token_shift(x, shift_state)
     delta = xx - x
 
     # Data-dependent lerp (ddlerp): one shared low-rank tower -> 5 mixes.
-    # Replicated over the mesh before the reshape splits its last axis
-    # (DTensor cannot unflatten a sharded axis into 5 mixes), and pinned so
-    # after it: its gradient is laid out so before the reshape's backward
-    # flattens it (DTensor 2.11 left the rank axis split there, and cannot
-    # flatten a split axis).
-    lora = context.constrain(
-        context.constrain(torch.tanh(x @ p["mix_w1"]),
-                          ("batch", "seq", "rank")).reshape(b, s, 5, -1),
-        ("batch", "seq", "mix", "rank"))
+    lora = torch.tanh(x @ p["mix_w1"]).reshape(b, s, 5, -1)
     mixes = p["mix_base"][None, None] + torch.einsum(
-        "bsmr,mrd->bsmd", lora,
-        context.idle_columns(p["mix_w2"], x))   # (B,S,5,D)
+        "bsmr,mrd->bsmd", lora, p["mix_w2"])     # (B,S,5,D)
     xr, xk, xv, xw, xg = (x + delta * torch.sigmoid(mixes[:, :, i])
                           for i in range(5))
 
-    # (On a mesh, each shard of a channel axis split into heads holds
-    # whole heads.)
-    heads = lambda t: context.whole_heads(t, h).reshape(b, s, h, hd)
-    r = heads(xr @ p["wr"])
-    k = heads(xk @ p["wk"])
-    v = heads(xv @ p["wv"])
+    r = (xr @ p["wr"]).reshape(b, s, h, hd)
+    k = (xk @ p["wk"]).reshape(b, s, h, hd)
+    v = (xv @ p["wv"]).reshape(b, s, h, hd)
     g = F.silu(xg @ p["wg"])
 
     # Data-dependent per-channel decay in (0, 1).
-    dd = p["decay_base"] + torch.tanh(xw @ p["decay_w1"]) @ \
-        context.idle_columns(p["decay_w2"], x)
-    w = heads(torch.exp(-torch.exp(dd.float() - 3.0)))       # near 1.0 init
-    u = context.whole_heads(p["bonus_u"], h).reshape(h, hd).float()
+    dd = p["decay_base"] + torch.tanh(xw @ p["decay_w1"]) @ p["decay_w2"]
+    w = torch.exp(-torch.exp(dd.float() - 3.0)).reshape(b, s, h, hd)
+    u = p["bonus_u"].reshape(h, hd).float()
 
     y, new_state = _wkv_scan(r, k, v, w, u, wkv_state, plain_kernels,
                              state_out)
-    y = y.reshape(b, s, d).to(x.dtype)
-    # Group norm over heads (ln_x) then output gate + projection.
-    yh = heads(y).float()
+    y = _group_norm(cfg, y.reshape(b, s, d).to(x.dtype), p["ln_x"], h)
+    return (y * g) @ p["wo"], (x[:, -1, :], new_state)
+
+
+def _group_norm(cfg: ModelConfig, y, ln_x, h: int):
+    """ln_x: the norm over each of the ``h`` heads of y (B, S, h x hd) in
+    float32, scaled by 1 + ln_x, in y's dtype."""
+    b, s, _ = y.shape
+    yh = y.reshape(b, s, h, -1).float()
     var = yh.square().mean(dim=-1, keepdim=True)
     mu = yh.mean(dim=-1, keepdim=True)
     yh = (yh - mu) * torch.rsqrt(var - mu.square() + cfg.norm_eps)
-    y = (yh.reshape(b, s, d) * (1.0 + p["ln_x"].float())).to(x.dtype)
-    # The output projection contracts each model rank's heads, whole on
-    # the batch axes, into each data rank's part of the features at batch
-    # 1 (``context.idle_features``; torch versions differ in what DTensor
-    # picks there left to itself).
-    out = context.batch_rows(y * g) @ context.idle_columns(p["wo"], x)
-    return out, (x[:, -1, :], new_state)
+    return (yh.reshape(b, s, -1) * (1.0 + ln_x.float())).to(y.dtype)
 
 
 def channel_mix(cfg: ModelConfig, p: dict, x, shift_state):
-    p = context.use_params(p, {"cm_wk": (None, "model"),
-                               "cm_wr": (None, "model"),
-                               "cm_wv": ("model", None)})
+    if isinstance(x, DTensor):
+        return _channel_mix_sharded(cfg, p, x, shift_state)
     xx = _token_shift(x, shift_state)
     delta = xx - x
     xk = x + delta * torch.sigmoid(p["cm_mix"][0])[None, None]
     xr = x + delta * torch.sigmoid(p["cm_mix"][1])[None, None]
     kk = F.relu(xk @ p["cm_wk"]).square()
     rr = torch.sigmoid(xr @ p["cm_wr"])
-    # At batch 1 each data rank writes its part of the features, as in
-    # time_mix's output projection.
-    return rr * (kk @ context.idle_columns(p["cm_wv"], x)), x[:, -1, :]
+    return rr * (kk @ p["cm_wv"]), x[:, -1, :]
+
+
+# ---------------------------------------------------------------------------
+# The blocks on a mesh.
+# ---------------------------------------------------------------------------
+
+def _time_mix_sharded(cfg, p, x, shift_state, wkv_state, plain_kernels,
+                      state_out):
+    """:func:`time_mix` on a mesh (module note)."""
+    p = context.use_params(p, {"wr": (None, "model"), "wk": (None, "model"),
+                               "wv": (None, "model"), "wg": (None, "model"),
+                               "wo": ("model", None)})
+    h, hd, rank = cfg.rwkv_heads, cfg.rwkv_head_dim, cfg.rwkv_lora_rank
+    d = x.shape[-1]
+    rk = context.Ranks(x, context.model_dim(x, h), (d,))
+    xl = rk.local(x)
+    b, s, _ = xl.shape
+    delta = _token_shift(xl, rk.local(shift_state)) - xl
+
+    # The low-rank tower's columns and the mixes' features split over the
+    # sharing ranks, each gathered whole.
+    dims, cols = rk.part(5 * rank)
+    lora = rk.gather(torch.tanh(xl @ rk.whole(p["mix_w1"])[:, cols]), dims)
+    dims, feat = rk.part(d)
+    mixes = rk.whole(p["mix_base"])[None, None, :, feat] + torch.einsum(
+        "bsmr,mrd->bsmd", lora.reshape(b, s, 5, rank),
+        rk.whole(p["mix_w2"])[..., feat])
+    mix = rk.gather(torch.sigmoid(mixes), dims)
+    xr, xk, xv, xw, xg = (xl + delta * mix[:, :, i] for i in range(5))
+
+    # Each model rank's heads; an idle rank's part of their columns.
+    width = d if rk.model is None else d // rk.mesh.size(rk.model)
+    mine = rk.sub(width)
+
+    def head_cols(t, w, base=None):
+        out = t @ rk.block(w, 1)[:, mine]
+        if base is not None:
+            out = rk.block(base, 0)[mine] + out
+        return rk.gather(out, rk.idle)
+
+    hl = width // hd
+    r = head_cols(xr, p["wr"]).reshape(b, s, hl, hd)
+    k = head_cols(xk, p["wk"]).reshape(b, s, hl, hd)
+    v = head_cols(xv, p["wv"]).reshape(b, s, hl, hd)
+    g = F.silu(head_cols(xg, p["wg"]))
+    dims, cols = rk.part(rank)
+    tower = rk.gather(torch.tanh(xw @ rk.whole(p["decay_w1"])[:, cols]), dims)
+    dd = head_cols(tower, p["decay_w2"], p["decay_base"])
+    w = torch.exp(-torch.exp(dd.float() - 3.0)).reshape(b, s, hl, hd)
+    u = rk.block(p["bonus_u"], 0).reshape(hl, hd).float()
+
+    state = _state_local(rk, wkv_state)
+    out_local = None if state_out is None else (
+        state if state_out is wkv_state else _state_local(rk, state_out))
+    y, new_state = ops.wkv(r, k, v, w, u, state, out_local,
+                           plain=plain_kernels, pair=context.seq_pair())
+    y = _group_norm(cfg, y.reshape(b, s, width).to(x.dtype),
+                    rk.block(p["ln_x"], 0), hl)
+    # The rank's rows of wo: a pending sum over the sharing ranks.
+    out = rk.sum((y * g)[..., mine] @ rk.block(p["wo"], 0)[mine],
+                 rk.share)
+    return rk.wrap(out), (x[:, -1, :], _state_wrap(rk, new_state))
+
+
+def _state_local(rk, state):
+    """A (B, H, hd, hd) WKV state, this rank's rows and its model rank's
+    heads, as a local tensor (a view of a DTensor laid out so, which the
+    WKV may write in place: :func:`state_layout`); a plain tensor (the
+    zero state of a pass without a cache) counts as replicated."""
+    if isinstance(state, DTensor) and rk.model is not None and \
+            state.placements[rk.model] == Shard(1):
+        return state.to_local()
+    local = rk.local(state)
+    index, k = rk.index([] if rk.model is None else [rk.model])
+    n = local.shape[1] // k
+    return local[:, index * n:(index + 1) * n]
+
+
+def _state_wrap(rk, state):
+    """This rank's new WKV state (its rows, its model rank's heads) as a
+    DTensor."""
+    return rk.wrap(state, [Shard(1) if i == rk.model else p
+                           for i, p in enumerate(rk.placements)])
+
+
+def state_layout(cfg: ModelConfig, states):
+    """The cache's (L, B, H, hd, hd) WKV states with the heads split over
+    ``model`` where the blocks split them (a replicated cache's own slice
+    on each rank, no collective), so that each layer writes its new state
+    in place, with no gather; anything else as it is."""
+    if not isinstance(states, DTensor):
+        return states
+    dim = context.model_dim(states, cfg.rwkv_heads)
+    if dim is None or not states.placements[dim].is_replicate():
+        return states
+    return states.redistribute(states.device_mesh, [
+        Shard(2) if i == dim else pl for i, pl in enumerate(states.placements)])
+
+
+def _channel_mix_sharded(cfg, p, x, shift_state):
+    """:func:`channel_mix` on a mesh (module note)."""
+    p = context.use_params(p, {"cm_wk": (None, "model"),
+                               "cm_wr": (None, "model"),
+                               "cm_wv": ("model", None)})
+    d = x.shape[-1]
+    rk = context.Ranks(x, context.model_dim(x, cfg.rwkv_heads),
+                        (d, cfg.d_ff))
+    xl = rk.local(x)
+    delta = _token_shift(xl, rk.local(shift_state)) - xl
+    mix = rk.whole(p["cm_mix"])
+    xk = xl + delta * torch.sigmoid(mix[0])[None, None]
+    xr = xl + delta * torch.sigmoid(mix[1])[None, None]
+    m = 1 if rk.model is None else rk.mesh.size(rk.model)
+    hidden, mine = rk.sub(cfg.d_ff // m), rk.sub(d // m)
+    kk = F.relu(xk @ rk.block(p["cm_wk"], 1)[:, hidden]).square()
+    rr = torch.sigmoid(xr @ rk.block(p["cm_wr"], 1)[:, mine])
+    # The rank's rows of cm_wv: a pending sum, summed into the columns of
+    # rr that the rank took.
+    vv = rk.scatter(kk @ rk.block(p["cm_wv"], 0)[hidden], rk.share)
+    out = rk.gather(rr * vv, rk.share, partial_grad=False)
+    return rk.wrap(out), x[:, -1, :]
 
 
 def init_rwkv_cache(cfg: ModelConfig, batch: int, dtype, device):

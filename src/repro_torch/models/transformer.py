@@ -72,8 +72,12 @@ where it has them: the residual stream is constrained at layer boundaries
 their use site, and a decode step writes its K/V by a positional select
 (:func:`_select_update`, the reference's ``kv_select_update``; a DTensor
 cache always, since a slice write into one whose sequence is sharded
-would land in a gathered copy).  Without active rules every hook returns
-its input and a pass is what it is without them.
+would land in a gathered copy).  The attention's projections, the MLP and
+the rwkv6 blocks multiply on each rank's local tensors, split as the port
+chooses (``distributed/context.column_product``, ``row_product``,
+``models/rwkv``), and the rwkv6 cache keeps each WKV state's heads over
+``model`` (``rwkv.state_layout``).  Without active rules every hook
+returns its input and a pass is what it is without them.
 
 ``plain_kernels=True`` sends every hand kernel on the pass (the decode
 step's ``decode_attn``, every layer's ``wkv`` and, under autograd, its
@@ -258,11 +262,11 @@ def _attn_block(cfg: ModelConfig, pl, x, positions, causal, kv_cache,
                 context.whole_heads(q, cfg.n_kv_heads, dim=2), k_cache,
                 v_cache, lens, q_start=cache_len)
     wo = context.use_params(pl["attn"], attention.ATTN_USE_SPECS)["wo"]
-    # The heads' pending sum laid out as the residual stream: left to
-    # itself DTensor 2.13 reduce-scatters it over the sequence, and the MLP
-    # after it then gathers its weights and computes every column on every
-    # model rank.
-    return context.constrain(o.reshape(b, s, -1) @ wo, ACTIVATION_AXES)
+    # Each rank's heads' pending sum all-reduced into the residual stream's
+    # layout (left to itself DTensor 2.13 reduce-scatters it over the
+    # sequence, and the MLP after it then gathers its weights and computes
+    # every column on every model rank).
+    return context.row_product(o.reshape(b, s, -1), wo)
 
 
 def _attend_local(attend, q, k, v, causal: bool):
@@ -519,14 +523,14 @@ def _rwkv_stack(cfg, params, x, cache, plain_kernels, training=False):
         for i in range(cfg.n_layers):
             x = layer(x, layer_params(params["layers"], i))
         return x, None
+    # On a mesh each layer writes its model rank's heads of the WKV state
+    # (rwkv.state_layout).
+    states = rwkv.state_layout(cfg, cache["wkv"])
     for i in range(cfg.n_layers):
         pl = layer_params(params["layers"], i)
-        cl = (cache["tm_shift"][i], cache["wkv"][i], cache["cm_shift"][i])
-        # On a mesh, ranks that hold the stream whole (the data ranks at
-        # batch 1) take parts of its features.
-        x, _ = _rwkv_body(cfg, context.idle_features(x), pl, cl,
-                          plain_kernels, in_place=True)
-    return x, dict(cache, len=cache["len"] + x.shape[1])
+        cl = (cache["tm_shift"][i], states[i], cache["cm_shift"][i])
+        x, _ = _rwkv_body(cfg, x, pl, cl, plain_kernels, in_place=True)
+    return x, dict(cache, wkv=states, len=cache["len"] + x.shape[1])
 
 
 # ---------------------------------------------------------------------------

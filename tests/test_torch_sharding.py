@@ -59,6 +59,7 @@ from repro.models import moe as jmoe
 from repro.models import ssm as jssm
 from repro.models.config import smoke_variant as jsmoke
 from repro_torch.configs import get_config
+from repro_torch.data.pipeline import SyntheticDataset
 from repro_torch.distributed import sharding as shd
 from repro_torch.distributed import step as pstep
 from repro_torch.kernels import ref
@@ -466,7 +467,30 @@ def _layout_cases():
     cases = {arch: _serve_case(arch, batch=1) for arch in BATCH1_ARCHS}
     got["batch1"] = {arch: c[0] for arch, c in cases.items()}
     want["batch1"] = {arch: c[1] for arch, c in cases.items()}
+    got["wide"], want["wide"] = _wide_case(WIDE_ARCH)
     return got, want
+
+
+#: The float64 witness of the world: a family whose blocks run on local
+#: tensors with their own split (``models/rwkv``).
+WIDE_ARCH = "rwkv6-1.6b"
+
+
+def _wide_case(arch):
+    """A smoke model's float64 loss and gradients on one process
+    (``torch_mesh_worker.wide_floats``), and the world's payload."""
+    m = Model(smoke_variant(get_config(arch)), device="cpu")
+    params = layers.map_tree(lambda t: t.double(), m.init(0))
+    batch = {k: torch.as_tensor(v) for k, v in SyntheticDataset(
+        m.cfg, 4, 16, seed=3).batch_at(0).items()}
+    for _, p in layers.flatten_tree(params, torch.is_tensor):
+        p.requires_grad_(True)
+    with torch_mesh_worker.wide_floats():
+        loss, _ = m.loss(params, batch)
+        grads = pstep._grads(loss, params)
+    payload = {arch: dict(params=_numpy(params), batch={
+        k: v.numpy() for k, v in batch.items()})}
+    return payload, dict(loss=loss.item(), grads=_numpy(grads))
 
 
 @pytest.mark.parametrize("arch", TRAIN_ARCHS)
@@ -674,13 +698,30 @@ def test_hybrid_serve_keeps_each_ranks_heads_of_the_state(world):
     assert got["state_gathers"] == []
 
 
+def test_split_heads_train_in_float64_equals_one_process(world):
+    """rwkv6's blocks on local tensors (heads, towers and mixes split over
+    ``model``, explicit collectives) in float64 on (2, 2): loss and every
+    gradient leaf as one process's to float64's rounding (the same math
+    in another order; in float32 rounding moves the embedding's gradient
+    ~2e-6)."""
+    got, want = world["got"]["wide"][WIDE_ARCH], world["want"]["wide"]
+    np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-13)
+    g = _leaves(got["grads"], lambda x: isinstance(x, np.ndarray))
+    w = _leaves(want["grads"], lambda x: isinstance(x, np.ndarray))
+    assert g.keys() == w.keys()
+    for path in g:
+        scale = np.abs(w[path]).max()
+        np.testing.assert_allclose(g[path], w[path], rtol=0,
+                                   atol=1e-12 * max(scale, 1.0),
+                                   err_msg=path)
+
+
 @pytest.mark.parametrize("arch", BATCH1_ARCHS)
 def test_serve_at_batch_1_on_2x2_equals_one_process(world, arch):
-    """At batch 1 the data ranks hold the batch whole: rwkv6's each take a
-    part of the stream's features and of the output columns of the
-    products that write it (``context.idle_features``, ``idle_columns``);
-    zamba2's each a share of its channelized cache's KV heads
-    (``ops.decode_attn``)."""
+    """At batch 1 the data ranks hold the batch whole: each takes a part of
+    its model rank's columns of the products (``context.Ranks``: rwkv6's
+    blocks, ``column_product``, ``row_product``) and zamba2's a share of
+    its channelized cache's KV heads (``ops.decode_attn``)."""
     got, want = world["got"]["batch1"][arch], world["want"]["batch1"][arch]
     # The hybrid family's logits tolerance, as above.
     tol = dict(rtol=1e-4, atol=1e-4) if arch == "zamba2-2.7b" else dict(

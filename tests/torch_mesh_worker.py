@@ -556,8 +556,62 @@ def context_parallel_job(rank, payload):
     return out
 
 
+@contextlib.contextmanager
+def wide_floats():
+    """Inside the block ``Tensor.float()`` of a floating tensor gives
+    float64, so that a float64 model's float32 math (norms, the WKV's
+    states, the loss) runs in float64 too: two orders of the same sums
+    then agree to float64's rounding."""
+    saved = torch.Tensor.float
+    own = "float" in vars(torch.Tensor)
+    torch.Tensor.float = lambda self, *args, **kwargs: (
+        self.double() if self.is_floating_point() else
+        saved(self, *args, **kwargs))
+    try:
+        yield
+    finally:
+        if own:
+            torch.Tensor.float = saved
+        else:
+            del torch.Tensor.float
+
+
+def wide_train_job(rank, payload):
+    """Smoke models' loss and gradients in float64 (:func:`wide_floats`)
+    under ``train_rules`` on a (2, 2) mesh, as whole tensors: rwkv6's
+    blocks split their heads, towers and mixes over ``model``
+    (``models/rwkv``), an exact split of the same math."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import context
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.step import _grads
+    from repro_torch.models import Model, smoke_variant
+    from repro_torch.models import layers as L
+
+    mesh = _host_mesh()
+    out = {}
+    with wide_floats():
+        for arch, case in payload.items():
+            model = Model(smoke_variant(get_config(arch)), device="cpu")
+            params = shd.distribute(
+                _tensors(case["params"]), shd.param_shardings(
+                    model, mesh, shd.train_rules(mesh, model.cfg)))
+            for _, p in L.flatten_tree(params, torch.is_tensor):
+                p.requires_grad_(True)
+            batch = _tensors(case["batch"])
+            batch = shd.distribute(batch, shd.batch_shardings(mesh, batch))
+            with context.activation_rules(mesh,
+                                          {"batch": shd.fsdp_axes(mesh)}):
+                loss, _ = model.loss(params, batch)
+                grads = _grads(loss, params)
+            out[arch] = dict(loss=float(_full(loss)),
+                             grads=L.map_tree(_full, grads))
+    return out
+
+
 def sharding_job(rank, payload):
     return dict(model_job(rank, payload["model"]),
+                wide=wide_train_job(rank, payload["wide"]),
                 batch1=batch1_job(rank, payload["batch1"]),
                 kernels=kernel_job(rank, payload["kernels"]),
                 moe=moe_layout_job(rank, payload["moe"]),

@@ -3,6 +3,8 @@
     PYTHONPATH=src JAX_PLATFORMS=cpu python tools/dryrun_vs_reference.py \
         [--cells stablelm-1.6b:decode_32k,...] [--multi-pod] \
         [--port-only] [--json OUT]
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tools/dryrun_vs_reference.py \
+        --leaves --cells hubert-xlarge:train_4k [--multi-pod] [--top N]
 
 For each of the 21 single-pod cells (``CELLS``: every architecture's
 ``train_4k`` and ``decode_32k`` and the ``long_500k`` cells), or with
@@ -29,7 +31,18 @@ reference's counts, a replicated layout in the port's).
 ``--port-only`` runs the port's cells alone (where JAX is not installed:
 the card's machine, whose torch resolves DTensor's layouts its own way).
 The last line is a JSON object of every cell; ``--json`` writes it to a
-file too.  This script imports neither package itself.
+file too.
+
+``--leaves`` lists each side's arguments of the cell's step leaf by leaf
+instead (the train state and the batch, or the parameters, the batch and
+the cache): the leaf's path, its local shape on a chip, its dtype and
+bytes, each side in a process of its own (the port: the DTensors
+``launch.dryrun`` builds, its step not run; the reference: each
+``ShapeDtypeStruct``'s ``NamedSharding.shard_shape`` under the shardings
+its ``run_cell`` compiles with); then every leaf of either side, largest
+difference first, with both sides' bytes, the leaves one side lacks, and
+the totals (the reference's against its ``memory_analysis``).
+This script imports neither package itself.
 """
 
 from __future__ import annotations
@@ -99,6 +112,97 @@ print(json.dumps({"flops": hloparse.analyze(text).flops}))
 """
 
 
+#: Each side's argument leaves: (path, local shape, dtype, bytes) a chip.
+_PORT_LEAVES = """
+import json, sys
+import torch
+from torch.distributed.tensor import DTensor
+from repro_torch.core import hloparse
+from repro_torch.launch import dryrun
+leaves, names = [], []
+def walk(tree, path):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            walk(v, path + (str(k),))
+    elif torch.is_tensor(tree):
+        x = tree.to_local() if isinstance(tree, DTensor) else tree
+        leaves.append(["/".join(path), list(x.shape),
+                       str(x.dtype).replace("torch.", ""),
+                       x.numel() * x.element_size()])
+class Stop(Exception):
+    pass
+local_bytes, depth = dryrun._local_bytes, [0]
+def record(tree):
+    # run_step's sum over the step's arguments: each top-level call.
+    if depth[0] == 0:
+        names.append(tree)
+    depth[0] += 1
+    try:
+        return local_bytes(tree)
+    finally:
+        depth[0] -= 1
+def stop(self):
+    # The step's arguments are built (run_step sums their bytes just
+    # before it opens the meter): list them and run no step.
+    raise Stop()
+dryrun._local_bytes, hloparse.Meter.__enter__ = record, stop
+res = dryrun.run_cell(sys.argv[1], sys.argv[2], multi_pod=sys.argv[3] == "1")
+top = ("state", "batch") if len(names) == 2 else ("params", "batch", "cache")
+for name, tree in zip(top, names):
+    walk(tree, (name,))
+print(json.dumps({"leaves": leaves}))
+"""
+
+_REFERENCE_LEAVES = """
+import json, sys
+import jax
+from repro.launch import dryrun     # fakes 512 host devices on import
+from repro.configs import get_config, get_shape
+from repro.distributed import sharding as shd
+from repro.distributed.step import TrainStepConfig, train_state_specs
+from repro.launch.mesh import make_production_mesh
+from repro.models.model import Model, batch_spec, decode_batch_spec
+arch, shape_name, multi = sys.argv[1], sys.argv[2], sys.argv[3] == "1"
+cfg, shape = get_config(arch), get_shape(shape_name)
+mesh = make_production_mesh(multi_pod=multi)
+model = Model(cfg)
+# The shardings run_cell compiles the step with.
+if shape.kind in ("train", "prefill"):
+    rules = shd.train_rules(mesh, cfg)
+    state = train_state_specs(model, TrainStepConfig())
+    p_sh = shd.param_shardings(model, mesh, rules)
+    state_sh = dict(params=p_sh, opt=dict(master=p_sh, mu=p_sh, nu=p_sh),
+                    step=shd.replicated(mesh, state["step"]))
+    batch = batch_spec(cfg, shape.global_batch, shape.seq_len)
+    args = dict(state=(state, state_sh),
+                batch=(batch, shd.batch_shardings(mesh, batch)))
+else:
+    rules = shd.decode_rules(mesh, cfg)
+    params = jax.eval_shape(lambda: model.init(jax.random.PRNGKey(0)))
+    batch = decode_batch_spec(cfg, shape.global_batch)
+    cache = jax.eval_shape(
+        lambda: model.make_cache(shape.global_batch, shape.seq_len))
+    args = dict(params=(params, shd.param_shardings(model, mesh, rules)),
+                batch=(batch, shd.batch_shardings(mesh, batch)),
+                cache=(cache, shd.cache_shardings(cfg, mesh, cache)))
+leaves = []
+for name, (tree, shardings) in args.items():
+    flat, _ = jax.tree_util.tree_flatten_with_path(tree)
+    sh = jax.tree_util.tree_leaves(shardings, is_leaf=lambda x: isinstance(
+        x, jax.sharding.Sharding))
+    for (path, leaf), s in zip(flat, sh):
+        local = s.shard_shape(leaf.shape)
+        n = 1
+        for d in local:
+            n *= d
+        keys = [str(getattr(k, "key", getattr(k, "idx", k))) for k in path]
+        leaves.append(["/".join([name] + keys), list(local),
+                       str(leaf.dtype), n * leaf.dtype.itemsize])
+res = dryrun.run_cell(arch, shape_name, multi_pod=multi)
+print(json.dumps({"leaves": leaves, "memory": res.memory}))
+"""
+
+
 def _env() -> dict:
     return {**os.environ, "PYTHONPATH": str(ROOT / "src"),
             "JAX_PLATFORMS": "cpu"}
@@ -162,6 +266,39 @@ def port_cell(arch: str, shape: str, multi_pod: bool = False,
         return _summary(json.loads(found[0].read_text()))
 
 
+def _leaves(code: str, arch: str, shape: str, multi_pod: bool,
+            timeout: float = 3600) -> dict:
+    run = subprocess.run([sys.executable, "-c", code, arch, shape,
+                          "1" if multi_pod else "0"], capture_output=True,
+                         text=True, env=_env(), cwd=ROOT, timeout=timeout)
+    if run.returncode:
+        raise RuntimeError(f"{arch} {shape}: exit {run.returncode}\n"
+                           f"{run.stderr[-2000:]}")
+    return json.loads(run.stdout.strip().splitlines()[-1])
+
+
+def leaves(arch: str, shape: str, multi_pod: bool, top: int) -> dict:
+    """Both sides' argument leaves of one cell, printed side by side."""
+    port = _leaves(_PORT_LEAVES, arch, shape, multi_pod)
+    ref = _leaves(_REFERENCE_LEAVES, arch, shape, multi_pod)
+    pl = {row[0]: row for row in port["leaves"]}
+    rl = {row[0]: row for row in ref["leaves"]}
+    total_p = sum(row[3] for row in pl.values())
+    total_r = sum(row[3] for row in rl.values())
+    print(f"{arch} {shape}: argument bytes a chip, port {total_p} "
+          f"({total_p / 2**30:.4g} GiB) / reference {total_r} "
+          f"({total_r / 2**30:.4g} GiB; memory_analysis "
+          f"{ref['memory'].get('argument_bytes')})")
+    for path in sorted(set(pl) | set(rl), key=lambda k: -abs(
+            pl.get(k, [0] * 4)[3] - rl.get(k, [0] * 4)[3]))[:top]:
+        p, r = pl.get(path), rl.get(path)
+        side = lambda row: ("-" if row is None else
+                            f"{tuple(row[1])} {row[2]} {row[3]}")
+        print(f"  {path}: port {side(p)} | reference {side(r)}")
+    return {"arch": arch, "shape": shape, "port": port["leaves"],
+            "reference": ref["leaves"], "reference_memory": ref["memory"]}
+
+
 def _fmt(cell: dict, key: str) -> str:
     return f"{cell[key]:.4g}" if key in cell else cell["status"]
 
@@ -173,10 +310,20 @@ def main(argv=None) -> int:
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--port-only", action="store_true")
     ap.add_argument("--json", default=None)
+    ap.add_argument("--leaves", action="store_true",
+                    help="list both sides' argument leaves instead")
+    ap.add_argument("--top", type=int, default=40)
     args = ap.parse_args(argv)
     cells = (MULTI_POD_CELLS if args.multi_pod else CELLS) \
         if args.cells is None else tuple(
             tuple(c.split(":")) for c in args.cells.split(","))
+    if args.leaves:
+        out = [leaves(arch, shape, args.multi_pod, args.top)
+               for arch, shape in cells]
+        if args.json:
+            Path(args.json).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.json).write_text(json.dumps(out, indent=1))
+        return 0
     chips = 512 if args.multi_pod else 256
     rows = []
     for arch, shape in cells:
