@@ -208,7 +208,7 @@ Phases; any failure exits non-zero and no phase swallows one:
      512-rank (2, 32, 8) one, sequences split over ``pod``, each in a
      process of its own, their FLOPs, collective bytes and argument GiB
      a chip printed and held to the CPU's torch 2.13 (``DRYRUN_TORCH_213``:
-     FLOPs within 0.995-1.005, collective bytes within 0.9-1.1).  Alone:
+     FLOPs and collective bytes within 1e-4).  Alone:
      ``python3 -c "import chip_smoke; chip_smoke.mesh_phase()"``; one
      serve:
      ``chip_smoke.world_serve("olmoe")``; the split sequences alone:
@@ -2996,7 +2996,6 @@ def mesh_serve(cfg, kernels, device="cuda", backend="nccl", batch=BATCH,
     logits within ``tol``.  Then ``int8_all_reduce`` over the world
     against its own quantize round trip.  Returns the K2 launches."""
     import torch.distributed as dist
-    from torch.distributed.tensor import DTensor
 
     from repro_torch.data.pipeline import SyntheticDataset
     from repro_torch.distributed import context
@@ -3040,8 +3039,6 @@ def mesh_serve(cfg, kernels, device="cuda", backend="nccl", batch=BATCH,
                     logits, toks = _serve_loop(
                         model, make_serve_step(model), make_prefill(model),
                         p, b, c, gen, cfg)
-                    whole = lambda x: x.full_tensor() if isinstance(
-                        x, DTensor) else x
                     logits, toks = [whole(x) for x in logits], whole(toks)
                 if device == "cuda":
                     torch.cuda.synchronize()
@@ -3055,7 +3052,8 @@ def mesh_serve(cfg, kernels, device="cuda", backend="nccl", batch=BATCH,
                 f"{batch}x{prompt_len} prompt, {gen} steps: kernel launches "
                 f"{runs['mesh'][2]} (expected decode_attn {want_k2}); "
                 f"{wall['mesh']:.2f} s, ordinary tensors {wall['ordinary']:.2f}"
-                f" s (host clock, prefill and steps)")
+                f" s, {wall['mesh'] / wall['ordinary']:.2f}x (host clock, "
+                f"prefill and steps; {_then('mesh_serve')})")
             if k2 != want_k2 or runs["ordinary"][2] != runs["mesh"][2]:
                 fail(f"mesh serve: launches {runs['mesh'][2]}, ordinary "
                      f"{runs['ordinary'][2]}, want decode_attn {want_k2}")
@@ -3085,10 +3083,29 @@ def mesh_serve(cfg, kernels, device="cuda", backend="nccl", batch=BATCH,
         del store
 
 
+#: Phase 11's wall times in seconds (host clock) when DTensor still
+#: propagated the models' ops, as this script read them on an NVIDIA H100
+#: 80GB HBM3 at 700.00 W (torch 2.11) in the call that first ran the
+#: layer on local tensors: the (1, 1) mesh serve, the two-rank serves
+#: (each with the other of its wave), the split train step's runs and
+#: the phase.
+DTENSOR_LAYER_SECONDS = {
+    "mesh_serve": 8.25, "olmoe": 6.83, "starcoder2": 14.79,
+    "stablelm": 12.34, "zamba2": 8.12, "split float64": 68.04,
+    "split bfloat16": 19.61, "phase 11": 281.0}
+
+
+def _then(what: str) -> str:
+    """The wall time of ``what`` when DTensor propagated the models' ops
+    (:data:`DTENSOR_LAYER_SECONDS`), for the log."""
+    then = DTENSOR_LAYER_SECONDS.get(what)
+    return "through DTensor's propagation: not measured" if then is None \
+        else f"through DTensor's propagation {then:.2f} s"
+
+
 # The two-rank serves on the card: gloo worlds of this many ranks, each
 # rank a process on the one card; a shorter prompt and fewer steps than
-# phase 3's serve (DTensor's host cost: ~2 s a step on two ranks of one
-# H100 80GB HBM3 at 700 W).
+# phase 3's serve, so that the phase keeps within the script's time.
 CHANNEL_RANKS, CHANNEL_PROMPT, CHANNEL_GEN = 2, 256, 8
 STARCODER_ARCH = "starcoder2-3b"
 #: Phase 11's two-rank serves, by name: (arch, (data, model) mesh, the
@@ -3196,40 +3213,24 @@ WORLD_WAVES = (("olmoe", "starcoder2"), ("stablelm", "zamba2"),
 ROUTE_FLIP_MAX = 1e-3
 
 
-def _blocking_all_gather(self, gather_dim, group, tag=""):
-    """DTensor's all-gather (``funcol.all_gather_single``) through the
-    blocking ``dist.all_gather_into_tensor``: the same values.  On torch
-    2.11 gloo's functional all-gather of CUDA tensors crashes (a
-    segmentation fault in ``wait_tensor``; its all-reduces and the blocking
-    all-gather run), so the two-rank serves' worlds issue it so."""
-    import torch.distributed as dist
-    if isinstance(group, tuple):
-        pg = group[0].get_group(group[1])
-    elif hasattr(group, "get_group"):
-        pg = group.get_group()
-    else:
-        raise TypeError(f"all-gather over {group!r}")
-    n = dist.get_world_size(pg)
-    x = self.contiguous()
-    out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
-    dist.all_gather_into_tensor(out, x, group=pg)
-    return out if gather_dim == 0 else torch.cat(out.chunk(n), dim=gather_dim)
+def whole(x):
+    """A DTensor result whole on this rank: its shards joined, its pending
+    sums summed, by the port's own collectives (``distributed/layout``,
+    whose all-gather is the blocking one gloo runs on CUDA tensors); a
+    tensor as it is."""
+    from torch.distributed.tensor import DTensor
 
-
-@contextlib.contextmanager
-def blocking_all_gathers():
-    """Inside the block DTensor's all-gathers take :func:`_blocking_all_gather`."""
-    import torch.distributed._functional_collectives as funcol
-    names = [n for n in ("all_gather_single", "all_gather_tensor")
-             if hasattr(funcol, n)]
-    saved = {n: getattr(funcol, n) for n in names}
-    for n in names:
-        setattr(funcol, n, _blocking_all_gather)
-    try:
-        yield
-    finally:
-        for n, fn in saved.items():
-            setattr(funcol, n, fn)
+    from repro_torch.distributed import layout
+    if not isinstance(x, DTensor):
+        return x
+    local, mesh = x.to_local(), x.device_mesh
+    for i in reversed(range(mesh.ndim)):
+        p = x.placements[i]
+        if p.is_shard():
+            local = layout.gather_local(local, mesh, [i], p.dim)
+        elif p.is_partial():
+            local = layout.all_reduce_local(local, mesh, [i])
+    return local
 
 
 @contextlib.contextmanager
@@ -3279,10 +3280,9 @@ def own_shard(t, sharding):
 
 def _world_serve(rank, world, name):
     """One rank of :func:`world_serve`: the ordinary serve's greedy tokens,
-    then the same prompt and tokens through DTensor on the world's mesh;
-    returns this rank's record."""
+    then the same prompt and tokens through the multi-device layer on the
+    world's mesh; returns this rank's record."""
     import torch.distributed as dist
-    from torch.distributed.tensor import DTensor
 
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import SyntheticDataset
@@ -3306,8 +3306,7 @@ def _world_serve(rank, world, name):
     # own shard of them with no scatter.
     local = lambda tree, sh: L.map_tree(
         lambda t, h: t if h is None else own_shard(t, h), tree, sh)
-    full = lambda x: x.full_tensor() if isinstance(x, DTensor) else x
-    with torch.inference_mode(), blocking_all_gathers():
+    with torch.inference_mode():
         model = Model(cfg, device="cuda")
         params = model.init(SEED)
         prompt = {k: torch.as_tensor(v, device="cuda") for k, v in
@@ -3315,11 +3314,15 @@ def _world_serve(rank, world, name):
                   .batch_at(0).items() if k not in ("targets", "loss_mask")}
         s_max = CHANNEL_PROMPT + CHANNEL_GEN
         one = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         with moe_record(moe, one):
             want, toks = _serve_loop(model, make_serve_step(model),
                                      make_prefill(model), params, prompt,
                                      model.make_cache(BATCH, s_max),
                                      CHANNEL_GEN, cfg)
+        torch.cuda.synchronize()
+        one_wall = time.perf_counter() - t0
         p = local(params, shd.param_shardings(model, mesh,
                                               shd.decode_rules(mesh, cfg)))
         del params
@@ -3327,8 +3330,7 @@ def _world_serve(rank, world, name):
         c = local(cache, shd.cache_shardings(cfg, mesh, cache,
                                              kv_channels=channels))
         del cache
-        rules = {"batch": shd.fsdp_axes(mesh), "kv_select_update": True,
-                 "kv_partials": True, "kv_seq": "model"}
+        rules = {"batch": shd.fsdp_axes(mesh)}
         mine = []
         da.KERNEL.launches = da.PARTIALS.launches = 0
         torch.cuda.synchronize()
@@ -3336,17 +3338,18 @@ def _world_serve(rank, world, name):
         with context.activation_rules(mesh, rules), moe_record(moe, mine):
             lg, c = make_prefill(model)(
                 p, local(prompt, shd.batch_shardings(mesh, prompt)), c)
-            got = [full(lg)]
+            got = [whole(lg)]
             for i in range(CHANNEL_GEN):
                 sb = dict(tokens=toks[:, i:i + 1], positions=torch.full(
                     (BATCH, 1), c["len"], dtype=torch.int32, device="cuda"))
                 lg, c = make_serve_step(model)(
                     p, local(sb, shd.batch_shardings(mesh, sb)), c)
-                got.append(full(lg))
+                got.append(whole(lg))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         rec = dict(decode_attn=da.KERNEL.launches,
                    decode_attn_partials=da.PARTIALS.launches, wall=wall,
+                   one_wall=one_wall,
                    cache=str(c["k"].placements), mesh=str(mesh),
                    layers=cfg.n_layers)
         rows = list(range(BATCH))
@@ -3517,7 +3520,10 @@ def _check_world(name, res):
         f"max|dlogit| {res['worst']:.4e} against the ordinary serve on "
         f"{len(res['rows'])} of {BATCH} batch rows (tol {tol}), argmax "
         f"equal in {res['agree']} of {res['steps']} steps; "
-        f"{res['wall']:.2f} s (host clock, prefill and steps)")
+        f"{res['wall']:.2f} s, one process on ordinary tensors "
+        f"{res['one_wall']:.2f} s, {res['wall'] / res['one_wall']:.2f}x "
+        f"(host clock, prefill and steps, the other serve of its wave "
+        f"sharing the card; {_then(name)})")
     if got != want:
         fail(f"{name} two-rank serve: launches {got}, want {want}")
     if not res["finite"]:
@@ -3611,7 +3617,6 @@ def _world_train(rank, world, name):
     records, a list in run order."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
-    from torch.distributed.tensor import DTensor
 
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import SyntheticDataset
@@ -3629,7 +3634,6 @@ def _world_train(rank, world, name):
     pair = layout.SeqPair.over(full)
     kernels = {"wkv": kw.KERNEL, "wkv_bwd": kw.KERNEL_BWD}
     counts = lambda: {k: kern.launches for k, kern in kernels.items()}
-    whole = lambda x: x.full_tensor() if isinstance(x, DTensor) else x
     # |a - b| over b's largest element, and the sum of squares, in float64.
     share = lambda a, b: ((a.double() - b.double()).abs().max() /
                           b.double().abs().max().clamp(min=1e-300)).item()
@@ -3654,61 +3658,60 @@ def _world_train(rank, world, name):
                    "pair": repr(pair), "layers": cfg.n_layers}
             held = dtype != "float64" and known.get("seq") == seq
             torch.cuda.reset_peak_memory_stats()
-            with blocking_all_gathers():
-                if rank == 0:
-                    for kern in kernels.values():
-                        kern.launches = 0
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    want_loss, _, want = loss_and_grads(model, params, batch,
-                                                        plain)
-                    torch.cuda.synchronize()
-                    rec.update(one_wall=time.perf_counter() - t0,
-                               one=counts())
-                    want = dict(L.flatten_tree(want, torch.is_tensor))
-                    for _, t in L.flatten_tree(params, torch.is_tensor):
-                        t.requires_grad_(False)
-                dist.barrier()
-                p = L.map_tree(own_shard, params, shd.param_shardings(
-                    model, mesh, shd.train_rules(mesh, cfg)))
-                del params
-                for _, t in L.flatten_tree(p, torch.is_tensor):
-                    t.requires_grad_(True)
-                split = shd.split_sequences(full, batch, world)
-                b = L.map_tree(own_shard, split,
-                               shd.batch_shardings(mesh, split))
-                rules = {"batch": shd.fsdp_axes(mesh), "seq_pair": pair}
+            if rank == 0:
                 for kern in kernels.values():
                     kern.launches = 0
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                with context.activation_rules(mesh, rules):
-                    loss, _ = model.loss(p, b, plain_kernels=plain)
-                    grads = pstep._grads(loss, p)
+                want_loss, _, want = loss_and_grads(model, params, batch,
+                                                    plain)
                 torch.cuda.synchronize()
-                rec["wall"] = time.perf_counter() - t0
-                every = [None] * world
-                dist.all_gather_object(every, counts())
-                rec.update(split=every, loss=whole(loss).item(),
-                           peak=torch.cuda.max_memory_allocated() / 2**30)
-                del p, b, loss
-                shares, equal, norm_sq, want_sq = {}, 0, 0.0, 0.0
-                far, one_far = {}, {}
-                for path, g in L.flatten_tree(grads, torch.is_tensor):
-                    g = whole(g)
-                    if rank == 0:
-                        w = want.pop(path)
-                        shares[path] = share(g, w)
-                        equal += torch.equal(g, w)
-                        norm_sq, want_sq = norm_sq + sq(g), want_sq + sq(w)
-                        if dtype == "float64" and any(
-                                s == seq for _, s in runs[i + 1:]):
-                            truth[path] = w
-                        elif held:
-                            far[path] = share(g, truth[path])
-                            one_far[path] = share(w, truth[path])
-                    del g
-                del grads
+                rec.update(one_wall=time.perf_counter() - t0,
+                           one=counts())
+                want = dict(L.flatten_tree(want, torch.is_tensor))
+                for _, t in L.flatten_tree(params, torch.is_tensor):
+                    t.requires_grad_(False)
+            dist.barrier()
+            p = L.map_tree(own_shard, params, shd.param_shardings(
+                model, mesh, shd.train_rules(mesh, cfg)))
+            del params
+            for _, t in L.flatten_tree(p, torch.is_tensor):
+                t.requires_grad_(True)
+            split = shd.split_sequences(full, batch, world)
+            b = L.map_tree(own_shard, split,
+                           shd.batch_shardings(mesh, split))
+            rules = {"batch": shd.fsdp_axes(mesh), "seq_pair": pair}
+            for kern in kernels.values():
+                kern.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with context.activation_rules(mesh, rules):
+                loss, _ = model.loss(p, b, plain_kernels=plain)
+                grads = pstep._grads(loss, p)
+            torch.cuda.synchronize()
+            rec["wall"] = time.perf_counter() - t0
+            every = [None] * world
+            dist.all_gather_object(every, counts())
+            rec.update(split=every, loss=whole(loss).item(),
+                       peak=torch.cuda.max_memory_allocated() / 2**30)
+            del p, b, loss
+            shares, equal, norm_sq, want_sq = {}, 0, 0.0, 0.0
+            far, one_far = {}, {}
+            for path, g in L.flatten_tree(grads, torch.is_tensor):
+                g = whole(g)
+                if rank == 0:
+                    w = want.pop(path)
+                    shares[path] = share(g, w)
+                    equal += torch.equal(g, w)
+                    norm_sq, want_sq = norm_sq + sq(g), want_sq + sq(w)
+                    if dtype == "float64" and any(
+                            s == seq for _, s in runs[i + 1:]):
+                        truth[path] = w
+                    elif held:
+                        far[path] = share(g, truth[path])
+                        one_far[path] = share(w, truth[path])
+                del g
+            del grads
         if rank == 0:
             rec.update(want_loss=want_loss, finite=math.isfinite(rec["loss"]),
                        gnorm=math.sqrt(norm_sq), want_gnorm=math.sqrt(want_sq),
@@ -3777,8 +3780,10 @@ def _check_split_train(res):
                      f"{abs(rec['loss'] / rec['truth_loss'] - 1):.2e} / "
                      f"{abs(rec['want_loss'] / rec['truth_loss'] - 1):.2e}")
         log(f"{line}; {rec['wall']:.2f} s the split step, "
-            f"{rec['one_wall']:.2f} s the one-process step (host clock), "
-            f"peak {rec['peak']:.2f} GiB on rank 0")
+            f"{rec['one_wall']:.2f} s the one-process step, "
+            f"{rec['wall'] / rec['one_wall']:.2f}x (host clock; "
+            f"{_then('split ' + rec['dtype'])}), peak {rec['peak']:.2f} GiB "
+            f"on rank 0")
         if rec["one"] != want or any(r != want for r in rec["split"]):
             fail(f"split train step ({rec['dtype']}): launches "
                  f"{rec['split']} (one process {rec['one']}), want {want} "
@@ -3868,20 +3873,21 @@ MESH_DRYRUN_CELLS = ((DENSE_ARCH, "decode_32k", False),
                      (SSM_ARCH, "prefill_32k", True),
                      (DENSE_ARCH, "prefill_32k", True))
 #: Each dry-run cell's FLOPs and collective bytes a chip on the CPU's torch
-#: 2.13 (``tools/dryrun_products.py --all``; the port splits every product
-#: itself, ``distributed/context.Ranks``): the card's torch 2.11 must read
-#: FLOPs within ``DRYRUN_FLOPS_BAND`` of them and collective bytes within
-#: ``DRYRUN_COLL_BAND``.
+#: 2.13 (``tools/dryrun_products.py --all``).  The models run on local
+#: tensors with the port's own splits and collectives
+#: (``distributed/context``) and the optimizer's norm on local shards, so
+#: the card's torch 2.11 must read the same counts, within
+#: ``DRYRUN_FLOPS_BAND`` and ``DRYRUN_COLL_BAND``.
 DRYRUN_TORCH_213 = {
-    (DENSE_ARCH, "decode_32k", False): (4.6599e9, 2.7935e6),
-    (DENSE_ARCH, "train_4k", False): (5.6384e13, 1.7660e10),
-    (MOE_ARCH, "train_4k", False): (5.3659e13, 2.2942e11),
-    (SSM_ARCH, "train_4k", False): (4.7004e13, 5.6435e10),
-    (HYBRID_ARCH, "decode_32k", False): (4.8293e9, 9.0882e6),
-    (SSM_ARCH, "prefill_32k", True): (2.3502e13, 2.8804e10),
-    (DENSE_ARCH, "prefill_32k", True): (7.4372e13, 1.1485e10)}
-DRYRUN_FLOPS_BAND = (0.995, 1.005)
-DRYRUN_COLL_BAND = (0.9, 1.1)
+    (DENSE_ARCH, "decode_32k", False): (4659871744.0, 2793472.0),
+    (DENSE_ARCH, "train_4k", False): (56384330661888.0, 17107527828.0),
+    (MOE_ARCH, "train_4k", False): (53659173912576.0, 227631083668.0),
+    (SSM_ARCH, "train_4k", False): (47004122087424.0, 56082765972.0),
+    (HYBRID_ARCH, "decode_32k", False): (4829265920.0, 9088160.0),
+    (SSM_ARCH, "prefill_32k", True): (23502061043712.0, 28446331988.0),
+    (DENSE_ARCH, "prefill_32k", True): (74371653697536.0, 10926890068.0)}
+DRYRUN_FLOPS_BAND = (0.9999, 1.0001)
+DRYRUN_COLL_BAND = (0.9999, 1.0001)
 
 
 def start_dryrun_cells(cells=MESH_DRYRUN_CELLS):
@@ -3927,9 +3933,9 @@ def finish_dryrun_cells(started):
         got = (res["flops_per_chip"] / flops,
                res["collectives"]["total"] / coll)
         log(f"dry run {arch} {shape} on the fake {mesh.replace('x', ', ')} "
-            f"world: {res['flops_per_chip']:.4e} FLOP a chip ({got[0]:.4f} "
+            f"world: {res['flops_per_chip']:.4e} FLOP a chip ({got[0]:.6f} "
             f"of torch 2.13's {flops:.4e}), collectives "
-            f"{res['collectives']['total']:.4e} B a chip ({got[1]:.4f} of "
+            f"{res['collectives']['total']:.4e} B a chip ({got[1]:.6f} of "
             f"{coll:.4e}), argument bytes "
             f"{res['memory']['argument_bytes'] / 2**30:.2f} GiB a chip, "
             f"sequences in {res.get('seq_parts', 1)} part(s), "
@@ -4010,7 +4016,8 @@ def mesh_phase():
             for kname, n in got.items():
                 launches[kname] += n
     finish_dryrun_cells(dry)
-    log(f"phase 11 took {time.perf_counter() - t_phase:.1f} s (host clock)")
+    log(f"phase 11 took {time.perf_counter() - t_phase:.1f} s (host clock; "
+        f"{_then('phase 11')})")
     return launches
 
 

@@ -18,17 +18,16 @@ sees every ATen op a region runs and keeps the reference's :class:`Cost`:
     ``_c10d_functional`` ops that DTensor issues and the in-place ``c10d``
     ops of ``torch.distributed``'s own calls.
 
-Everything is counted on **local shards**: the meter sees the ops DTensor
-runs on each rank's local tensors (a DTensor op is passed through to
-DTensor's dispatch, whose local ops the meter then counts), so a cost is
-per rank, as the reference's per-partition SPMD module is.  DTensor's
-sharding propagation runs the op once more on global-shape fake tensors
-to learn the output's shape, which is no work of the program: the meter
-does not count ops inside it (it marks that private method of DTensor
-while a meter is open and restores it when the last one closes; it runs
-only under the torch versions of :data:`CHECKED_TORCH`).  Eager PyTorch
-runs every layer, so there is no loop to scale by its trip count, and the
-reference's ``while`` and ``conditional`` rules have no counterpart.
+Everything is counted on **local shards**, so a cost is per rank, as the
+reference's per-partition SPMD module is: on a mesh the models run on
+each rank's local tensors (``distributed/context``), and the few DTensor
+ops of a step (the optimizer's pointwise update of DTensor parameters)
+are passed through to DTensor's dispatch, whose local ops the meter then
+counts.  An op on fake tensors (a tensor subclass's shape inference, as
+DTensor's propagation runs) is no work of the program and is not
+counted.  Eager PyTorch runs every layer, so there is no loop to scale by
+its trip count, and the reference's ``while`` and ``conditional`` rules
+have no counterpart.
 Backward ops are counted as autograd runs them.  A hand kernel's
 stand-in on ``meta`` shards runs no op and reports its cost by
 :func:`charge` (``kernels/ops.decode_attn`` and ``wkv``).
@@ -41,6 +40,7 @@ import math
 import threading
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 
@@ -149,54 +149,6 @@ def charge(flops: float, nbytes: float) -> None:
         meter.cost.bytes_hbm += nbytes
 
 
-def _propagating() -> bool:
-    return getattr(_STATE, "depth", 0) > 0
-
-
-#: torch versions (major.minor) whose DTensor the propagation mark was
-#: checked against: it wraps a private method of DTensor's
-#: ``ShardingPropagator``, so another version may propagate elsewhere and
-#: the meter would count global-shape work.  A meter refuses to start
-#: under any other.
-CHECKED_TORCH = ("2.11", "2.13")
-
-
-def _check_torch():
-    version = ".".join(torch.__version__.split(".")[:2])
-    if version not in CHECKED_TORCH:
-        raise RuntimeError(
-            f"hloparse.Meter: torch {torch.__version__} is not one whose "
-            f"DTensor shape propagation the meter was checked against "
-            f"({', '.join(CHECKED_TORCH)}); check that the meter skips it "
-            f"there and add the version to CHECKED_TORCH")
-
-
-def _mark_propagation():
-    """Mark DTensor's output-shape propagation (global-shape fake ops that
-    are no work of the program) so that a meter skips it.  Returns the
-    function that takes the mark away again."""
-    from torch.distributed.tensor._sharding_prop import ShardingPropagator
-    orig = ShardingPropagator._propagate_tensor_meta_non_cached
-
-    def marked(self, *args, **kwargs):
-        _STATE.depth = getattr(_STATE, "depth", 0) + 1
-        try:
-            return orig(self, *args, **kwargs)
-        finally:
-            _STATE.depth -= 1
-
-    ShardingPropagator._propagate_tensor_meta_non_cached = marked
-
-    def unmark():
-        ShardingPropagator._propagate_tensor_meta_non_cached = orig
-    return unmark
-
-
-#: The open meters of the process and the mark's undo, while any is open.
-_OPEN = {"meters": 0, "unmark": None}
-_OPEN_LOCK = threading.Lock()
-
-
 class Meter(TorchDispatchMode):
     """``with Meter() as m: ...`` -> ``m.cost``: the :class:`Cost` of the
     region on this rank; ``m.ops`` counts the ATen ops by name."""
@@ -207,21 +159,11 @@ class Meter(TorchDispatchMode):
         self.ops: dict = {}
 
     def __enter__(self):
-        _check_torch()
-        with _OPEN_LOCK:
-            if _OPEN["meters"] == 0:
-                _OPEN["unmark"] = _mark_propagation()
-            _OPEN["meters"] += 1
         _STATE.meters = getattr(_STATE, "meters", ()) + (self,)
         return super().__enter__()
 
     def __exit__(self, *exc):
         _STATE.meters = tuple(m for m in _STATE.meters if m is not self)
-        with _OPEN_LOCK:
-            _OPEN["meters"] -= 1
-            if _OPEN["meters"] == 0:
-                _OPEN["unmark"]()
-                _OPEN["unmark"] = None
         return super().__exit__(*exc)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -230,7 +172,8 @@ class Meter(TorchDispatchMode):
             # DTensor dispatches to its local shards, which come back here.
             return NotImplemented
         out = func(*args, **kwargs)
-        if _propagating():
+        if any(isinstance(t, FakeTensor) for t in _tensors(out)) or any(
+                isinstance(t, FakeTensor) for t in _tensors(args)):
             return out
         ns = func.namespace
         name = f"{ns}.{func._schema.name.split('::')[-1]}"

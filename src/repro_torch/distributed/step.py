@@ -10,6 +10,10 @@ reference compiles them under ``pjit`` with shardings from the rules; the
 port's steps are plain functions that take whatever their caller hands
 them: tensors on one card, or DTensors laid out by
 ``distributed/sharding`` on a mesh (``launch/dryrun``, ``chip_smoke.py``).
+On a mesh the model runs on each rank's local blocks
+(``distributed/context``) and the gradients come back as DTensors laid
+out as their parameters; AdamW updates them there, pointwise work on
+equal layouts.
 
 The step writes the new parameters and optimizer state into the tensors
 of the state it is given (``optim/adamw``'s note) and returns the state.
@@ -20,7 +24,9 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.distributed.tensor import DTensor
 
+from repro_torch.distributed.layout import wrap
 from repro_torch.models.layers import (flatten_tree, map_tree,
                                        unflatten_tree)
 from repro_torch.models.model import DTYPES, Model
@@ -66,13 +72,25 @@ def train_state_specs(model: Model, step_cfg: TrainStepConfig):
     return state
 
 
+def _zeros_like(p):
+    """Zeros laid out as ``p`` (a DTensor's built from its local shard)."""
+    if isinstance(p, DTensor):
+        return wrap(torch.zeros_like(p.to_local()), p.device_mesh,
+                    p.placements, p.shape)
+    return torch.zeros_like(p)
+
+
 def _grads(loss, params):
     """d loss / d params as a tree; a leaf the loss does not reach (hubert's
-    token embedding) gets zeros, as JAX's gradient does."""
+    token embedding) gets zeros, as JAX's gradient does.  A loss whole on
+    every rank of a mesh (a DTensor) is differentiated from its local
+    value, which every rank holds."""
     paths, leaves = zip(*flatten_tree(params, torch.is_tensor))
+    if isinstance(loss, DTensor):
+        loss = loss.to_local()
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     return unflatten_tree(
-        (path, torch.zeros_like(p) if g is None else g)
+        (path, _zeros_like(p) if g is None else g)
         for path, p, g in zip(paths, leaves, grads))
 
 

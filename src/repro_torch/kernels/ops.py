@@ -13,28 +13,27 @@ between the compiled Pallas kernel and interpret mode.  Here:
 * anything else (mixed devices, or a dtype, shape or layout the kernel
   does not take) raises.  Nothing falls back.
 
-DTensors (a model on a mesh, ``distributed/``): on CUDA and on ``meta``
-``decode_attn`` (K2) and ``wkv`` (K3, and K3b under autograd) run the
-kernel, or its meta stand-in, on each rank's local shard
-(:func:`_per_shard`) when batch or head axes are sharded over a mesh
-dimension of more than one rank.  A cache whose sequence axis is split
-over such a dimension (the reference's channelized layout) takes the
-partial route on every device: each rank runs K2's partial build (on the
-CPU ``ref.decode_attn_partials_ref``, on ``meta`` its stand-in) over its
-own keys up to the valid length, and :func:`merge_partials` combines the
-ranks' (m, l, acc) by two all-reduces over that dimension's group, which
-DTensor issues.  Other CPU DTensors run the plain version through
-DTensor's own propagation (the tensors it makes itself count as
-replicated).  A ``wkv`` input whose time axis is split raises: K3 sees
-whole rows, and nothing is gathered behind the caller's back.  Rows
-that are halves of split sequences (``wkv``'s ``pair``, a
-``layout.SeqPair``) run on every device on their local shards, half 1's
-K3 from the state half 0 hands over, K3b in the reverse order
-(:class:`_WkvParts`).  Ranks that
-hold a cache whole take shares of the work: a channelized cache that the
-data ranks do not split (batch 1) has its KV heads split over them, and
-a query whose heads split inside KV groups runs against its group's KV
-head (:func:`decode_attn`).
+On a mesh the models hand these wrappers their local tensors
+(``distributed/context``): ``decode_attn`` (K2) and ``wkv`` (K3, and K3b
+under autograd) run on this rank's shard as on one device.  A cache whose
+sequence is split over ranks (the reference's channelized layout) comes
+with its slice's ``layout.KeySlice``: each rank runs K2's partial build
+(on the CPU ``ref.decode_attn_partials_ref``, on ``meta`` its stand-in)
+over its own keys up to the valid length, and :func:`merge_partials`
+combines the ranks' (m, l, acc) by two all-reduces over the slices'
+ranks.  Rows that are halves of split sequences (``wkv``'s ``pair``, a
+``layout.SeqPair``) run half 1's K3 from the state half 0 hands over, K3b
+in the reverse order (:class:`_WkvParts`).
+
+DTensor inputs (a caller outside a model's step) are taken apart into
+their local shards on every device (:func:`_per_shard`): batch and head
+splits run the kernel on each shard, a sequence split the partial route,
+and a split the kernel cannot take (its time axis, say) raises: nothing
+is gathered behind the caller's back.  Ranks that hold such a cache whole
+take shares of the work: a channelized cache that the data ranks do not
+split (batch 1) has its KV heads split over them, and a query whose heads
+split inside KV groups runs against its group's KV head
+(:func:`_grouped_query`).
 """
 
 from __future__ import annotations
@@ -42,11 +41,9 @@ from __future__ import annotations
 import math
 
 import torch
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
-from repro_torch.distributed.layout import (all_reduce_local, local_part,
-                                           replicate_plain_tensors,
-                                           shard_start)
+from repro_torch.distributed.layout import all_reduce_local, shard_start
 from repro_torch.kernels import decode_attn as _da
 from repro_torch.kernels import memsim_scan as _ms
 from repro_torch.kernels import ref
@@ -165,8 +162,7 @@ def _per_shard(fn, lead, args: dict, out_roles: tuple, what: str,
             local[name] = None
             continue
         if not isinstance(t, DTensor):
-            # A tensor the model made itself (a zero state) counts as
-            # replicated, as it does beside DTensors anywhere in a model.
+            # A plain tensor counts as replicated.
             t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
                                    run_check=False)
         want = layout(dim_map, t.placements)
@@ -175,14 +171,14 @@ def _per_shard(fn, lead, args: dict, out_roles: tuple, what: str,
                 raise ValueError(f"{what}: {name} is written in place and "
                                  f"is laid out {t.placements}, not {want}")
             t = t.redistribute(mesh, want)
-        local[name] = local_part(t, [
-            i for i, r in enumerate(roles) if r not in dim_map and (
-                r == "batch" or (r == "head" and name in shared))])
+        parts = [i for i, r in enumerate(roles) if r not in dim_map and (
+            r == "batch" or (r == "head" and name in shared))]
+        local[name] = t.to_local(grad_placements=[
+            Partial() if i in parts else p for i, p in enumerate(t.placements)])
     if "seq" in roles:
         seq = [i for i, r in enumerate(roles) if r == "seq"]
         out = partials(shard_start(x, dims["seq"]), lambda t, op: (
-            all_reduce_local(t, mesh, seq, layout(out_roles[0]), op)),
-            **local)
+            all_reduce_local(t, mesh, seq, op)), **local)
     else:
         out = fn(**local)
     outs = out if isinstance(out, tuple) else (out,)
@@ -208,17 +204,6 @@ def merge_partials(m, l, acc, dtype, max_all=None, sum_all=None):
     if sum_all is not None:
         packed = sum_all(packed)
     return (packed[..., 1:] / packed[..., :1]).to(dtype)
-
-
-def _query_like_cache(q, k):
-    """The query (B, Hq, D) laid out as the cache (B, S, Hk, D) is: its
-    batch and heads split where the cache's are, whole elsewhere, so that
-    no product flattens two split dimensions together."""
-    role = {0: Shard(0), 2: Shard(1)}
-    want = tuple(role.get(p.dim, Replicate()) if p.is_shard() else
-                 Replicate() for p in k.placements)
-    return q if tuple(q.placements) == want else q.redistribute(
-        q.device_mesh, want)
 
 
 def _decode_attn_meta(q, k, v, length: int):
@@ -304,18 +289,38 @@ def _grouped_query(q, k):
     return q, shard_start(q, 1) // (hq // hk)
 
 
-def decode_attn(q, k, v, length: int):
+def decode_attn(q, k, v, length: int, keys=None):
     """q: (B, Hq, D); k/v: (B, S, Hk, D); length: int -> (B, Hq, D).
 
-    On a mesh whose ranks hold the cache's heads whole (and its sequence),
-    each rank runs K2 on its share of the query heads against its group's
-    KV head (a copy of that head's cache), G = its query heads, where the
-    shares lie inside groups and K2 is built for that G
-    (:func:`_grouped_query`); otherwise the query is laid out as the
-    cache."""
-    meta = k.device.type == "meta"
+    ``keys`` (a ``layout.KeySlice``): k/v are this rank's slice of a cache
+    split along its sequence, from position ``keys.offset``: K2's partial
+    build over the slice's valid keys, the ranks' terms merged
+    (:func:`merge_partials`).  DTensor inputs: :func:`_decode_attn_shards`."""
+    if isinstance(k, DTensor):
+        return _decode_attn_shards(q, k, v, length)
+    if keys is not None:
+        part = decode_attn_partials(
+            q, k, v, min(max(length - keys.offset, 0), k.shape[1]))
+        return merge_partials(*part, q.dtype,
+                              lambda x: keys.reduce(x, "max"),
+                              lambda x: keys.reduce(x, "sum"))
     on_cpu = _all_on_cpu(q, k, v, meta=True)
-    grouped = _grouped_query(q, k) if isinstance(k, DTensor) else None
+    if k.device.type == "meta":
+        return _decode_attn_meta(q, k, v, length)
+    if on_cpu:
+        return ref.decode_attn_ref(q, k, v, length)
+    return _da.decode_attn(q, k, v, length)
+
+
+def _decode_attn_shards(q, k, v, length: int):
+    """:func:`decode_attn` of DTensors on their local shards.  On a mesh
+    whose ranks hold the cache's heads whole (and its sequence), each rank
+    runs K2 on its share of the query heads against its group's KV head
+    (a copy of that head's cache), G = its query heads, where the shares
+    lie inside groups and K2 is built for that G (:func:`_grouped_query`);
+    otherwise the query is laid out as the cache, and a cache split along
+    its sequence takes the partial route."""
+    grouped = _grouped_query(q, k)
     if grouped is not None:
         q, g0 = grouped
         kv = {"batch": 0, "whole": 1}
@@ -324,37 +329,28 @@ def decode_attn(q, k, v, length: int):
             lambda q, k, v: decode_attn(q, head(k), head(v), length), "q",
             {"q": (q, {"batch": 0, "head": 1}), "k": (k, kv),
              "v": (v, kv)}, ({"batch": 0, "head": 1},), "decode_attn")
-    if isinstance(k, DTensor) and (meta or not on_cpu or _seq_split(k)):
-        cache = {"batch": 0, "seq": 1, "head": 2}
-        # A channelized cache whole over ranks that do not split its batch
-        # (batch 1 over the data ranks): they take shares of its KV heads.
-        idle = [i for i, p in enumerate(k.placements)
-                if p.is_replicate() and k.device_mesh.size(i) > 1] \
-            if _seq_split(k) and not _head_dims(k, 2) else []
-        if idle and k.shape[2] % math.prod(k.device_mesh.size(i)
-                                           for i in idle):
-            idle = []
+    cache = {"batch": 0, "seq": 1, "head": 2}
+    # A channelized cache whole over ranks that do not split its batch
+    # (batch 1 over the data ranks): they take shares of its KV heads.
+    idle = [i for i, p in enumerate(k.placements)
+            if p.is_replicate() and k.device_mesh.size(i) > 1] \
+        if _seq_split(k) and not _head_dims(k, 2) else []
+    if idle and k.shape[2] % math.prod(k.device_mesh.size(i)
+                                       for i in idle):
+        idle = []
 
-        def partials(offset, reduce, q, k, v):
-            part = decode_attn_partials(
-                q, k, v, min(max(length - offset, 0), k.shape[1]))
-            return merge_partials(*part, q.dtype,
-                                  lambda x: reduce(x, "max"),
-                                  lambda x: reduce(x, "sum"))
-        return _per_shard(
-            lambda q, k, v: decode_attn(q, k, v, length), "k",
-            {"q": (q, {"batch": 0, "head": 1}), "k": (k, cache),
-             "v": (v, cache)},
-            ({"batch": 0, "head": 1},), "decode_attn", partials=partials,
-            heads_over=idle)
-    if meta:
-        return _decode_attn_meta(q, k, v, length)
-    if on_cpu:
-        if isinstance(k, DTensor):
-            q = _query_like_cache(q, k)
-        with replicate_plain_tensors():
-            return ref.decode_attn_ref(q, k, v, length)
-    return _da.decode_attn(q, k, v, length)
+    def partials(offset, reduce, q, k, v):
+        part = decode_attn_partials(
+            q, k, v, min(max(length - offset, 0), k.shape[1]))
+        return merge_partials(*part, q.dtype,
+                              lambda x: reduce(x, "max"),
+                              lambda x: reduce(x, "sum"))
+    return _per_shard(
+        lambda q, k, v: decode_attn(q, k, v, length), "k",
+        {"q": (q, {"batch": 0, "head": 1}), "k": (k, cache),
+         "v": (v, cache)},
+        ({"batch": 0, "head": 1},), "decode_attn", partials=partials,
+        heads_over=idle)
 
 
 def _wkv_meta(r, k, v, w, u, state, state_out=None):
@@ -400,8 +396,7 @@ class _Wkv(torch.autograd.Function):
         if ctx.meta:
             return _wkv_meta(r, k, v, w, u, state)
         if ctx.plain:
-            with replicate_plain_tensors():
-                return ref.wkv_ref(r, k, v, w, u, state)
+            return ref.wkv_ref(r, k, v, w, u, state)
         return _wkv.wkv(r, k, v, w, u, state)
 
     @staticmethod
@@ -413,8 +408,7 @@ class _Wkv(torch.autograd.Function):
             ds_t = ds_t.float().contiguous()
         bwd = (_wkv_bwd_meta if ctx.meta else
                ref.wkv_bwd_ref if ctx.plain else _wkv.wkv_bwd)
-        with replicate_plain_tensors():
-            return (None, *bwd(r, k, v, w, u, state, dy, ds_t))
+        return (None, *bwd(r, k, v, w, u, state, dy, ds_t))
 
 
 class _WkvParts(torch.autograd.Function):
@@ -479,12 +473,9 @@ def wkv(r, k, v, w, u, state, state_out=None, plain: bool = False,
     ``pair`` (a ``layout.SeqPair``): each row is this rank's half of a
     sequence split over the pair's ranks (:class:`_WkvParts`); ``state``
     seeds half 0, and the final state returned is this half's (half 1's
-    is the sequence's).  DTensor inputs then run on
-    their local shards on every device."""
-    extra = () if state_out is None else (state_out,)
-    on_cpu = _all_on_cpu(r, k, v, w, u, state, *extra, meta=True)
-    meta = r.device.type == "meta"
-    if isinstance(r, DTensor) and (meta or not on_cpu or pair is not None):
+    is the sequence's).  DTensor inputs run on their local shards
+    (:func:`_per_shard`)."""
+    if isinstance(r, DTensor):
         seq = {"batch": 0, "whole": 1, "head": 2}
         st = {"batch": 0, "head": 1}
         return _per_shard(
@@ -505,11 +496,11 @@ def wkv(r, k, v, w, u, state, state_out=None, plain: bool = False,
             t.requires_grad for t in (r, k, v, w, u, state)):
         raise RuntimeError("wkv: the in-place state update (state_out) has "
                            "no gradient; call it under torch.no_grad()")
-    if meta:
+    on_cpu = _all_on_cpu(r, k, v, w, u, state, state_out, meta=True)
+    if r.device.type == "meta":
         return _wkv_meta(r, k, v, w, u, state, state_out)
     if plain or on_cpu:
-        with replicate_plain_tensors():
-            return ref.wkv_ref(r, k, v, w, u, state, state_out)
+        return ref.wkv_ref(r, k, v, w, u, state, state_out)
     return _wkv.wkv(r, k, v, w, u, state, state_out)
 
 

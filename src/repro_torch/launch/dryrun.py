@@ -24,11 +24,12 @@ the step itself, eagerly, in a world that costs nothing:
   3. one train step (``train`` and ``prefill`` shapes) or one serve step
      (``decode``: one token against a full ``seq_len`` cache) runs under
      the activation rules (``distributed/context``) and the cost meter
-     (``core/hloparse.Meter``): sharding mismatches, collectives DTensor
-     cannot issue and ops it cannot propagate fail HERE, which is the
-     point.  The hand kernels take the path they take on the card: each
-     runs per local shard (``kernels/ops``), as a meta stand-in that
-     charges the kernel's work, and refuses a split it cannot take;
+     (``core/hloparse.Meter``): the model runs on each rank's local
+     shards with the port's own splits and collectives
+     (``distributed/context``), and a layout it cannot split fails HERE,
+     which is the point.  The hand kernels take the path they take on the
+     card: each runs on its local shard (``kernels/ops``), as a meta
+     stand-in that charges the kernel's work;
   4. the cell's :class:`CellResult` goes to ``<out>/<cell>.json``
      (``--out``, default ``dryrun_out/`` at the repository's root, which
      git ignores).
@@ -52,9 +53,12 @@ ranks' (max, sum, acc) (``kernels/ops.decode_attn``).
 ``--no-kv-channels`` lays the whole sequence on every ``model`` rank
 instead, as the reference's flag of that name does.  The reference's
 ``--fsdp-gather`` has no counterpart: the port always gathers a layer's
-weights at use (``distributed/context``).  The layouts are the port's,
-DTensor's strategy for each op among them; its choices differ between
-torch versions, and so do the collective bytes.
+weights at use (``distributed/context``); nor does its
+``--kv-select-update``: each rank always writes the new K/V rows into its
+own slice of the cache; nor does its ``--act-shard seq`` (the residual
+stream's sequence over ``model``), which the local layer does not build.
+The layouts and collectives are the port's own, so the counts do not depend
+on the torch version.
 
 Costs are per rank (rank 0's local shards).  Of the reference's fields,
 ``xla_flops`` and ``xla_bytes`` (XLA's ``cost_analysis``) and the
@@ -117,8 +121,8 @@ def fold_pod(mesh):
     """The mesh the step runs on: a multi-pod mesh's ``pod`` and ``data``
     axes folded into one ``data`` axis over the same ranks in the same
     order (pod major), which is what sharding a dimension over
-    ("pod", "data") does; DTensor's strategy search over three mesh
-    dimensions takes minutes an op, over two it takes milliseconds."""
+    ("pod", "data") does: each collective over the data ranks is then one
+    call over one group."""
     if "pod" not in mesh.mesh_dim_names:
         return mesh
     sizes = shd.axis_sizes(mesh)
@@ -227,8 +231,7 @@ def _decode_cell(model, mesh, shape, kv_channels):
 
 
 def run_step(cfg, shape, mesh, res: CellResult, *, kv_channels=True,
-             compress_grads=False, act_shard="none", microbatch=1,
-             kv_select_update=False) -> CellResult:
+             compress_grads=False, microbatch=1) -> CellResult:
     """One cell's step on ``mesh`` (a mesh of the current world, its
     ``pod`` axis folded for the step: :func:`fold_pod`) under the meter,
     its costs written into ``res``.  ``kv_channels`` lays a decode cache's
@@ -244,11 +247,6 @@ def run_step(cfg, shape, mesh, res: CellResult, *, kv_channels=True,
     parts = shd.sequence_parts(mesh, shape.global_batch, shape.seq_len) \
         if shape.kind in ("train", "prefill") else 1
     act_rules = {"batch": shd.fsdp_axes(step_mesh)}
-    if act_shard == "seq":
-        act_rules["seq"] = "model"
-    if kv_select_update:
-        act_rules.update(kv_select_update=True, kv_partials=True,
-                         kv_seq="model")
     model = Model(cfg, device="cpu")
     if parts > 1:
         act_rules["seq_pair"] = layout.SeqPair.over(mesh, "pod")
@@ -361,9 +359,7 @@ def main(argv=None):
                     help="keep the decode cache's whole sequence on every "
                     "model rank")
     ap.add_argument("--compress-grads", action="store_true")
-    ap.add_argument("--act-shard", default="none", choices=["none", "seq"])
     ap.add_argument("--microbatch", type=int, default=1)
-    ap.add_argument("--kv-select-update", action="store_true")
     ap.add_argument("--collective-proof", action="store_true")
     ap.add_argument("--variant", default="baseline")
     ap.add_argument("--out", default=RESULTS_DIR,
@@ -387,9 +383,7 @@ def main(argv=None):
                            remat=args.remat,
                            kv_channels=not args.no_kv_channels,
                            compress_grads=args.compress_grads,
-                           act_shard=args.act_shard,
                            microbatch=args.microbatch,
-                           kv_select_update=args.kv_select_update,
                            variant=args.variant)
             with open(result_path(res, args.out), "w") as f:
                 json.dump(res.to_json(), f, indent=2)

@@ -2,16 +2,15 @@
 uncached attention and cache attention.
 
 Port of ``repro/models/attention.py``.  Tensors keep the reference's
-``(B, S, H, D)`` layout.  The reference's sharding hooks
-(``context.use_params`` / ``flag`` / ``constrain``) stand where it has
-them and return their input without an active rule set.  With the
-``kv_partials`` flag and a cache whose sequence axis is sharded over
-``model``, ``decode_attention``'s logits, probabilities and output are
-pinned to that sharding (a prefill into the channelized cache): each rank
-scores its own keys, and DTensor's softmax and product combine the
-partial (max, sum, acc) terms with small collectives, the channelized
-read of the reference.  The one-token decode step on such a cache runs
-K2's partial build on each rank's keys and merges the ranks' terms
+``(B, S, H, D)`` layout.  On a mesh the projections are each rank's
+columns (``context.column_products``), laid out by
+``context.head_layout``, and a cache whose sequence is split over
+``model`` (the channelized cache) is read where it lies:
+``decode_attention`` with ``keys`` (a prefill into it) scores each rank's
+own keys and merges the ranks' (max, sum, acc) terms with the two
+all-reduces of ``kernels/ops.merge_partials``, the channelized read of
+the reference.  The one-token decode step on such a cache runs K2's
+partial build on each rank's keys and merges the same way
 (``kernels/ops.decode_attn``).
 
 ``flash_attention`` is the uncached pass over more than 256 tokens (the
@@ -31,6 +30,7 @@ from typing import Optional
 import torch
 
 from repro_torch.distributed import context
+from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Spec, apply_rope
 
@@ -52,22 +52,28 @@ def attn_specs(cfg: ModelConfig, layered: bool = True,
     }
 
 
-ATTN_USE_SPECS = {"wq": (None, "model"), "wk": (None, "model"),
-                  "wv": (None, "model"), "wo": ("model", None)}
-
-
 def qkv_project(cfg: ModelConfig, p: dict, x, positions):
-    """x: (B, S, D) -> q (B, S, Hq, hd), k/v (B, S, Hk, hd), roped."""
-    p = context.use_params(p, ATTN_USE_SPECS)
+    """x: (B, S, D) -> q (B, S, Hq, hd), k/v (B, S, Hk, hd), roped.  On a
+    mesh each rank's heads as ``context.head_layout`` lays them out: its
+    own (each rank whole KV groups), its own query heads and every KV head
+    ("group": each rank uses its group's), or every head ("whole")."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
-    heads = lambda t, n: context.whole_heads(t, n).reshape(b, s, n, hd)
-    q = heads(context.column_product(x, p["wq"]), cfg.n_heads)
-    k = heads(context.column_product(x, p["wk"]), cfg.n_kv_heads)
-    v = heads(context.column_product(x, p["wv"]), cfg.n_kv_heads)
-    q, k = apply_rope(q, k, positions, hd, cfg.rope_theta,
+    q, k, v = context.column_products(x, p["wq"], p["wk"], p["wv"])
+    how = context.head_layout(cfg.n_heads, cfg.n_kv_heads)
+    if how != "local":
+        kv = cfg.n_kv_heads * hd
+        if how == "whole":
+            q = context.whole_columns(q, cfg.n_heads * hd, False)
+        elif context.model_split(p["wk"], -1) is None:
+            raise ValueError("grouped heads: KV heads computed whole on "
+                             "every model rank are not built")
+        # "group": each rank uses its group's KV head, a part of the whole.
+        k, v = (context.whole_columns(t, kv, how == "group") for t in (k, v))
+    heads = lambda t: t.reshape(b, s, -1, hd)
+    q, k = apply_rope(heads(q), heads(k), positions, hd, cfg.rope_theta,
                       cfg.mrope_sections)
-    return q, k, v
+    return q, k, heads(v)
 
 
 def _expand_kv(k, groups: int):
@@ -149,7 +155,8 @@ def over_parts(attend, pair):
     return attend_part
 
 
-def decode_attention(q, k_cache, v_cache, cache_len, q_start=None):
+def decode_attention(q, k_cache, v_cache, cache_len, q_start=None,
+                     keys=None):
     """Attention of new tokens against a KV cache (decode or prefill).
 
     q: (B, Sq, Hq, D); k/v_cache: (B, S_max, Hk, D); cache_len: (B,) valid
@@ -157,6 +164,11 @@ def decode_attention(q, k_cache, v_cache, cache_len, q_start=None):
     >= cache_len are masked out).  ``q_start`` (int) is the absolute
     position of q's first token; when given, causality *within* the new
     block is enforced: query i attends keys at positions <= q_start + i.
+
+    ``keys`` (a ``layout.KeySlice``): the cache is this rank's slice of the
+    sequence, from position ``keys.offset``: the rank scores its own keys
+    and the ranks' (max, sum, acc) terms are merged by two all-reduces
+    (``ops.merge_partials``) instead of one softmax.
     """
     b, sq, hq, d = q.shape
     hk = k_cache.shape[2]
@@ -167,10 +179,8 @@ def decode_attention(q, k_cache, v_cache, cache_len, q_start=None):
     # rounded to q.dtype before the product.
     qg = (q * scale).reshape(b, sq, hk, groups, d)
     logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k_cache).float()
-    if context.flag("kv_partials"):
-        logits = context.constrain(
-            logits, ("batch", "none", "none", "none", "kv_seq"))
-    k_pos = torch.arange(k_cache.shape[1], device=q.device)
+    offset = 0 if keys is None else keys.offset
+    k_pos = offset + torch.arange(k_cache.shape[1], device=q.device)
     mask = k_pos[None, :] < cache_len[:, None]              # (B, Sk)
     mask = mask[:, None, None, None, :]                     # (B,1,1,1,Sk)
     if q_start is not None:
@@ -178,13 +188,18 @@ def decode_attention(q, k_cache, v_cache, cache_len, q_start=None):
         causal = k_pos[None, :] <= q_pos[:, None]           # (Sq, Sk)
         mask = mask & causal[None, None, None, :, :]
     logits = torch.where(mask, logits, NEG_INF)
-    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    if keys is None:
+        probs = torch.softmax(logits, dim=-1).to(q.dtype)
+        del logits
+        out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v_cache)
+        return out.reshape(b, sq, hq, d)                     # (B,Sq,Hq,D)
+    # This rank's terms of its keys; a slice wholly past the valid keys
+    # adds exp(NEG_INF - max) = 0 of them.
+    m = logits.amax(dim=-1)                                 # (B,Hk,G,Sq)
+    p = torch.exp(logits - m[..., None])
     del logits
-    if context.flag("kv_partials"):
-        probs = context.constrain(
-            probs, ("batch", "none", "none", "none", "kv_seq"))
-    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v_cache)
-    out = out.reshape(b, sq, hq, d)                          # (B,Sq,Hq,D)
-    if context.flag("kv_partials"):
-        out = context.constrain(out, ("batch", "none", "none", "none"))
-    return out
+    acc = torch.einsum("bhgqk,bkhd->bhgqd", p, v_cache.float())
+    out = ops.merge_partials(m, p.sum(dim=-1), acc, q.dtype,
+                             lambda x: keys.reduce(x, "max"),
+                             lambda x: keys.reduce(x, "sum"))
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d)

@@ -9,10 +9,11 @@ module's init.  The draws differ from the reference's threefry streams;
 tests carry the reference's parameters across with ``convert.params_from_jax``.
 
 Matrices keep the reference's ``(d_in, d_out)`` layout, applied as ``x @ W``.
-The reference's sharding hooks (``distributed/context``) stand where the
-reference has them; they return their input unless a launcher activates
-rules and the tensors are DTensors.  ``logical_axes`` returns the axes
-tree that ``distributed/sharding`` maps onto a mesh.
+On a mesh (``distributed/context``'s rules, a step entered) a layer's
+weights are ``layout.Block``s, gathered at their use, and its activations
+this rank's local tensors; without active rules the hooks return their
+input.  ``logical_axes`` returns the axes tree that
+``distributed/sharding`` maps onto a mesh.
 """
 
 from __future__ import annotations
@@ -23,10 +24,11 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor, Partial, Replicate
 
 from repro_torch.distributed import context
-from repro_torch.distributed.layout import all_reduce_local, shard_start
+from repro_torch.distributed.layout import (Block, all_reduce_local,
+                                            pending_local, shard_start,
+                                            whole_block)
 from repro_torch.models.config import ModelConfig
 
 
@@ -47,6 +49,11 @@ class Spec:
 
 def is_spec(x) -> bool:
     return isinstance(x, Spec)
+
+
+def is_weight(x) -> bool:
+    """A parameter leaf: a tensor, or on a mesh a ``layout.Block``."""
+    return torch.is_tensor(x) or isinstance(x, Block)
 
 
 def flatten_tree(tree: dict, is_leaf=is_spec, prefix: str = ""):
@@ -139,6 +146,7 @@ def param_count(spec_tree) -> int:
 
 def rms_norm(x, w, eps: float):
     """RMSNorm in fp32, scaled by ``1 + w`` (zero-initialized weights)."""
+    w = context.whole(w)
     dtype = x.dtype
     x = x.float()
     var = x.square().mean(dim=-1, keepdim=True)
@@ -149,6 +157,7 @@ def rms_norm(x, w, eps: float):
 def layer_norm(x, w, b, eps: float):
     """LayerNorm in fp32 (population variance), scaled by ``1 + w`` and
     shifted by ``b`` (both zero-initialized)."""
+    w, b = context.whole(w), context.whole(b)
     dtype = x.dtype
     x = x.float()
     mu = x.mean(dim=-1, keepdim=True)
@@ -220,23 +229,18 @@ def mlp_specs(cfg: ModelConfig, layered: bool = True) -> dict:
     }
 
 
-MLP_USE_SPECS = {"wi": (None, "model"), "wg": (None, "model"),
-                 "wo": ("model", None)}
-
-
 def mlp_apply(cfg: ModelConfig, p: dict, x):
-    p = context.use_params(p, MLP_USE_SPECS)
     # On a mesh each rank computes its columns of wi and wg and its rows of
     # wo, whose pending sum is all-reduced into the residual stream's layout
-    # (context.column_product, row_product).
-    up = lambda name: context.column_product(x, p[name])
+    # (context.column_products, row_product).
     if cfg.activation == "swiglu":
-        h = F.silu(up("wg")) * up("wi")
+        gate, up = context.column_products(x, p["wg"], p["wi"])
+        h = F.silu(gate) * up
     elif cfg.activation == "gelu":
         # jax.nn.gelu defaults to the tanh approximation.
-        h = F.gelu(up("wi"), approximate="tanh")
+        h = F.gelu(context.column_product(x, p["wi"]), approximate="tanh")
     elif cfg.activation == "relu2":
-        h = F.relu(up("wi")).square()
+        h = F.relu(context.column_product(x, p["wi"])).square()
     else:
         raise ValueError(cfg.activation)
     return context.row_product(h, p["wo"])
@@ -253,71 +257,29 @@ def embed_specs(cfg: ModelConfig) -> dict:
     return out
 
 
-def _vocab_dims(w, dim: int) -> list:
-    """The mesh dimensions of more than one rank that split dimension
-    ``dim`` (the vocabulary) of a DTensor ``w``; none for a plain tensor."""
-    if not isinstance(w, DTensor):
-        return []
-    return [i for i, p in enumerate(w.placements)
-            if p.is_shard(dim) and w.device_mesh.size(i) > 1]
-
-
-def _laid_out(x, mesh, want):
-    """``x`` as a DTensor laid out by ``want`` (a plain tensor counts as
-    replicated)."""
-    if not isinstance(x, DTensor):
-        x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
-                               run_check=False)
-    return x if tuple(x.placements) == tuple(want) else x.redistribute(
-        mesh, want)
-
-
-def _rows(x, vdims):
-    """The placements of a batch-major activation ``x`` with the vocab
-    dimensions made whole: its batch or sequence splits kept elsewhere,
-    anything else (a split feature axis, a pending sum) made whole."""
-    return [Replicate() if i in vdims or not (p.is_replicate() or (
-        p.is_shard() and p.dim < x.dim() - 1)) else p
-        for i, p in enumerate(x.placements)]
-
-
 def embed_apply(cfg: ModelConfig, p: dict, token_ids):
-    """Token rows of the embedding table.  A table whose vocabulary is
-    split over ranks (the rules' ``vocab`` over ``model``) is looked up in
-    place: each rank takes the rows it holds and zeros elsewhere, and one
-    all-reduce over those ranks sums them; the gradient reaches each
-    rank's own rows only.  The table is never gathered whole."""
+    """Token rows of the embedding table.  On a mesh a table whose
+    vocabulary is split over ranks (the rules' ``vocab`` over ``model``)
+    is looked up in place: each rank takes the rows it holds and zeros
+    elsewhere, and one all-reduce over those ranks sums them; the gradient
+    reaches each rank's own rows only.  The table is never gathered
+    whole."""
     table = p["tokens"]
-    vdims = _vocab_dims(table, 0)
+    f = context.frame()
+    if f is None or not isinstance(table, Block):
+        return F.embedding(token_ids, table)
+    vdims = table.split(0)
+    # The table's embed dimension gathered (the FSDP gather at use), its
+    # vocabulary kept split; each rank's rows' lookups a part of its
+    # gradient.
+    rows = whole_block(table, f.rows, keep=vdims)
     if not vdims:
-        # A plain table, or one on no split vocabulary: the lookup itself
-        # (a sharded embed dimension is gathered first).
-        p = context.gather_params(p, {"tokens": (None, None)})
-        return F.embedding(token_ids, p["tokens"])
-    mesh = table.device_mesh
-    # The table's vocab shards kept, its embed dimension gathered (the
-    # FSDP gather at use); the ids whole over the vocab ranks.
-    table = _laid_out(table, mesh, [
-        p if i in vdims else Replicate() for i, p in enumerate(
-            table.placements)])
-    ids = token_ids if isinstance(token_ids, DTensor) else \
-        _laid_out(token_ids, mesh, [Replicate()] * mesh.ndim)
-    ids = _laid_out(ids, mesh, [Replicate() if i in vdims else p
-                                for i, p in enumerate(ids.placements)])
-    lo = shard_start(table, 0)
-    # Each rank's gradient of its rows sums its own batch rows' lookups.
-    rows = table.to_local(grad_placements=[
-        p if i in vdims else Partial() if ids.placements[i].is_shard()
-        else Replicate() for i, p in enumerate(table.placements)])
-    local = ids.to_local().long() - lo
+        return F.embedding(token_ids, rows)
+    local = token_ids.long() - shard_start(table, 0)
     held = (local >= 0) & (local < rows.shape[0])
     emb = F.embedding(torch.where(held, local, 0), rows)
-    emb = emb.masked_fill(~held[..., None], 0)
-    out = DTensor.from_local(emb, mesh, [
-        Partial() if i in vdims else p for i, p in enumerate(
-            ids.placements)], run_check=False)
-    return out.redistribute(mesh, [Replicate() if i in vdims else p
-                                   for i, p in enumerate(ids.placements)])
+    return all_reduce_local(emb.masked_fill(~held[..., None], 0), f.mesh,
+                            vdims)
 
 
 def unembed_matrix(cfg: ModelConfig, p: dict):
@@ -334,26 +296,44 @@ def chunked_ce_loss(h, w_head, targets, mask, chunk: int = 1024):
     forward.  Logits in float32 after the product in the model dtype;
     the loss is the mean over ``mask`` (0/1) positions, in float32.
 
-    A head whose vocabulary is split over ranks (a DTensor, the rules'
-    ``vocab`` over ``model``) is used in place (:func:`_vocab_parallel_ce`).
+    On a mesh each rank takes its own rows, and a head whose vocabulary is
+    split over ranks (the rules' ``vocab`` over ``model``) is used in
+    place: each rank scores each chunk against its own columns, and three
+    all-reduces over those ranks give the row max, the sum of
+    exponentials and the target logit (from the one rank that holds it);
+    the loss is log(sum) + max - target (:func:`vocab_parallel_nll`).
+    Autograd gives softmax - one-hot on the local columns.  The head is
+    never gathered whole.  The ranks' sums over their rows are summed at
+    the end.
     """
-    vdims = _vocab_dims(w_head, 1)
-    if vdims:
-        return _vocab_parallel_ce(h, w_head, targets, mask, chunk, vdims)
+    f = context.frame()
+    vdims = w_head.split(1) if isinstance(w_head, Block) else []
+    if f is not None:
+        # Each rank scores its own columns of the head (its gradient of h a
+        # part of the whole), its own rows (its gradient of the head's).
+        h = pending_local(h, f.mesh, vdims)
+        lo = shard_start(w_head, 1) if vdims else 0
+        w_head = whole_block(w_head, f.rows, keep=vdims)
     b, s, d = h.shape
     n = max(s // chunk, 1)
     chunk = s // n
     h_c = h.reshape(b, n, chunk, d)
     t_c = targets.reshape(b, n, chunk).long()
     m_c = mask.reshape(b, n, chunk)
+    over = lambda op: lambda x: all_reduce_local(x, f.mesh, vdims, op)
     nll = cnt = 0.0
     for i in range(n):
-        logits = (h_c[:, i] @ w_head).float()                 # (B, c, V)
-        lse = torch.logsumexp(logits, dim=-1)
-        tgt = logits.gather(-1, t_c[:, i, :, None])[..., 0]
-        nll = nll + ((lse - tgt) * m_c[:, i]).sum()
+        logits = (h_c[:, i] @ w_head).float()          # (B, c, V / ranks)
+        if vdims:
+            row_nll = vocab_parallel_nll(logits, t_c[:, i], lo, over("max"),
+                                         over("sum"))
+        else:
+            row_nll = torch.logsumexp(logits, dim=-1) - logits.gather(
+                -1, t_c[:, i, :, None])[..., 0]
+        nll = nll + (row_nll * m_c[:, i]).sum()
         cnt = cnt + m_c[:, i].sum()
-    return nll / torch.clamp(cnt, min=1.0)
+    return context.sum_rows(nll) / torch.clamp(context.sum_rows(cnt),
+                                               min=1.0)
 
 
 def vocab_parallel_nll(logits, targets, lo, max_all, sum_all):
@@ -374,59 +354,3 @@ def vocab_parallel_nll(logits, targets, lo, max_all, sum_all):
     tgt = logits.gather(-1, torch.where(held, t, 0)[..., None])[..., 0]
     tgt = sum_all(torch.where(held, tgt, 0.0))
     return torch.log(total) + big - tgt
-
-
-def _vocab_parallel_ce(h, w, targets, mask, chunk: int, vdims):
-    """:func:`chunked_ce_loss` with the head's vocabulary split over the
-    mesh dimensions ``vdims``: each rank scores each chunk against its own
-    columns, and three all-reduces over those ranks give the row max, the
-    sum of exponentials and the target logit (from the one rank that holds
-    it); the loss is log(sum) + max - target.  Autograd gives softmax -
-    one-hot on the local columns.  The head is never gathered whole.
-
-    The batch (or sequence) rows keep their split, chunked as the plain
-    form chunks its rows; each rank's loss terms are summed over the ranks
-    that split them at the end, as the plain form's DTensor sum is."""
-    mesh = w.device_mesh
-    row_pl = _rows(h, vdims)
-    h = _laid_out(h, mesh, row_pl)
-    w = _laid_out(w, mesh, [p if i in vdims else Replicate()
-                            for i, p in enumerate(w.placements)])
-    # (B, S) tensors laid out as h's rows (no feature axis to keep whole).
-    tok_pl = [p if p.is_shard() and p.dim < 2 else Replicate()
-              for p in row_pl]
-    targets = _laid_out(targets, mesh, tok_pl).to_local()
-    mask = _laid_out(mask, mesh, tok_pl).to_local()
-    # A rank's gradient of h covers its own columns (summed over the vocab
-    # ranks); of the head, its own rows of the batch (summed over theirs).
-    h_loc = h.to_local(grad_placements=[
-        Partial() if i in vdims else p for i, p in enumerate(row_pl)])
-    w_loc = w.to_local(grad_placements=[
-        p if i in vdims else Partial() if row_pl[i].is_shard() else p
-        for i, p in enumerate(w.placements)])
-    lo = shard_start(w, 1)
-
-    def over(op):
-        # A rank's local (B, c) row terms reduced over the vocab ranks.
-        return lambda x: all_reduce_local(x, mesh, vdims, tok_pl, op)
-
-    b, s, d = h_loc.shape
-    n = max(s // chunk, 1)
-    chunk = s // n
-    h_c = h_loc.reshape(b, n, chunk, d)
-    t_c = targets.reshape(b, n, chunk).long()
-    m_c = mask.reshape(b, n, chunk)
-    nll = cnt = 0.0
-    for i in range(n):
-        logits = (h_c[:, i] @ w_loc).float()             # (B, c, V / ranks)
-        row_nll = vocab_parallel_nll(logits, t_c[:, i], lo, over("max"),
-                                     over("sum"))
-        nll = nll + (row_nll * m_c[:, i]).sum()
-        cnt = cnt + m_c[:, i].sum()
-    # Each rank's sums cover its own batch rows: summed over the ranks
-    # that split them.
-    sums = [Partial() if p.is_shard() else Replicate() for p in tok_pl]
-    nll, cnt = (DTensor.from_local(x, mesh, sums, run_check=False)
-                .redistribute(mesh, [Replicate()] * mesh.ndim)
-                for x in (nll, cnt))
-    return nll / torch.clamp(cnt, min=1.0)

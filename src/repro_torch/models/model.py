@@ -1,10 +1,17 @@
 """Public model API: init / loss / prefill / decode_step / greedy_generate.
 
-Port of ``repro/models/model.py`` for all six families
-(``transformer.PORTED_FAMILIES``; the audio family, encoder-only, has
-``loss`` and no decode path).  Every entry point runs on an explicit
-device: ``cuda`` unless the caller asks for ``cpu``.  Asking for ``cuda``
-where there is no card raises; the model never carries on on the CPU.
+Port of ``repro/models/model.py`` for all six families (the audio
+family, encoder-only, has ``loss`` and no decode path).  Every entry point
+runs on an explicit device: ``cuda`` unless the caller asks for ``cpu``.
+Asking for ``cuda`` where there is no card raises; the model never carries
+on on the CPU.
+
+Under ``distributed/context``'s rules an entry point takes DTensor
+parameters, batch and cache and runs on this rank's blocks of them
+(``context.enter``); it hands back DTensors (``context.leave``,
+``leave_cache``): the loss whole on every rank, the logits with their rows
+and vocabulary split as the head's, the cache as it came (its states'
+heads over ``model`` where the blocks split them).
 """
 
 from __future__ import annotations
@@ -38,7 +45,6 @@ class Model:
     device: str | torch.device = "cuda"
 
     def __post_init__(self):
-        transformer.check_ported(self.cfg)
         object.__setattr__(self, "device", resolve_device(self.device))
 
     @property
@@ -67,17 +73,16 @@ class Model:
         loss).  ``batch`` as the pipeline makes it (numpy or tensors);
         ``plain_kernels`` as in ``prefill``, for path comparison."""
         cfg = self.cfg
-        batch = self._to_batch(batch)
+        params, batch, _ = context.enter(params, self._to_batch(batch))
         h, _ = forward(cfg, params, batch, training=True,
                        plain_kernels=plain_kernels)
         h = context.constrain(h, transformer.ACTIVATION_AXES)
-        w_head = layers.unembed_matrix(cfg, params["embed"])
-        # The head's embed dimension gathered at use, its vocabulary kept
-        # split: chunked_ce_loss scores each rank's own columns.
-        w_head = transformer.as_dtype(context.use_params(
-            {"w": w_head}, {"w": (None, "model")})["w"], h.dtype)
-        loss = layers.chunked_ce_loss(h, w_head, batch["targets"],
-                                      batch["loss_mask"].float())
+        # On a mesh the head's vocabulary stays split: chunked_ce_loss
+        # scores each rank's own columns.
+        w_head = transformer.as_dtype(
+            layers.unembed_matrix(cfg, params["embed"]), h.dtype)
+        loss = context.leave(layers.chunked_ce_loss(
+            h, w_head, batch["targets"], batch["loss_mask"].float()))
         return loss, {"loss": loss}
 
     # -- serving ------------------------------------------------------------
@@ -92,11 +97,18 @@ class Model:
         return init_cache(self.cfg, batch_size, max_len, self.dtype,
                           self.device)
 
-    def _logits(self, params, h):
-        w_head = layers.unembed_matrix(self.cfg, params["embed"])
-        # On a mesh each rank scores its own vocabulary columns.
-        return context.column_product(
-            h[:, -1, :], transformer.as_dtype(w_head, h.dtype)).float()
+    def _serve(self, params, batch, cache, plain_kernels):
+        """(last-position logits, cache) of a pass from ``cache``; on a
+        mesh each rank scores its own vocabulary columns."""
+        params, batch, cache = context.enter(params, self._to_batch(batch),
+                                             cache)
+        h, cache = forward(self.cfg, params, batch, cache=cache,
+                           plain_kernels=plain_kernels)
+        w_head = transformer.as_dtype(
+            layers.unembed_matrix(self.cfg, params["embed"]), h.dtype)
+        logits = context.column_product(h[:, -1, :], w_head).float()
+        return (context.leave(logits, context.column_layout(w_head)),
+                context.leave_cache(cache))
 
     def prefill(self, params, batch, cache, plain_kernels: bool = False):
         """Run a prompt through the model from ``cache``, which is written
@@ -105,9 +117,7 @@ class Model:
         Returns (last-position logits (B, V), cache).  ``plain_kernels``
         swaps every hand kernel of the pass for its plain version (path
         comparison only)."""
-        h, cache = forward(self.cfg, params, self._to_batch(batch),
-                           cache=cache, plain_kernels=plain_kernels)
-        return self._logits(params, h), cache
+        return self._serve(params, batch, cache, plain_kernels)
 
     def decode_step(self, params, step_batch, cache,
                     plain_kernels: bool = False):
@@ -115,9 +125,7 @@ class Model:
 
         Returns (logits (B, V), new cache).  ``plain_kernels`` as in
         ``prefill``."""
-        h, cache = forward(self.cfg, params, self._to_batch(step_batch),
-                           cache=cache, plain_kernels=plain_kernels)
-        return self._logits(params, h), cache
+        return self._serve(params, step_batch, cache, plain_kernels)
 
     def greedy_generate(self, params, batch, cache, steps: int):
         """Greedy decoding: prefill, then ``steps`` one-token decode steps.

@@ -5,11 +5,11 @@ position-in-expert ranks (a cumsum over the flattened token-slot order),
 the standard Switch/GShard-style capacity discipline: overflow tokens fall
 back to the residual path.  Every expert's ``(capacity, D)`` buffer is
 computed, empty slots included, by grouped products (``torch.bmm``), as
-the reference's einsums do outside any Pallas kernel.  The reference's
-sharding hook (``context.use_params``) stands where it has it.
+the reference's einsums do outside any Pallas kernel.
 
-On a mesh of more than one rank (DTensor activations) the block lays the
-work out as GSPMD lays out the reference's: the (E, capacity, D) buffer is
+On a mesh of more than one rank (a step entered under
+``distributed/context``'s rules: local activations, ``layout.Block``
+weights) the block lays the work out as GSPMD lays out the reference's: the (E, capacity, D) buffer is
 split, experts over ``model`` (the rules' ``experts``) and the capacity
 over the other ranks, and each rank computes only its own block
 (:func:`_moe_sharded`).  The semantics stay global: one capacity for the
@@ -29,10 +29,13 @@ rows.  A dispatch with static shapes that moves only the block's rows
 exists, GShard's all-to-all of fixed-capacity (E, C, D) buffers (each
 data rank lays its own (token, slot)s at their global slots, and each
 block is summed from its pieces); it is not built yet.  Each rank scatters its block's
-outputs into a batch-long partial ``y``, which one reduction lays out as
-the residual stream.  The auxiliary losses are global means: local sums,
-all-reduced.  On plain tensors, or a mesh of one rank, :func:`moe_apply`
-is the one-device code above, bit for bit.
+outputs into a batch-long partial ``y``, which a reduce-scatter over the
+token ranks and an all-reduce over the others lay out as the residual
+stream.  The auxiliary losses are global means: local sums, all-reduced.
+A DTensor input (the block called by itself) is taken apart and its
+results put back together (:func:`_moe_containers`).  Without active
+rules, or on a mesh of one rank, :func:`moe_apply` is the one-device code
+above, bit for bit.
 
 Where the batch's rows are parts of split sequences (a ``seq_pair``
 rule: ``sharding.split_sequences``), the ranks still count slots in the
@@ -52,11 +55,13 @@ import math
 
 import torch
 import torch.nn.functional as F
-
-from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.distributed import context
-from repro_torch.distributed.layout import all_reduce_local, shard_start
+from repro_torch.distributed.layout import (Block, all_reduce_local,
+                                            gather_local, pending_local,
+                                            scatter_sum_local, shard_start,
+                                            whole_block, wrap)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Spec
 
@@ -99,15 +104,16 @@ def route(cfg: ModelConfig, router, xf):
 
 def moe_apply(cfg: ModelConfig, p: dict, x, return_aux: bool = False):
     """x: (B, S, D) -> (B, S, D) [+ aux losses dict]."""
+    if isinstance(x, DTensor):
+        return _moe_containers(cfg, p, x, return_aux)
+    f = context.frame()
+    if f is not None and f.mesh.size() > 1:
+        return _moe_sharded(cfg, p, x, return_aux)
+    if f is not None:
+        p = {name: context.whole(w) for name, w in p.items()}
     b, s, d = x.shape
     t = b * s
     e, k = cfg.n_experts, cfg.top_k
-    p = context.use_params(p, {"router": (None, None),
-                               "wi": ("model", None, None),
-                               "wg": ("model", None, None),
-                               "wo": ("model", None, None)})
-    if isinstance(x, DTensor) and x.device_mesh.size() > 1:
-        return _moe_sharded(cfg, p, x, return_aux)
     xf = context.constrain(x.reshape(t, d), ("tokens", "embed"))
     gate_logits, gates, topw, topi = route(cfg, p["router"], xf)
 
@@ -125,12 +131,7 @@ def moe_apply(cfg: ModelConfig, p: dict, x, return_aux: bool = False):
     # every sum holds one value and zeros, so it is exact in any order.
     upd = xf.repeat_interleave(k, dim=0) * (w_disp != 0)[:, None]
     buf = torch.zeros((e, cap, d), dtype=x.dtype, device=x.device)
-    if isinstance(upd, DTensor):
-        # DTensor writes no DTensor into a plain buffer in place.
-        buf = buf.view(e * cap, d).index_add(0, eid * cap + sid,
-                                             upd).view(e, cap, d)
-    else:
-        buf.view(e * cap, d).index_add_(0, eid * cap + sid, upd)
+    buf.view(e * cap, d).index_add_(0, eid * cap + sid, upd)
 
     # Expert computation: grouped products over the E axis.
     if cfg.activation == "swiglu":
@@ -198,8 +199,7 @@ def global_ranks(n_experts: int, eid, mesh, tok_dims, parts: int = 1,
     table = torch.zeros((shards, n_experts), dtype=counts.dtype,
                         device=counts.device)
     table[index] = counts
-    table = all_reduce_local(table, mesh, tok_dims,
-                             [Replicate()] * mesh.ndim, "sum")
+    table = all_reduce_local(table, mesh, tok_dims)
     return rank + table[:index].sum(dim=0)[eid]
 
 
@@ -226,8 +226,7 @@ def _part_ranks(n_experts: int, eid, mesh, tok_dims, parts: int,
     table = torch.zeros((shards * rows, n_experts), dtype=csum.dtype,
                         device=eid.device)
     table[index * rows:(index + 1) * rows] = csum[:, :, -1]
-    table = all_reduce_local(table, mesh, tok_dims,
-                             [Replicate()] * mesh.ndim, "sum")
+    table = all_reduce_local(table, mesh, tok_dims)
     seqs = shards * rows // parts
     # The rows in the sequences' order: row b parts + p is part p of b.
     ordered = table.view(parts, seqs, n_experts).transpose(0, 1).reshape(
@@ -238,35 +237,48 @@ def _part_ranks(n_experts: int, eid, mesh, tok_dims, parts: int,
     return (within + before[key].gather(1, ids)).reshape(-1)
 
 
-def _gathered(x, mesh, tok_dims, partial_dims=()):
-    """A local tensor split by rows over ``tok_dims`` (replicated
-    elsewhere), its rows of every shard in order, on every rank; the
-    gradient a pending sum over ``partial_dims``."""
-    split = DTensor.from_local(
-        x, mesh, [Shard(0) if i in tok_dims else Replicate()
-                  for i in range(mesh.ndim)], run_check=False)
-    return context.whole_local(split, partial_dims)
+def _gathered(x, mesh, tok_dims, partial: bool = False):
+    """A local tensor split by rows over ``tok_dims`` (whole elsewhere),
+    its rows of every shard in order, on every rank; with ``partial`` its
+    gradient a pending sum over every mesh dimension (each rank's block
+    uses a part of it)."""
+    if partial:
+        # The pending sum over the other dimensions reduces this rank's
+        # rows, after the gather's reduce-scatter in the backward.
+        x = pending_local(x, mesh, [i for i in range(mesh.ndim)
+                                    if i not in tok_dims])
+    return gather_local(x, mesh, tok_dims, 0, partial_grad=partial)
+
+
+def _moe_containers(cfg: ModelConfig, p: dict, x, return_aux: bool):
+    """:func:`moe_apply` of DTensors (the block called by itself under
+    active rules) on this rank's local tensors; its results as DTensors."""
+    with context.block_call(x) as f:
+        out = moe_apply(cfg, {name: Block.of(w) for name, w in p.items()},
+                        f.rows_of(x), return_aux)
+        y, aux = out if return_aux else (out, None)
+        y = wrap(y, f.mesh, f.placements)
+        if not return_aux:
+            return y
+        whole = (Replicate(),) * f.mesh.ndim
+        return y, {name: wrap(v, f.mesh, whole) for name, v in aux.items()}
 
 
 def _moe_sharded(cfg: ModelConfig, p: dict, x, return_aux: bool):
     """:func:`moe_apply` on a mesh: module note."""
+    f = context.frame()
+    mesh, every = f.mesh, tuple(range(f.mesh.ndim))
+    tok_dims = f.rows
     b, s, d = x.shape
-    t = b * s
+    # One capacity for the whole batch: every rank's tokens.
+    t = b * s * math.prod(mesh.size(i) for i in tok_dims)
     e, k = cfg.n_experts, cfg.top_k
-    mesh, every = x.device_mesh, tuple(range(x.device_mesh.ndim))
-    # Tokens split as the batch is (the data axes), whole elsewhere.
-    xf = x.reshape(t, d)
-    tok = [Shard(0) if pl.is_shard(0) and mesh.size(i) > 1 else Replicate()
-           for i, pl in enumerate(xf.placements)]
-    if tuple(xf.placements) != tuple(tok):
-        xf = xf.redistribute(mesh, tok)
-    tok_dims = [i for i, pl in enumerate(tok) if pl.is_shard()]
+    x_loc = x.reshape(-1, d)
 
     # Routing of this shard's tokens.  Every rank off the token axes routes
     # the same tokens alike, and the weights' gradient reaches it reduced,
     # so the router's gradient is a pending sum over the token axes only.
-    x_loc = xf.to_local()
-    router = context.whole_local(p["router"], tok_dims)
+    router = whole_block(p["router"], tok_dims)
     gate_logits, gates, topw, topi = route(cfg, router, x_loc)
     cap = capacity(cfg, t)
     eid = topi.reshape(-1)
@@ -280,9 +292,7 @@ def _moe_sharded(cfg: ModelConfig, p: dict, x, return_aux: bool):
     # This rank's block: experts by the weights' split, the capacity
     # (padded to a multiple of its ranks) over every other axis.
     wi = p["wi"]
-    exp_dims = [i for i, pl in enumerate(wi.placements)
-                if pl.is_shard(0) and mesh.size(i) > 1] \
-        if isinstance(wi, DTensor) else []
+    exp_dims = wi.split(0) if isinstance(wi, Block) else []
     cap_dims = [i for i in every if i not in exp_dims and mesh.size(i) > 1]
     blocks, block = 1, 0
     for i in cap_dims:
@@ -299,8 +309,8 @@ def _moe_sharded(cfg: ModelConfig, p: dict, x, return_aux: bool):
     code = torch.where(keep.reshape(-1), eid * c_pad + rank_of.reshape(-1),
                        e * c_pad)
     code_all = _gathered(code, mesh, tok_dims)
-    w_all = _gathered(w_disp, mesh, tok_dims, every)
-    x_all = _gathered(x_loc, mesh, tok_dims, every)
+    w_all = _gathered(w_disp, mesh, tok_dims, partial=True)
+    x_all = _gathered(x_loc, mesh, tok_dims, partial=True)
     inv = torch.full((e * c_pad + 1,), t * k, dtype=code_all.dtype,
                      device=code_all.device).scatter_(
         0, code_all, torch.arange(t * k, device=code_all.device))
@@ -314,8 +324,9 @@ def _moe_sharded(cfg: ModelConfig, p: dict, x, return_aux: bool):
     # one-device dispatch puts it (an exact copy: one value and zeros).
     buf = (x_all[j // k] * (w_blk != 0)[:, None]).view(e_loc, c_blk, d)
 
-    wl = {name: context.local_part(p[name], [i for i in cap_dims])
-          if isinstance(p[name], DTensor) else p[name]
+    # The rank's experts, whole otherwise; each rank's block of the
+    # capacity a part of their gradient.
+    wl = {name: whole_block(p[name], cap_dims, keep=exp_dims)
           for name in ("wi", "wg", "wo") if name in p}
     if cfg.activation == "swiglu":
         h = F.silu(torch.bmm(buf, wl["wg"])) * torch.bmm(buf, wl["wi"])
@@ -324,21 +335,18 @@ def _moe_sharded(cfg: ModelConfig, p: dict, x, return_aux: bool):
     out_blk = torch.bmm(h, wl["wo"]).view(-1, d)             # (E_l*C_b, D)
 
     # Combine: each slot's output, weighted, into its token's row of a
-    # batch-long partial sum, reduced to the tokens' layout.
+    # batch-long partial sum, summed into the tokens' layout.
     y = torch.zeros((t, d), dtype=out_blk.dtype, device=out_blk.device)
     y = y.index_add(0, j // k, out_blk * w_blk[:, None])
-    y = DTensor.from_local(y, mesh, [Partial()] * mesh.ndim,
-                           run_check=False).redistribute(mesh, tok)
+    y = scatter_sum_local(y, mesh, tok_dims, 0)
+    y = all_reduce_local(y, mesh, [i for i in every if i not in tok_dims])
     y = y.reshape(b, s, d)
     if not return_aux:
         return y
 
     def mean(local_sum, n):
         # A global mean: the local sums, all-reduced over the token axes.
-        total = all_reduce_local(local_sum, mesh, tok_dims,
-                                 [Replicate()] * mesh.ndim, "sum")
-        return DTensor.from_local(total / n, mesh, [Replicate()] * mesh.ndim,
-                                  run_check=False)
+        return all_reduce_local(local_sum, mesh, tok_dims) / n
     density = F.one_hot(topi[:, 0], e).float().sum(dim=0)
     router_prob = gates.sum(dim=0)
     lb_loss = e * torch.sum(mean(density, t) * mean(router_prob, t))

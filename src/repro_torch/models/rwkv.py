@@ -11,8 +11,7 @@ carried as an (H, hd, hd) fp32 state per head.  The recurrence is
 ``kernels.ops.wkv``: the hand ``wkv`` kernel on the card (and K3b, its
 backward, under autograd), their plain versions on the CPU;
 ``plain_kernels=True`` sends it to the plain versions on any device, to
-compare the two paths.  On a mesh each block gathers its weights at use
-as the reference's ``context.use_params`` hooks say.
+compare the two paths.
 
 Channel-mix: token-shift + squared-ReLU MLP with a sigmoid receptance gate.
 
@@ -21,12 +20,10 @@ Where the rows are parts of split sequences (a ``seq_pair`` rule:
 part before's last row and its WKV from that part's final state, handed
 over the ranks that share the sequences (``ops.wkv``'s ``pair``).
 
-On a mesh (DTensor activations under ``distributed/context``'s rules)
-both blocks run on each rank's local tensors, split as the port chooses
-(``context.Ranks``), with explicit collectives: DTensor's own propagation
-picks other splits of the same products in different torch versions, so
-the layout, the FLOPs and the collectives a rank would depend on the
-version.  The rows split over the data ranks where the batch divides
+On a mesh (a step entered under ``distributed/context``'s rules) both
+blocks run on each rank's local tensors, split as the port chooses
+(``context.Ranks``), with explicit collectives, each weight gathered at
+its use.  The rows split over the data ranks where the batch divides
 them; each ``model`` rank takes its heads (the columns of ``wr``, ``wk``,
 ``wv``, ``wg`` and of the decay tower's second product, the WKV, the
 rows of ``wo``: a pending sum, all-reduced) and, where the batch leaves
@@ -36,8 +33,9 @@ columns, and the five mixes their features, over the same ranks and are
 gathered (one all-gather of B x S x 5R and of B x S x 5 x D).  The
 channel mix splits ``cm_wk``'s columns and ``cm_wv``'s rows (a pending
 sum, reduce-scattered to the columns of ``cm_wr`` that the rank took)
-and gathers the gated product.  On plain tensors the blocks are the
-one-device code, bit for bit.
+and gathers the gated product.  The decode cache keeps its WKV states'
+heads over ``model`` (``context.cache_heads``).  Without active rules the
+blocks are the one-device code, bit for bit.
 
 Each block returns its new shift and WKV states, as the reference does.
 ``time_mix`` writes the new WKV state into ``state_out`` when given, which
@@ -49,7 +47,6 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch.distributed import context
 from repro_torch.kernels import ops
@@ -88,8 +85,9 @@ def _token_shift(x, prev):
     Where the rows are parts of split sequences (a ``seq_pair`` rule),
     a part's t=0 sees the previous part's last row (the first part's,
     ``prev``)."""
-    if context.seq_pair() is not None:
-        prev = context.pair_shift(x[:, -1, :], prev)
+    pair = context.seq_pair()
+    if pair is not None:
+        prev = pair.shift(x[:, -1, :], prev)
     return torch.cat([prev[:, None, :], x[:, :-1, :]], dim=1)
 
 
@@ -111,7 +109,7 @@ def time_mix(cfg: ModelConfig, p: dict, x, shift_state, wkv_state,
              plain_kernels: bool = False, state_out=None):
     """x: (B, S, D) -> (y, (new_shift, new_wkv)).  The new WKV state is
     written into ``state_out`` when given (it may be ``wkv_state``)."""
-    if isinstance(x, DTensor):
+    if context.frame() is not None:
         return _time_mix_sharded(cfg, p, x, shift_state, wkv_state,
                                  plain_kernels, state_out)
     b, s, d = x.shape
@@ -154,7 +152,7 @@ def _group_norm(cfg: ModelConfig, y, ln_x, h: int):
 
 
 def channel_mix(cfg: ModelConfig, p: dict, x, shift_state):
-    if isinstance(x, DTensor):
+    if context.frame() is not None:
         return _channel_mix_sharded(cfg, p, x, shift_state)
     xx = _token_shift(x, shift_state)
     delta = xx - x
@@ -172,15 +170,12 @@ def channel_mix(cfg: ModelConfig, p: dict, x, shift_state):
 def _time_mix_sharded(cfg, p, x, shift_state, wkv_state, plain_kernels,
                       state_out):
     """:func:`time_mix` on a mesh (module note)."""
-    p = context.use_params(p, {"wr": (None, "model"), "wk": (None, "model"),
-                               "wv": (None, "model"), "wg": (None, "model"),
-                               "wo": ("model", None)})
     h, hd, rank = cfg.rwkv_heads, cfg.rwkv_head_dim, cfg.rwkv_lora_rank
     d = x.shape[-1]
-    rk = context.Ranks(x, context.model_dim(x, h), (d,))
-    xl = rk.local(x)
+    rk = context.Ranks(context.model_dim(h), (d,))
+    xl = rk.enter(x)
     b, s, _ = xl.shape
-    delta = _token_shift(xl, rk.local(shift_state)) - xl
+    delta = _token_shift(xl, rk.enter(shift_state)) - xl
 
     # The low-rank tower's columns and the mixes' features split over the
     # sharing ranks, each gathered whole.
@@ -214,9 +209,9 @@ def _time_mix_sharded(cfg, p, x, shift_state, wkv_state, plain_kernels,
     w = torch.exp(-torch.exp(dd.float() - 3.0)).reshape(b, s, hl, hd)
     u = rk.block(p["bonus_u"], 0).reshape(hl, hd).float()
 
-    state = _state_local(rk, wkv_state)
+    state = _state_local(rk, wkv_state, h)
     out_local = None if state_out is None else (
-        state if state_out is wkv_state else _state_local(rk, state_out))
+        state if state_out is wkv_state else _state_local(rk, state_out, h))
     y, new_state = ops.wkv(r, k, v, w, u, state, out_local,
                            plain=plain_kernels, pair=context.seq_pair())
     y = _group_norm(cfg, y.reshape(b, s, width).to(x.dtype),
@@ -224,54 +219,27 @@ def _time_mix_sharded(cfg, p, x, shift_state, wkv_state, plain_kernels,
     # The rank's rows of wo: a pending sum over the sharing ranks.
     out = rk.sum((y * g)[..., mine] @ rk.block(p["wo"], 0)[mine],
                  rk.share)
-    return rk.wrap(out), (x[:, -1, :], _state_wrap(rk, new_state))
+    return out, (x[:, -1, :], new_state)
 
 
-def _state_local(rk, state):
-    """A (B, H, hd, hd) WKV state, this rank's rows and its model rank's
-    heads, as a local tensor (a view of a DTensor laid out so, which the
-    WKV may write in place: :func:`state_layout`); a plain tensor (the
-    zero state of a pass without a cache) counts as replicated."""
-    if isinstance(state, DTensor) and rk.model is not None and \
-            state.placements[rk.model] == Shard(1):
-        return state.to_local()
-    local = rk.local(state)
+def _state_local(rk, state, h: int):
+    """A (B, H, hd, hd) WKV state of ``h`` heads, this rank's rows, as its
+    model rank's heads: as it is where it holds them already (a cache's
+    slice, which the WKV may write in place: ``context.cache_heads``),
+    else their slice of the whole (the zero state of a pass without a
+    cache)."""
+    if state.shape[1] != h:
+        return state
     index, k = rk.index([] if rk.model is None else [rk.model])
-    n = local.shape[1] // k
-    return local[:, index * n:(index + 1) * n]
-
-
-def _state_wrap(rk, state):
-    """This rank's new WKV state (its rows, its model rank's heads) as a
-    DTensor."""
-    return rk.wrap(state, [Shard(1) if i == rk.model else p
-                           for i, p in enumerate(rk.placements)])
-
-
-def state_layout(cfg: ModelConfig, states):
-    """The cache's (L, B, H, hd, hd) WKV states with the heads split over
-    ``model`` where the blocks split them (a replicated cache's own slice
-    on each rank, no collective), so that each layer writes its new state
-    in place, with no gather; anything else as it is."""
-    if not isinstance(states, DTensor):
-        return states
-    dim = context.model_dim(states, cfg.rwkv_heads)
-    if dim is None or not states.placements[dim].is_replicate():
-        return states
-    return states.redistribute(states.device_mesh, [
-        Shard(2) if i == dim else pl for i, pl in enumerate(states.placements)])
+    return rk.enter(state)[:, index * (h // k):(index + 1) * (h // k)]
 
 
 def _channel_mix_sharded(cfg, p, x, shift_state):
     """:func:`channel_mix` on a mesh (module note)."""
-    p = context.use_params(p, {"cm_wk": (None, "model"),
-                               "cm_wr": (None, "model"),
-                               "cm_wv": ("model", None)})
     d = x.shape[-1]
-    rk = context.Ranks(x, context.model_dim(x, cfg.rwkv_heads),
-                        (d, cfg.d_ff))
-    xl = rk.local(x)
-    delta = _token_shift(xl, rk.local(shift_state)) - xl
+    rk = context.Ranks(context.model_dim(cfg.rwkv_heads), (d, cfg.d_ff))
+    xl = rk.enter(x)
+    delta = _token_shift(xl, rk.enter(shift_state)) - xl
     mix = rk.whole(p["cm_mix"])
     xk = xl + delta * torch.sigmoid(mix[0])[None, None]
     xr = xl + delta * torch.sigmoid(mix[1])[None, None]
@@ -283,7 +251,7 @@ def _channel_mix_sharded(cfg, p, x, shift_state):
     # rr that the rank took.
     vv = rk.scatter(kk @ rk.block(p["cm_wv"], 0)[hidden], rk.share)
     out = rk.gather(rr * vv, rk.share, partial_grad=False)
-    return rk.wrap(out), x[:, -1, :]
+    return out, x[:, -1, :]
 
 
 def init_rwkv_cache(cfg: ModelConfig, batch: int, dtype, device):

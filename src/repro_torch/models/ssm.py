@@ -6,8 +6,7 @@ a masked (C_i . B_j) kernel against the inputs; across chunks an
 reference scans the chunks with ``jax.lax.scan``; here a Python loop takes
 one step a chunk (16 at 1,024 tokens).  Decode is the plain recurrent
 update.  The SSD and the decode step are ``jnp`` code in the reference, not
-Pallas, so they stay torch ops; the reference's ``context.use_params``
-sharding hook stands where it has it (a no-op without active rules).
+Pallas, so they stay torch ops.
 
 Layout conventions: x (B, S, D); inner activations (B, S, H, P) with
 H = d_inner / P heads; B/C projections are shared across heads (one group).
@@ -21,13 +20,15 @@ SSD (or the decode step) on its heads, and multiplies by its rows of
 ``out_proj``, a pending sum over ``model``.  The gated RMS norm's mean of
 squares over the whole ``d_inner`` becomes a sum of each rank's part, one
 all-reduce of B x S floats.  The new state is its heads' part of the
-cache, which the hybrid stack lays out so (:func:`state_layout`): no step
-gathers another rank's heads.  The new conv window's x channels are
+cache, which the hybrid stack lays out so (``context.cache_heads``): no
+step gathers another rank's heads.  The new conv window's x channels are
 gathered to the cache's layout.  Both paths share the conv, the step
 sizes, the scan and the gated output (:func:`_conv_window`,
-:func:`_step_sizes`, :func:`_scan`, :func:`_gated_out`).  On plain
-tensors, or a mesh of one rank, :func:`mamba_apply` is the one-device
-code, bit for bit.
+:func:`_step_sizes`, :func:`_scan`, :func:`_gated_out`).  Everything runs
+on local tensors; a DTensor input (the block called by itself) is taken
+apart and its results put back together (:func:`_mamba_containers`).
+Without active rules, or on a mesh of one rank, :func:`mamba_apply` is
+the one-device code, bit for bit.
 
 Where the rows are halves of split sequences (a ``seq_pair`` rule:
 ``sharding.split_sequences``) the block runs on local tensors in either
@@ -48,10 +49,13 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch.core import xlamath
 from repro_torch.distributed import context
+from repro_torch.distributed.layout import (Block, all_reduce_local,
+                                            gather_local, pending_local,
+                                            whole_block, wrap)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Spec
 
@@ -95,7 +99,6 @@ def _split_proj(cfg: ModelConfig, proj):
 def _causal_conv(x, w, b):
     """Depthwise causal conv over (B, S, C) with window len(w)."""
     cw = w.shape[0]
-    # Zeros joined on, not F.pad: DTensor 2.11 has no strategy for the pad.
     pad = torch.cat([torch.zeros((x.shape[0], cw - 1, x.shape[2]),
                                  dtype=x.dtype, device=x.device), x], dim=1)
     out = sum(pad[:, i:i + x.shape[1], :] * w[i] for i in range(cw))
@@ -215,19 +218,18 @@ def _step_sizes(dt, dt_bias, a_log):
     return torch.logaddexp(dt, dt.new_zeros(())), -torch.exp(a_log.float())
 
 
-def _scan(xh, dt, a, bmat, cmat, state, place=lambda t: t, pair=None):
+def _scan(xh, dt, a, bmat, cmat, state, pair=None):
     """The SSD over a prompt (``state`` None, or a prefill continuation
     seeded with it; each row a half of a split sequence with ``pair``), or
-    the recurrent decode step (S == 1); the new state goes through
-    ``place`` before the step reads it out.  Returns (y (B, S, H, P)
-    float32, new state (B, H, N, P))."""
+    the recurrent decode step (S == 1).  Returns (y (B, S, H, P) float32,
+    new state (B, H, N, P))."""
     if state is None or xh.shape[1] > 1 or pair is not None:
         return _ssd_chunked(xh, dt, a, bmat, cmat, init_state=state,
                             pair=pair)
     da = torch.exp(dt[:, 0] * a)                          # (B,H)
     xs = dt[:, 0, :, None] * xh[:, 0].float()             # (B,H,P)
     upd = bmat[:, 0].float()[:, None, :, None] * xs[:, :, None, :]
-    new_state = place(state * da[..., None, None] + upd)  # (B,H,N,P)
+    new_state = state * da[..., None, None] + upd         # (B,H,N,P)
     y = torch.einsum("bn,bhnp->bhp", cmat[:, 0].float(),
                      new_state)[:, None]                  # (B,1,H,P)
     return y, new_state
@@ -256,14 +258,16 @@ def mamba_apply(cfg: ModelConfig, p: dict, x, state=None, conv_state=None):
     is the recurrent decode step.  Returns new tensors; the caller decides
     where they go.
     """
+    if isinstance(x, DTensor):
+        return _mamba_containers(cfg, p, x, state, conv_state)
     bsz, s, _ = x.shape
     di, n, h, pdim = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
-    p = context.use_params(p, {"in_proj": (None, None),
-                               "out_proj": (None, None)})
-    dim = context.model_dim(x, h)
-    if dim is not None or (isinstance(x, DTensor) and
-                           context.seq_pair() is not None):
+    f = context.frame()
+    dim = context.model_dim(h)
+    if dim is not None or (f is not None and context.seq_pair() is not None):
         return _mamba_sharded(cfg, p, x, state, conv_state, dim)
+    if f is not None:
+        p = {name: context.whole(t) for name, t in p.items()}
     proj = x @ p["in_proj"]
     z, xc, bmat, cmat, dt = _split_proj(cfg, proj)
 
@@ -275,11 +279,7 @@ def mamba_apply(cfg: ModelConfig, p: dict, x, state=None, conv_state=None):
 
     xh = xc.reshape(bsz, s, h, pdim)
     dt, a = _step_sizes(dt, p["dt_bias"], p["a_log"])
-    # On a mesh each shard of the decode step's state holds whole heads:
-    # at batch 1 DTensor would split the heads over ranks that do not
-    # divide them, and could not flatten them.
-    y, new_state = _scan(xh, dt, a, bmat, cmat, state,
-                         lambda t: context.whole_heads(t, h, dim=1))
+    y, new_state = _scan(xh, dt, a, bmat, cmat, state)
     out = _gated_out(cfg, y, xh, z, p["d_skip"], p["gate_norm"],
                      p["out_proj"],
                      lambda g: g.square().mean(dim=-1, keepdim=True),
@@ -287,56 +287,56 @@ def mamba_apply(cfg: ModelConfig, p: dict, x, state=None, conv_state=None):
     return out, (new_state, new_conv_state)
 
 
-def state_layout(cfg: ModelConfig, states):
-    """The cache's (L, B, H, N, P) decode states with the heads split over
-    ``model`` where :func:`mamba_apply` splits them (a replicated cache's
-    own slice on each rank, no collective), so that a layer's new state is
-    written back with no gather; anything else as it is."""
-    if not isinstance(states, DTensor):
-        return states
-    dim = context.model_dim(states, cfg.ssm_heads)
-    if dim is None or not states.placements[dim].is_replicate():
-        return states
-    return states.redistribute(states.device_mesh, [
-        Shard(2) if i == dim else pl for i, pl in enumerate(states.placements)])
+def _mamba_containers(cfg: ModelConfig, p: dict, x, state, conv_state):
+    """:func:`mamba_apply` of DTensors (the block called by itself under
+    active rules) on this rank's local tensors: the weights as
+    ``layout.Block``s, ``x`` and the cache as the stream's rows, the
+    state as this model rank's heads where the block splits them; the
+    results as DTensors (the state's heads over ``model`` where split)."""
+    with context.block_call(x) as f:
+        p = {name: Block.of(t) for name, t in p.items()}
+        dim = context.model_dim(cfg.ssm_heads)
+        if state is not None:
+            # Its rows, and this model rank's heads where the block's
+            # results came split so.
+            mine = isinstance(state, DTensor) and dim is not None and \
+                state.placements[dim].is_shard(1)
+            state = state.to_local() if mine else f.rows_of(state)
+            if dim is not None and state.shape[1] == cfg.ssm_heads:
+                index, k = context.index_over([dim])
+                size = cfg.ssm_heads // k
+                state = state[:, index * size:(index + 1) * size]
+            conv_state = f.rows_of(conv_state)
+        y, (new_state, new_conv) = mamba_apply(cfg, p, f.rows_of(x), state,
+                                               conv_state)
+        heads = tuple(Shard(1) if i == dim else pl
+                      for i, pl in enumerate(f.placements))
+        return wrap(y, f.mesh, f.placements), (
+            wrap(new_state, f.mesh, heads),
+            wrap(new_conv, f.mesh, f.placements))
 
 
 def _mamba_sharded(cfg: ModelConfig, p: dict, x, state, conv_state,
                    dim):
     """:func:`mamba_apply` with the heads split over mesh dimension
     ``dim`` (module note; None: every head on every rank), on each rank's
-    local tensors.  Where the rows are halves of split sequences (a
-    ``seq_pair`` rule) half 1's conv starts from half 0's last inputs and
-    its SSD from half 0's final state (``SeqPair.shift``,
-    :func:`_from_parts`)."""
+    local tensors (``state`` the rank's heads, or all of them).  Where
+    the rows are halves of split sequences (a ``seq_pair`` rule) half 1's
+    conv starts from half 0's last inputs and its SSD from half 0's final
+    state (``SeqPair.shift``, :func:`_from_parts`)."""
     bsz, s, _ = x.shape
     di, n, h, pdim = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
-    mesh = x.device_mesh
+    f = context.frame()
+    mesh = f.mesh
     pair = context.seq_pair()
-    ranks, rank = (1, 0) if dim is None else (mesh.size(dim),
-                                              mesh.get_coordinate()[dim])
     split = [] if dim is None else [dim]
+    rank, ranks = context.index_over(split)
     hl = h // ranks
     dl = hl * pdim
-    # The batch split as it comes, everything else whole; each rank's
-    # heads take a part of the input's gradient.
-    rows = [pl if i != dim and pl.is_shard(0) else Replicate()
-            for i, pl in enumerate(x.placements)]
-    if tuple(x.placements) != tuple(rows):
-        x = x.redistribute(mesh, rows)
-    batch = [i for i, pl in enumerate(rows) if pl.is_shard()]
-    parts = split + batch
-    xl = context.local_part(x, split)
-    w = {name: context.whole_local(t, parts) for name, t in p.items()}
-    mine_heads = [Shard(1) if i == dim else pl for i, pl in enumerate(rows)]
-
-    def rows_of(t):
-        # A cache tensor laid out as the input's rows: the local batch.
-        if not isinstance(t, DTensor):
-            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
-                                   run_check=False)
-        return (t if tuple(t.placements) == tuple(rows) else
-                t.redistribute(mesh, rows)).to_local()
+    # Each rank's heads take a part of the input's gradient and of every
+    # weight's.
+    xl = pending_local(x, mesh, split)
+    w = {name: whole_block(t, f.rows + split) for name, t in p.items()}
 
     dev = xl.device
     mine = torch.arange(rank * dl, (rank + 1) * dl, device=dev)
@@ -352,7 +352,7 @@ def _mamba_sharded(cfg: ModelConfig, p: dict, x, state, conv_state,
     # The conv's channels: this rank's x channels, then B and C whole.
     chans = torch.cat([mine, di + torch.arange(2 * n, device=dev)])
     conv_in = torch.cat([xc, bmat, cmat], dim=-1)
-    window = None if state is None else rows_of(conv_state)[..., chans]
+    window = None if state is None else conv_state[..., chans]
     if pair is not None:
         window = pair.shift(conv_in[:, -(cfg.ssm_conv - 1):], window)
     conv, new_conv = _conv_window(conv_in, w["conv_w"][:, chans],
@@ -360,40 +360,25 @@ def _mamba_sharded(cfg: ModelConfig, p: dict, x, state, conv_state,
                                   cfg.ssm_conv)
     xc, bmat, cmat = conv[..., :dl], conv[..., dl:dl + n], conv[..., dl + n:]
 
-    xh = xc.reshape(xl.shape[0], s, hl, pdim)
+    xh = xc.reshape(bsz, s, hl, pdim)
     dt, a = _step_sizes(dt, w["dt_bias"][heads], w["a_log"][heads])
-    if state is None:
-        st = None
-    elif isinstance(state, DTensor) and \
-            tuple(state.placements) == tuple(mine_heads):
-        st = state.to_local()       # this rank's heads already (state_layout)
-    else:
-        st = rows_of(state)[:, heads]
+    st = None if state is None else (
+        state if state.shape[1] == hl else state[:, heads])
     y, new_state = _scan(xh, dt, a, bmat, cmat, st, pair=pair)
 
     def mean_square(g32):
         # The mean of squares over the whole d_inner: each rank's sum,
-        # summed; each rank's heads take a part of its gradient.
-        return context.local_part(DTensor.from_local(
-            g32.square().sum(dim=-1, keepdim=True), mesh,
-            [Partial() if i == dim else pl for i, pl in enumerate(rows)],
-            run_check=False).redistribute(mesh, rows), split) / di
+        # summed; each rank's heads use it, a part of its gradient.
+        return all_reduce_local(g32.square().sum(dim=-1, keepdim=True),
+                                mesh, split, partial_grad=True) / di
     out = _gated_out(cfg, y, xh, z, w["d_skip"][heads], w["gate_norm"][mine],
                      w["out_proj"][mine], mean_square, x.dtype)
-    out = DTensor.from_local(out, mesh, [
-        Partial() if i == dim else pl for i, pl in enumerate(rows)],
-        run_check=False).redistribute(mesh, rows)
+    out = all_reduce_local(out, mesh, split)
     # The new state: this rank's heads of the cache's (B, H, N, P); the
     # new conv window: the x channels of every rank, then B and C.
-    new_state = DTensor.from_local(new_state, mesh, mine_heads,
-                                   run_check=False)
-    xwin = DTensor.from_local(new_conv[..., :dl].contiguous(), mesh, [
-        Shard(2) if i == dim else pl for i, pl in enumerate(rows)],
-        run_check=False).redistribute(mesh, rows).to_local()
-    new_conv = DTensor.from_local(
-        torch.cat([xwin, new_conv[..., dl:]], dim=-1), mesh, rows,
-        run_check=False)
-    return out, (new_state, new_conv)
+    xwin = gather_local(new_conv[..., :dl], mesh, split, -1,
+                        partial_grad=False)
+    return out, (new_state, torch.cat([xwin, new_conv[..., dl:]], dim=-1))
 
 
 def init_ssm_cache(cfg: ModelConfig, batch: int, dtype, device):

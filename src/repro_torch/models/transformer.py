@@ -65,19 +65,21 @@ prefix, cast to the activations' dtype (a one-token pass so runs the
 decode kernel's float32 build).  A pass without vision rows stays in the
 model dtype and casts nothing.
 
-On a mesh (DTensor parameters, batch and cache, under
-``distributed/context.activation_rules``) the reference's hooks stand
-where it has them: the residual stream is constrained at layer boundaries
+On a mesh (``distributed/context.activation_rules``, a step entered by
+``models/model``) the pass runs on this rank's local tensors, its weights
+``layout.Block``s, and the reference's hooks stand where it has them: the
+residual stream stays laid out by the rules between layers
 (``ACTIVATION_AXES``), each layer gathers its FSDP-sharded weights at
-their use site, and a decode step writes its K/V by a positional select
-(:func:`_select_update`, the reference's ``kv_select_update``; a DTensor
-cache always, since a slice write into one whose sequence is sharded
-would land in a gathered copy).  The attention's projections, the MLP and
-the rwkv6 blocks multiply on each rank's local tensors, split as the port
-chooses (``distributed/context.column_product``, ``row_product``,
-``models/rwkv``), and the rwkv6 cache keeps each WKV state's heads over
-``model`` (``rwkv.state_layout``).  Without active rules every hook
-returns its input and a pass is what it is without them.
+their use, and a cache is written where it lies: each rank writes the new
+rows that fall in its own slice of the sequence (:func:`_write_rows`).
+The attention's projections, the MLP and the rwkv6 blocks multiply on
+each rank's local tensors, split as the port chooses
+(``distributed/context.column_products``, ``row_product``,
+``models/rwkv``), the frontends' products over each model rank's share of
+the rows (``context.row_split_product``), and the rwkv6 and hybrid caches
+keep their states' heads over ``model`` (``context.cache_heads``).
+Without active rules every hook returns its input and a pass is what it
+is without them.
 
 ``plain_kernels=True`` sends every hand kernel on the pass (the decode
 step's ``decode_attn``, every layer's ``wkv`` and, under autograd, its
@@ -90,12 +92,11 @@ import functools
 from typing import Optional
 
 import torch
-from torch.distributed.tensor import DTensor, Replicate
 from torch.utils import checkpoint as _ckpt
 
 from repro_torch.distributed import context
-from repro_torch.distributed.layout import shard_start
 from repro_torch.kernels import ops
+from repro_torch.kernels.decode_attn import built as k2_built
 from repro_torch.models import attention, layers, moe, rwkv, ssm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Spec
@@ -106,22 +107,11 @@ FRONTEND_DIM = 512
 #: Logical axes of the residual stream, the layer boundaries' constraint.
 ACTIVATION_AXES = ("batch", "seq", "embed")
 
-PORTED_FAMILIES = ("dense", "vlm", "moe", "audio", "hybrid", "ssm")
-
-
-def check_ported(cfg: ModelConfig) -> None:
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported to "
-            f"repro_torch yet (ported: {', '.join(PORTED_FAMILIES)})")
-
-
 # ---------------------------------------------------------------------------
 # Spec assembly.
 # ---------------------------------------------------------------------------
 
 def model_specs(cfg: ModelConfig) -> dict:
-    check_ported(cfg)
     d = cfg.d_model
     specs: dict = {
         "embed": layers.embed_specs(cfg),
@@ -184,7 +174,7 @@ def as_dtype(t, dtype):
 def _as_dtype_of(pl: dict, x):
     """A layer's parameters cast to the activations' dtype when those are
     wider (vision rows, audio frames: module note)."""
-    _, leaf = next(layers.flatten_tree(pl, is_leaf=torch.is_tensor))
+    _, leaf = next(layers.flatten_tree(pl, is_leaf=layers.is_weight))
     return pl if leaf.dtype == x.dtype else as_dtype(pl, x.dtype)
 
 
@@ -218,12 +208,12 @@ def _maybe_remat(cfg: ModelConfig, fn, training: bool):
 def _attn_block(cfg: ModelConfig, pl, x, positions, causal, kv_cache,
                 plain_kernels: bool = False):
     """kv_cache is None (no cache) or (k_cache, v_cache, cache_len) with
-    (B, S_max, Hk, hd) caches that this block writes in place."""
+    (B, S_max, Hk, hd) caches that this block writes in place.  On a mesh
+    the heads are laid out by ``context.head_layout``: each rank attends
+    with its own heads, its group's KV head ("group"), or every head
+    ("whole"; the output then whole)."""
     q, k, v = attention.qkv_project(cfg, pl["attn"], x, positions)
-    # On a mesh, each shard of the query heads holds whole KV-head groups
-    # or lies inside one group (the rank then attends with that group's KV
-    # head alone: ``_attend_local``, ``ops.decode_attn``).
-    q = context.grouped_heads(q, cfg.n_heads, cfg.n_kv_heads, dim=2)
+    how = context.head_layout(cfg.n_heads, cfg.n_kv_heads)
     b, s = x.shape[:2]
     if kv_cache is None:
         # Over split sequences (a ``seq_pair`` rule) the whole sequence's
@@ -234,123 +224,101 @@ def _attn_block(cfg: ModelConfig, pl, x, positions, causal, kv_cache,
                   attention.flash_attention)
         if pair is not None:
             attend = attention.over_parts(attend, pair)
-        o = _attend_local(attend, q, k, v, causal)
+        if how == "group":
+            g0 = context.group_of(cfg.n_heads, cfg.n_kv_heads)
+            k, v = k[:, :, g0:g0 + 1], v[:, :, g0:g0 + 1]
+        o = attend(q, k, v, causal=causal)
     else:
-        k_cache, v_cache, cache_len = kv_cache
-        if isinstance(k_cache, DTensor) or (
-                s == 1 and context.flag("kv_select_update")):
-            _select_update(k_cache, k, cache_len)
-            _select_update(v_cache, v, cache_len)
+        o, how = _cached_attention(cfg, q, k, v, kv_cache, how,
+                                   plain_kernels)
+    # Each rank's heads' pending sum all-reduced into the residual stream.
+    return context.row_product(o.reshape(b, s, -1), pl["attn"]["wo"],
+                               whole_features=how == "whole")
+
+
+def _cached_attention(cfg, q, k, v, kv_cache, how, plain_kernels):
+    """The new rows ``q, k, v`` (laid out by ``how``) written into the
+    cache and attended against it -> (output, how its heads are laid out).
+
+    On a mesh the cache is this rank's block: its rows, and its slice of
+    the sequence where the cache is channelized (the sequence split over
+    ``model``); the new K/V rows go, whole over the heads, into the slice
+    that holds their positions.  A channelized cache is read where it
+    lies: each rank attends every query head to its own keys and the
+    ranks' softmax terms merge (``layout.KeySlice``); ranks that hold the
+    rows whole (batch 1) take shares of its KV heads.  A cache whose heads
+    are whole on every model rank: the decode step runs K2 on each rank's
+    query heads against their group's KV head where they lie inside one
+    group and K2 is built for it, else every head on every rank; a block
+    of rows attends each rank's heads to their KV heads."""
+    k_cache, v_cache, cache_len = kv_cache
+    b, s = q.shape[:2]
+    keys, idle = context.cache_keys("k", k_cache.shape[1], cfg.n_kv_heads)
+    if k.shape[2] != cfg.n_kv_heads:
+        # The cache holds every KV head on every model rank.
+        k, v = (context.whole_heads(t, 2) for t in (k, v))
+    offset = 0 if keys is None else keys.offset
+    _write_rows(k_cache, k, cache_len, offset)
+    _write_rows(v_cache, v, cache_len, offset)
+    if q.dtype != k_cache.dtype:
+        # float32 queries (vision rows) meet the model dtype's cache
+        # upcast, as the reference's einsum does: its valid prefix.
+        valid = max(0, min(k_cache.shape[1], cache_len + s - offset))
+        k_cache, v_cache = (as_dtype(c[:, :valid], q.dtype)
+                            for c in (k_cache, v_cache))
+    group = cfg.n_heads // cfg.n_kv_heads
+    mesh_heads = context.model_dim(cfg.n_heads) is not None
+    if keys is None and how != "whole" and mesh_heads and (
+            s > 1 or plain_kernels or (
+                group % q.shape[2] == 0 and k2_built(q.shape[-1],
+                                                     q.shape[2]))):
+        # This rank's query heads against their KV heads: its group's, or
+        # its own whole groups.
+        if group % q.shape[2] == 0:
+            g0 = context.group_of(cfg.n_heads, cfg.n_kv_heads)
+            heads = slice(g0, g0 + 1)
         else:
-            k_cache[:, cache_len:cache_len + s] = k
-            v_cache[:, cache_len:cache_len + s] = v
-        if q.dtype != k_cache.dtype:
-            # float32 queries (vision rows) meet the model dtype's cache
-            # upcast, as the reference's einsum does: its valid prefix.
-            k_cache, v_cache = (as_dtype(c[:, :cache_len + s], q.dtype)
-                                for c in (k_cache, v_cache))
-        if s == 1 and not plain_kernels:
-            # The decode step: the hand kernel on the card.
-            o = ops.decode_attn(q[:, 0], k_cache, v_cache,
-                                cache_len + 1)[:, None]
-        else:
-            # A block of new rows against the cache: each shard of the
-            # query holds whole groups, as the grouped einsum splits them.
-            lens = torch.full((b,), cache_len + s, dtype=torch.int32,
-                              device=x.device)
-            o = attention.decode_attention(
-                context.whole_heads(q, cfg.n_kv_heads, dim=2), k_cache,
-                v_cache, lens, q_start=cache_len)
-    wo = context.use_params(pl["attn"], attention.ATTN_USE_SPECS)["wo"]
-    # Each rank's heads' pending sum all-reduced into the residual stream's
-    # layout (left to itself DTensor 2.13 reduce-scatters it over the
-    # sequence, and the MLP after it then gathers its weights and computes
-    # every column on every model rank).
-    return context.row_product(o.reshape(b, s, -1), wo)
+            mine = q.shape[2] // group
+            index = context.model_index()
+            heads = slice(index * mine, (index + 1) * mine)
+        k_cache, v_cache = (c[:, :, heads] for c in (k_cache, v_cache))
+    else:
+        if q.shape[2] != cfg.n_heads:
+            q = context.whole_heads(q, 2)
+        how = "whole"
+    if idle:
+        # This idle rank's share of the KV heads and their query heads.
+        index, n = context.index_over(idle)
+        hk = cfg.n_kv_heads // n
+        q = q[:, :, index * hk * group:(index + 1) * hk * group]
+        k_cache, v_cache = (c[:, :, index * hk:(index + 1) * hk]
+                            for c in (k_cache, v_cache))
+    if s == 1 and not plain_kernels:
+        # The decode step: the hand kernel on the card, which reads a
+        # contiguous cache (a copy of a slice of its heads).
+        o = ops.decode_attn(q[:, 0], k_cache.contiguous(),
+                            v_cache.contiguous(), cache_len + 1,
+                            keys)[:, None]
+    else:
+        lens = torch.full((b,), cache_len + s, dtype=torch.int32,
+                          device=q.device)
+        o = attention.decode_attention(q, k_cache, v_cache, lens,
+                                       q_start=cache_len, keys=keys)
+    if idle:
+        o = context.gather_over(o, idle, 2)
+    return o, how
 
 
-def _attend_local(attend, q, k, v, causal: bool):
-    """Uncached attention; on a mesh whose ranks split only its batch and
-    heads, run on each rank's own shard (``kernels/ops._per_shard``):
-    every (batch, head) attends alone, so this is the same work with no
-    collective, and no product flattens a split batch and a split head
-    dimension together (DTensor 2.11 cannot).  Where the query's heads
-    are split inside KV groups (fewer KV heads than ranks), K and V are
-    whole over those ranks and each rank takes its group's head: its
-    gradient there is a pending sum.  A split sequence takes DTensor's
-    own propagation."""
-    if not isinstance(q, DTensor) or any(
-            p.is_shard(1) and q.device_mesh.size(i) > 1
-            for t in (q, k, v) if isinstance(t, DTensor)
-            for i, p in enumerate(t.placements)):
-        return attend(q, k, v, causal=causal)
-    rows = {"batch": 0, "whole": 1, "head": 2}
-    hq, hk = q.shape[2], k.shape[2]
-    split = 1
-    for i, p in enumerate(q.placements):
-        if p.is_shard(2):
-            split *= q.device_mesh.size(i)
-    if hk % split:
-        g0 = shard_start(q, 2) // (hq // hk)
-        kv = {"batch": 0, "whole": 1}
-        return ops._per_shard(
-            lambda q, k, v: attend(q, k[:, :, g0:g0 + 1],
-                                   v[:, :, g0:g0 + 1], causal=causal),
-            "q", {"q": (q, rows), "k": (k, kv), "v": (v, kv)},
-            ({"batch": 0, "head": 2},), "attention", shared=("k", "v"))
-    return ops._per_shard(
-        lambda q, k, v: attend(q, k, v, causal=causal), "q",
-        {"q": (q, rows), "k": (k, rows), "v": (v, rows)},
-        ({"batch": 0, "head": 2},), "attention")
-
-
-def _select_update(cache, new, start: int):
-    """Write ``new`` (B, s, Hk, hd) into ``cache`` (B, S_max, Hk, hd) at
-    positions ``start`` on.  One row (a decode step) by a positional
-    select: elementwise, so a cache whose sequence axis is sharded is
-    written where it lies.  (A slice write into a DTensor sharded along the
-    slice would land in a gathered copy, not in the cache.)  A block of
-    rows (a prefill into a DTensor cache) on each rank's own slice
-    (:func:`_write_local`)."""
-    if new.shape[1] > 1:
-        # Only a DTensor cache takes a block of rows here.
-        _write_local(cache, new, start)
-        return
-    pos = torch.arange(cache.shape[1], device=new.device)
-    at = (pos == start)[None, :, None, None]
-    # The one row broadcasts over the positions, shard by shard.
-    cache.copy_(torch.where(at, _as_cache_rows(cache, new), cache))
-
-
-def _write_local(cache, new, start: int):
-    """A block of new rows into a DTensor cache: each rank writes those
-    that fall in its own slice of the sequence into its local shard.
-    (DTensor 2.11 has no strategy for the padding a select would need.)"""
-    new = _as_cache_rows(cache, new)
-    local = cache.to_local()
-    first = shard_start(cache, 1)
-    lo = max(start, first)
-    hi = min(start + new.shape[1], first + local.shape[1])
+def _write_rows(cache, new, start: int, offset: int = 0):
+    """Write ``new`` (B, s, Hk, hd) into ``cache`` (B, S, Hk, hd), which
+    holds the positions from ``offset`` on (this rank's slice of a
+    sequence split over ranks), at positions ``start`` on: the rows that
+    fall in the slice."""
+    lo = max(start, offset)
+    hi = min(start + new.shape[1], offset + cache.shape[1])
     if lo < hi:
-        local[:, lo - first:hi - first] = \
-            new.to_local()[:, lo - start:hi - start]
-
-
-def _as_cache_rows(cache, new):
-    """New rows in the cache's dtype and, for a DTensor cache, laid out as
-    the cache with their sequence whole: a local slice of the rows, or a
-    gather of them, never of the cache."""
-    new = new.to(cache.dtype)
-    if not isinstance(cache, DTensor):
-        return new
-    mesh = cache.device_mesh
-    if not isinstance(new, DTensor):
-        new = DTensor.from_local(new, mesh, [Replicate()] * mesh.ndim,
-                                 run_check=False)
-    want = tuple(Replicate() if p.is_shard(1) else p
-                 for p in cache.placements)
-    return new if tuple(new.placements) == want else new.redistribute(
-        mesh, want)
+        cache[:, lo - offset:hi - offset] = \
+            new[:, lo - start:hi - start].to(cache.dtype)
 
 
 def _dense_body(cfg, x, pl, positions, causal, kv_cache,
@@ -407,16 +375,20 @@ def _rwkv_body(cfg, x, pl, cache, plain_kernels: bool = False,
 
 
 def _embed_inputs(cfg: ModelConfig, params, batch):
+    # The frontends' products: on a mesh each model rank its share of the
+    # rows (context.row_split_product).
     if cfg.family == "audio":
         frames, proj = batch["frames"], params["frontend"]["proj"]
         dtype = torch.promote_types(frames.dtype, proj.dtype)
-        return as_dtype(frames, dtype) @ as_dtype(proj, dtype)
+        return context.row_split_product(as_dtype(frames, dtype),
+                                         as_dtype(proj, dtype))
     x = layers.embed_apply(cfg, params["embed"], batch["tokens"])
     if cfg.family == "vlm" and "vision_embeds" in batch:
         rows = batch["vision_embeds"]
         dtype = torch.promote_types(rows.dtype, x.dtype)
-        proj = as_dtype(rows, dtype) @ as_dtype(params["frontend"]["proj"],
-                                                dtype)
+        proj = context.row_split_product(
+            as_dtype(rows, dtype), as_dtype(params["frontend"]["proj"],
+                                            dtype))
         x = torch.where(batch["vision_mask"][..., None], proj,
                         as_dtype(x, dtype))
     return x
@@ -436,7 +408,6 @@ def forward(cfg: ModelConfig, params, batch, *, training: bool = False,
     sends every hand kernel on the pass to its plain version; it exists
     only to compare the two paths.
     """
-    check_ported(cfg)
     x = _embed_inputs(cfg, params, batch)
     if cfg.family == "ssm":
         x, new_cache = _rwkv_stack(cfg, params, x, cache, plain_kernels,
@@ -499,7 +470,9 @@ def _hybrid_stack(cfg, params, x, positions, cache, plain_kernels,
             x = block(x, shared)
         return x, None
     cache_len = cache["len"]
-    states = ssm.state_layout(cfg, cache["ssm_state"])
+    # On a mesh each layer writes its model rank's heads of the state.
+    states = context.cache_heads("ssm_state", cache["ssm_state"],
+                                 cfg.ssm_heads)
     for g in range(cfg.n_layers // per):
         for i in range(g * per, (g + 1) * per):
             pl = layer_params(params["layers"], i)
@@ -523,9 +496,8 @@ def _rwkv_stack(cfg, params, x, cache, plain_kernels, training=False):
         for i in range(cfg.n_layers):
             x = layer(x, layer_params(params["layers"], i))
         return x, None
-    # On a mesh each layer writes its model rank's heads of the WKV state
-    # (rwkv.state_layout).
-    states = rwkv.state_layout(cfg, cache["wkv"])
+    # On a mesh each layer writes its model rank's heads of the WKV state.
+    states = context.cache_heads("wkv", cache["wkv"], cfg.rwkv_heads)
     for i in range(cfg.n_layers):
         pl = layer_params(params["layers"], i)
         cl = (cache["tm_shift"][i], states[i], cache["cm_shift"][i])
@@ -540,7 +512,6 @@ def _rwkv_stack(cfg, params, x, cache, plain_kernels, training=False):
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
                device) -> dict:
     """Zeroed decode cache sized for ``max_len`` tokens of context."""
-    check_ported(cfg)
     if cfg.family == "audio":
         raise ValueError(f"{cfg.family} has no decode cache")
     if cfg.family == "ssm":

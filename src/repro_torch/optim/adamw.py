@@ -21,7 +21,9 @@ import dataclasses
 import math
 
 import torch
+from torch.distributed.tensor import DTensor
 
+from repro_torch.distributed.layout import all_reduce_local
 from repro_torch.models.layers import map_tree, tree_leaves
 
 
@@ -60,9 +62,22 @@ def init(params):
 
 def global_norm(tree):
     """sqrt of the sum of squares of every leaf, in float32, the leaves
-    summed in the reference's order."""
-    return torch.sqrt(sum(l.float().square().sum()
-                          for l in tree_leaves(tree)))
+    summed in the reference's order.  Leaves that are DTensors (gradients
+    on a mesh) are summed on their local shards, and the sums of the
+    leaves split over the same mesh dimensions are all-reduced over those
+    at once (``distributed/layout``): the norm, whole on every rank, as a
+    plain tensor."""
+    leaves = tree_leaves(tree)
+    if not any(isinstance(l, DTensor) for l in leaves):
+        return torch.sqrt(sum(l.float().square().sum() for l in leaves))
+    mesh, by_split = leaves[0].device_mesh, {}
+    for l in leaves:
+        dims = tuple(i for i, p in enumerate(l.placements)
+                     if p.is_shard() and mesh.size(i) > 1)
+        part = l.to_local().float().square().sum()
+        by_split[dims] = by_split[dims] + part if dims in by_split else part
+    return torch.sqrt(sum(all_reduce_local(part, mesh, dims)
+                          for dims, part in by_split.items()))
 
 
 @torch.no_grad()

@@ -14,8 +14,7 @@
   ``long_500k`` on both meshes; a prefill step whose batch does not
   divide its data ranks, each sequence split over ``pod`` (half the
   FLOPs a rank of the single-pod step); the decode step's K2 stand-in;
-  the int8 collective proof; the CLI's records; the meter's mark on DTensor's
-  propagation, taken away when the last meter closes.
+  the int8 collective proof; the CLI's records.
 
 A fake process group (every collective returns at once) stands in for
 the world, and the tensors are shards on the ``meta`` device.
@@ -294,18 +293,6 @@ def test_meta_decode_charges_k2_where_the_cpu_runs_the_plain_math(
     res = _step("stablelm-1.6b", (1, 1), "decode")
     assert len(calls) == m.cfg.n_layers
     assert res.flops_per_chip == meter.cost.flops
-
-
-def test_meter_marks_dtensor_propagation_only_while_open():
-    from torch.distributed.tensor._sharding_prop import ShardingPropagator
-    orig = ShardingPropagator._propagate_tensor_meta_non_cached
-    with hloparse.Meter():
-        marked = ShardingPropagator._propagate_tensor_meta_non_cached
-        assert marked is not orig
-        with hloparse.Meter():
-            pass
-        assert ShardingPropagator._propagate_tensor_meta_non_cached is marked
-    assert ShardingPropagator._propagate_tensor_meta_non_cached is orig
 
 
 def test_collective_proof_int8_moves_half_the_metric_bytes(tmp_path):

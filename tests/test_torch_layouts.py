@@ -8,7 +8,7 @@ the same blocks against the reference are in ``test_torch_sharding.py``.
   token shard's ranks plus the shards before it give the whole batch's.
 * On a mesh of one rank, and on plain tensors, the MoE and Mamba2 blocks
   compute the same thing bit for bit (their one-device code).
-* Which query layouts keep their split (``context.grouped_heads``), and
+* Which query layouts keep their split (``context.head_layout``), and
   where K2 takes each rank's group (``ops._grouped_query``): only for a
   group it is built for (``decode_attn.built``, which matches the CUDA
   source's instantiations).
@@ -134,11 +134,16 @@ def _meta(mesh, shape, placements):
     (12, 3, 4, False),    # 3 heads a rank across groups of 4
 ])
 def test_grouped_heads_keeps_a_split_inside_groups(hq, hk, model, kept):
+    """Each model rank keeps its query heads where they hold whole KV
+    groups ("local") or lie inside one ("group"); else every rank takes
+    every head ("whole")."""
     mesh = _mesh((1, model))
-    q = _meta(mesh, (4, 8, hq, 16), [Replicate(), Shard(2)])
-    got = context.grouped_heads(q, hq, hk, dim=2)
-    want = (Replicate(), Shard(2) if kept else Replicate())
-    assert tuple(got.placements) == want
+    with context.activation_rules(mesh, {"batch": ("data",)}):
+        context.enter(batch={"tokens": torch.empty((4, 8), device="meta")})
+        got = context.head_layout(hq, hk)
+    assert (got != "whole") == kept
+    assert got == ("local" if hk % model == 0 else "group" if kept
+                   else "whole")
 
 
 @pytest.mark.parametrize("hq,hk,d,model,group", [

@@ -11,8 +11,7 @@ dispatch) against the reference, on the CPU.
   (a fake process group, one rank at a time) starts where the reference's
   ``devices_indices_map`` puts that device's, ``("pod", "data")`` pod
   major.
-* The kernel layer imports no model (``distributed/layout`` is a leaf),
-  and plain tensors count as replicated through nested blocks.
+* The kernel layer imports no model (``distributed/layout`` is a leaf).
 * A real 4-rank gloo world (spawned once, ``torch_mesh_worker``): the
   smoke models' loss and gradients under ``train_rules`` against the
   one-process port and the reference (the embedding lookup and the loss
@@ -216,18 +215,6 @@ def test_kernel_layer_imports_no_model():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, check=True)
     assert out.stdout.strip() == "[]", out.stdout
-
-
-def test_plain_tensors_count_as_replicated_in_nested_blocks():
-    from torch.distributed.tensor import DTensor
-    from repro_torch.distributed.layout import replicate_plain_tensors
-    on = lambda: DTensor._op_dispatcher._allow_implicit_replication
-    assert not on()
-    with replicate_plain_tensors():
-        with replicate_plain_tensors():
-            assert on()
-        assert on()
-    assert not on()
 
 
 @pytest.mark.parametrize("mesh_name,sizes", HOST_MESHES)

@@ -609,6 +609,101 @@ def wide_train_job(rank, payload):
     return out
 
 
+@contextlib.contextmanager
+def dtensor_ops():
+    """Inside the block every op dispatched with a DTensor argument (what
+    reaches DTensor's op dispatcher and its sharding propagation) is
+    recorded: (op, each DTensor argument's placements and global shape).
+    A dispatch mode sees each op before DTensor's dispatch does, on any
+    torch version."""
+    from torch.distributed.tensor import DTensor
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Seen(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if any(issubclass(t, DTensor) for t in types):
+                self.ops.append((str(func), [
+                    (str(a.placements), tuple(a.shape)) for a in args
+                    if isinstance(a, DTensor)]))
+                return NotImplemented
+            return func(*args, **(kwargs or {}))
+
+    with Seen() as mode:
+        yield mode.ops
+
+
+def _leaf_accumulation(op, params):
+    """Whether a recorded DTensor op is the accumulation of a parameter's
+    gradients laid out alike: an add of two DTensors of one layout and a
+    parameter's shape."""
+    name, tensors = op
+    shapes = {tuple(p.shape) for p in params}
+    return name.startswith("aten.add") and len(tensors) == 2 and \
+        tensors[0] == tensors[1] and tensors[0][1] in shapes
+
+
+def local_layout_job(rank, payload):
+    """Each smoke family on a (2, 2) mesh: ``Model.loss`` and its backward
+    under ``train_rules``, and a prefill and one decode step under
+    ``decode_rules`` with a channelized cache, with every op that reaches
+    DTensor's dispatcher recorded (:func:`dtensor_ops`); returns, a
+    family and phase, the ops other than a leaf's gradient accumulation
+    laid out alike, and the loss and logits (finite)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticDataset
+    from repro_torch.distributed import context
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import Model, smoke_variant
+    from repro_torch.models import layers as L
+
+    mesh = _host_mesh()
+    out = {}
+    for arch in payload["archs"]:
+        cfg = smoke_variant(get_config(arch))
+        model = Model(cfg, device="cpu")
+        init = model.init(0)
+        params = shd.distribute(init, shd.param_shardings(
+            model, mesh, shd.train_rules(mesh, cfg)))
+        leaves = [p.requires_grad_(True) for _, p in
+                  L.flatten_tree(params, torch.is_tensor)]
+        data = {k: torch.as_tensor(v) for k, v in SyntheticDataset(
+            cfg, 4, 16, seed=3).batch_at(0).items()}
+        batch = shd.distribute(data, shd.batch_shardings(mesh, data))
+        rules = {"batch": shd.fsdp_axes(mesh)}
+        with context.activation_rules(mesh, rules), dtensor_ops() as seen:
+            loss, _ = model.loss(params, batch)
+            grads = torch.autograd.grad(loss.to_local(), leaves,
+                                        allow_unused=True)
+        out[arch, "train"] = dict(
+            ops=[op for op in seen if not _leaf_accumulation(op, leaves)],
+            finite=bool(torch.isfinite(loss.to_local())) and all(
+                bool(torch.isfinite(g.to_local()).all())
+                for g in grads if g is not None))
+        if not cfg.has_decode:
+            continue
+        params = shd.distribute(init, shd.param_shardings(
+            model, mesh, shd.decode_rules(mesh, cfg)))
+        cache = model.make_cache(4, 16)
+        cache = shd.distribute(cache, shd.cache_shardings(cfg, mesh, cache))
+        prompt = {k: v[:, :8] for k, v in data.items()
+                  if k in ("tokens", "positions")}
+        with torch.no_grad(), context.activation_rules(mesh, rules), \
+                dtensor_ops() as seen:
+            lg, cache = model.prefill(params, shd.distribute(
+                prompt, shd.batch_shardings(mesh, prompt)), cache)
+            sb = {k: v[:, 8:9] for k, v in data.items()
+                  if k in ("tokens", "positions")}
+            lg, cache = model.decode_step(params, shd.distribute(
+                sb, shd.batch_shardings(mesh, sb)), cache)
+        out[arch, "decode"] = dict(
+            ops=seen, finite=bool(torch.isfinite(lg.to_local()).all()))
+    return out
+
+
 def sharding_job(rank, payload):
     return dict(model_job(rank, payload["model"]),
                 wide=wide_train_job(rank, payload["wide"]),
@@ -620,4 +715,5 @@ def sharding_job(rank, payload):
 
 
 JOBS = {"sharding": sharding_job, "int8": int8_job,
-        "context_parallel": context_parallel_job}
+        "context_parallel": context_parallel_job,
+        "local_layout": local_layout_job}
